@@ -1,0 +1,136 @@
+"""Generate synthetic calcium signals from a JAX-trained checkpoint on the
+GPU (serving; counterpart of ``generate.py`` at the repo root).
+
+    python -m calciumgan_tpu_torch.generate --output_dir runs/001 \\
+        --num_samples 100000 --spikes
+
+Restores the generator (the EMA when the run kept one) from
+``<output_dir>/checkpoints/epoch-NNN.msgpack``, generates on ``--device``
+(default ``cuda``) and writes denormalised NWC float32 signals to the h5
+dataset ``signals``, with OASIS spikes as int8 ``spikes`` under
+``--spikes``. One device, eager; the JAX package's sharded multi-host
+generation has no counterpart yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from calciumgan_tpu_torch import convert
+from calciumgan_tpu_torch.algorithms import gan
+from calciumgan_tpu_torch.config import Config
+from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
+from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
+from calciumgan_tpu_torch.models import get_models
+from calciumgan_tpu_torch.utils.checkpoint import import_jax_checkpoint
+
+
+def build_generator(config, params, device) -> torch.nn.Module:
+    """The configured generator on ``device`` with Flax ``params``."""
+    generator = get_models(config, device=device)
+    generator.load_state_dict(convert.generator_state_dict(params))
+    return generator
+
+
+def generate(config, params, num_samples: int, batch_size: int = 1024,
+             with_spikes: bool = False, seed: int = 0,
+             device="cuda") -> Iterator[dict]:
+    """Yield one payload per batch until ``num_samples`` rows: ``signals``
+    ``(n, T, C)`` float32 in recording units and, ``with_spikes``, int8
+    ``spikes`` of the same shape, both host numpy arrays.
+
+    Noise is drawn ``batch_size`` rows at a time from a ``torch.Generator``
+    on ``device`` seeded with ``seed``. On a CUDA device float32 layers
+    follow torch's TF32 switches, which the caller sets (:func:`main` turns
+    both off)."""
+    device = torch.device(device)
+    generator = build_generator(config, params, device)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    written = 0
+    while written < num_samples:
+        n = min(batch_size, num_samples - written)
+        noise = gan.get_noise(rng, batch_size, config.noise_dim, device)
+        fake = gan.generate(generator, noise)
+        signals = reverse_preprocessing(config, fake)[:n].float()
+        payload = {"signals": signals.cpu().numpy()}
+        if with_spikes:
+            traces = signals.transpose(1, 2).contiguous()  # (n, C, T)
+            payload["spikes"] = np.ascontiguousarray(
+                np.transpose(deconvolve_traces(traces), (0, 2, 1)))
+        yield payload
+        written += n
+
+
+def main(config, num_samples: int, out: str, batch_size: int = 1024,
+         with_spikes: bool = False, epoch=None, seed: int = 0,
+         device="cuda") -> str:
+    from calciumgan_tpu.utils import h5  # h5py only for the CLI
+
+    # float32 layers in full float32, not TF32, on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config.load()  # hparams.json of the training run
+    config.validate_model_shapes()
+    ckpt_dir = config.ckpt_dir or os.path.join(config.output_dir,
+                                               "checkpoints")
+    params, restored_epoch = import_jax_checkpoint(
+        ckpt_dir, epoch=epoch, ema=float(config.ema or 0.0) > 0.0)
+    if config.verbose:
+        print(f"Imported checkpoint epoch {restored_epoch} from {ckpt_dir}")
+    if os.path.exists(out):
+        os.remove(out)
+    written = 0
+    for payload in generate(config, params, num_samples, batch_size,
+                            with_spikes, seed, device):
+        h5.write(out, payload)
+        written += len(payload["signals"])
+        if config.verbose:
+            print(f"\r{written}/{num_samples}", end="", flush=True)
+    if config.verbose:
+        print(f"\nsaved {written} samples (epoch {restored_epoch} "
+              f"checkpoint) to {out}")
+    return out
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--output_dir", default="runs", type=str,
+                        help="training run directory (hparams + checkpoints)")
+    parser.add_argument("--num_samples", default=10000, type=int)
+    parser.add_argument("--batch_size", default=1024, type=int)
+    parser.add_argument("--out", default="", type=str,
+                        help="output h5 (default <output_dir>/samples.h5)")
+    parser.add_argument("--spikes", action="store_true",
+                        help="also deconvolve spikes (OASIS)")
+    parser.add_argument("--epoch", default=None, type=int,
+                        help="checkpoint epoch (default: latest)")
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--ema", default=argparse.SUPPRESS, type=float,
+                        help="override the run's --ema at generation time "
+                             "(--ema 0 samples the raw generator of an "
+                             "EMA-trained checkpoint)")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="torch device to generate on")
+    parser.add_argument("--verbose", default=1, type=int)
+    return parser.parse_args(argv)
+
+
+def cli(argv=None) -> str:
+    args = parse_args(argv)
+    config = Config(output_dir=args.output_dir, verbose=args.verbose)
+    if hasattr(args, "ema"):
+        config.ema = args.ema
+        config._explicit.add("ema")
+    return main(config, num_samples=args.num_samples,
+                out=args.out or os.path.join(args.output_dir, "samples.h5"),
+                batch_size=args.batch_size, with_spikes=args.spikes,
+                epoch=args.epoch, seed=args.seed, device=args.device)
+
+
+if __name__ == "__main__":
+    cli()

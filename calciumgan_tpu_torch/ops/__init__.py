@@ -1,0 +1,4 @@
+"""Ops (counterpart of :mod:`calciumgan_tpu.ops`): the OASIS AR(1) kernel
+(:mod:`.oasis_cuda`), its plain PyTorch version (:mod:`.oasis_torch`),
+the host-side dispatch (:mod:`.oasis`) and the float64 golden model it is
+held to (:mod:`.golden`)."""
