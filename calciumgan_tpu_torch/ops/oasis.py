@@ -1,20 +1,22 @@
 """Host-side dispatch of OASIS AR(1) spike deconvolution (counterpart of
-``calciumgan_tpu/ops/oasis.py:179-260,288-380,401-430``).
+``calciumgan_tpu/ops/oasis.py:179-398,401-430``).
 
-:func:`deconvolve_signals_host` runs the OASIS kernel
-(:func:`calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1`: the CUDA kernel for
-a CUDA tensor, its plain PyTorch twin for a CPU tensor) with the JAX
-package's production arguments, walks the stack-depth ladder while too many
+:func:`deconvolve_signals_host` runs the OASIS kernel with the JAX
+package's production arguments, walks a stack-depth ladder while too many
 traces overflow, and recomputes every flagged trace exactly in float64 on
 the host (the JAX package's C++ OASIS, compiled by the port:
-:func:`host_library`). The constants are the JAX package's, with the reasons given there:
-they were measured for the algorithm and its float32 arithmetic, which the
-port keeps. Throughput figures in the JAX comments were taken on a TPU and
-say nothing of the GPU.
+:func:`host_library`). Traces of up to ``_PALLAS_MAX_T`` frames take
+:func:`calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1` with the classic
+machine and ``_DEPTH_LADDER``; longer ones (whole recordings) take
+:func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1_long` with the precise
+machine and the T-scaled ``_long_ladder``. Either runs the CUDA kernel for a
+CUDA tensor and its plain PyTorch twin for a CPU tensor. The constants are
+the JAX package's, with the reasons given there: they were measured for the
+algorithm and its float32 arithmetic, which the port keeps. Throughput
+figures in the JAX comments were taken on a TPU and say nothing of the GPU.
 
-Not ported yet: traces longer than ``_PALLAS_MAX_T`` on the GPU (the
-time-chunked ``oasis_ar1_pallas_long`` with its precise machine and
-T-scaled ladder) and the in-graph ``deconvolve_signals``.
+Not ported yet: the in-graph ``deconvolve_signals`` and its XLA
+``while_loop`` machine ``oasis_ar1_jax``.
 """
 
 from __future__ import annotations
@@ -47,20 +49,42 @@ _MERGE_BUDGET = 2
 # — JAX ops/oasis.py:209-216
 _BORDERLINE_TOL = 1e-5
 
-# longest trace of the whole-trace kernel; longer recordings took the
-# time-chunked TPU kernel, which is not ported yet — JAX ops/oasis.py:250-260
-_PALLAS_MAX_T = 4096
+# band of the precise machine (compensated v, closed-form w, split-argument
+# g^l), 4.5x the largest margin error measured against f64 over 15.3M
+# replayed decisions at 20k frames (3.36e-7) — JAX ops/oasis.py:218-228
+_BORDERLINE_TOL_PRECISE = 1.5e-6
+
+# longest trace the whole-trace TPU kernel holds in VMEM; longer recordings
+# take the long kernel with the precise machine and the T-scaled ladder —
+# JAX ops/oasis.py:250-260 (its _LONG_CHUNK sizes VMEM windows and has no
+# counterpart here)
+_PALLAS_MAX_T = oasis_cuda.PALLAS_MAX_T
 
 # fewest flagged traces worth a thread of the host redo
 _HOST_ROWS_PER_THREAD = 256
 
 
-def _flag_tol(s_min: float, threshold: float) -> float:
+def _flag_tol(s_min: float, threshold: float,
+              precise: bool = False) -> float:
     """Borderline band for ``(s_min, threshold)``: off only at ``s_min ==
     0``, where a flipped decision reconstructs the identical trace (JAX
-    ``ops/oasis.py:231-248``)."""
+    ``ops/oasis.py:231-248``); the precise machine's band is tighter."""
     del threshold
-    return 0.0 if s_min <= 0.0 else _BORDERLINE_TOL
+    if s_min <= 0.0:
+        return 0.0
+    return _BORDERLINE_TOL_PRECISE if precise else _BORDERLINE_TOL
+
+
+def _long_ladder(T: int) -> tuple:
+    """Depth ladder for whole recordings, scaled to T (JAX
+    ``ops/oasis.py:264-285``): the final pool count grows with T (about the
+    spike count; mean 403 / max 439 measured at 20k frames), so the first
+    rung is 2.3% of T, 64-row aligned and at least 256 (512 at 20k frames),
+    then it doubles; every rung is capped at T and at 2048 rows, and lanes
+    deeper than the last rung go to the host redo."""
+    r1 = max(256, -(-int(0.023 * T) // 64) * 64)
+    return tuple(dict.fromkeys(
+        min(T, d, 2048) for d in (r1, 2 * r1, max(4 * r1, 1024))))
 
 
 def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
@@ -71,29 +95,44 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
 
     ``signals``: a float32 tensor on the CPU or a CUDA device (the kernel
     runs where it lies), or a numpy array (taken as a CPU tensor).
-    ``depth=None`` walks ``_DEPTH_LADDER``; an explicit ``depth`` pins one
-    dispatch."""
+    ``depth=None`` walks ``_DEPTH_LADDER``, or ``_long_ladder(T)`` for
+    traces longer than ``_PALLAS_MAX_T``; an explicit ``depth`` pins one
+    dispatch. Long traces on the CPU go straight to the exact host kernel,
+    as the JAX package's do off the TPU (JAX ``ops/oasis.py:322-327``)."""
     if isinstance(signals, np.ndarray):
         signals = torch.from_numpy(np.ascontiguousarray(signals, np.float32))
     signals = signals.float().contiguous()
     T = signals.shape[-1]
     flat = signals.reshape(-1, T)
-    if T > _PALLAS_MAX_T:
-        if signals.is_cuda:
-            raise NotImplementedError(
-                f"traces of {T} > {_PALLAS_MAX_T} frames need the "
-                "time-chunked kernel oasis_ar1_pallas_long, not ported yet "
-                "(ROADMAP, still to port)")
+    long = T > _PALLAS_MAX_T
+    if long and not signals.is_cuda:
         exact = _exact_spikes_host(flat.numpy(), g, s_min, threshold)
         return exact.reshape(signals.shape)
     if depth is not None:
         ladder = (depth,)
+    elif long:
+        ladder = _long_ladder(T)
     else:  # clamp to T and dedupe so short traces run one rung
         ladder = tuple(dict.fromkeys(min(T, d) for d in _DEPTH_LADDER))
+    # long traces: the long kernel with the precise machine and its band
+    # (JAX ops/oasis.py:369-398)
+    entry = oasis_cuda.oasis_ar1_long if long else oasis_cuda.oasis_ar1
+    spikes = _ladder_spikes(flat, ladder, entry, long, g, s_min, threshold)
+    return spikes.reshape(signals.shape)
+
+
+def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
+                   g: float, s_min: float, threshold: float) -> np.ndarray:
+    """Host ``np.int8`` spikes of ``(N, T)`` traces: the kernel ``entry``
+    (``oasis_cuda.oasis_ar1`` or ``oasis_ar1_long``) with the production
+    merge budget and the band of the ``precise`` or classic machine, on
+    each rung of ``ladder`` while more than ``_ESCALATE_FRAC`` of the
+    traces overflow, then every flagged trace recomputed in float64 on the
+    host (JAX ``ops/oasis.py:343-366``)."""
     for i, d in enumerate(ladder):
-        _, s, redo = oasis_cuda.oasis_ar1(
-            signals, g=g, lam=0.0, s_min=s_min, depth=d,
-            merge_attempts=_MERGE_BUDGET, flag_tol=_flag_tol(s_min, threshold))
+        _, s, redo = entry(flat, g=g, lam=0.0, s_min=s_min, depth=d,
+                           merge_attempts=_MERGE_BUDGET, precise=precise,
+                           flag_tol=_flag_tol(s_min, threshold, precise))
         flags = redo.reshape(-1).cpu().numpy()
         # escalate only on DEPTH flags (bit 0): a deeper stack cannot help
         # an exhausted merge budget (bit 1) or a borderline decision (bit 2)
@@ -104,8 +143,7 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     if flags.any():
         idx = np.nonzero(flags)[0]
         rows = flat[torch.from_numpy(idx).to(flat.device)].cpu().numpy()
-        spikes.reshape(-1, T)[idx] = _exact_spikes_host(rows, g, s_min,
-                                                        threshold)
+        spikes[idx] = _exact_spikes_host(rows, g, s_min, threshold)
     return spikes
 
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving path and whole-recording spike
+inference once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs four phases, printing one line of findings per phase:
+``nvcc`` and runs five phases, printing one line of findings per phase:
 
 1. device: the card, its power limit (``nvidia-smi``), the kernel build
    and the build of the float64 C++ redo of flagged traces;
@@ -21,7 +22,18 @@ Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
 4. timings on the card, each beside the card's name and power limit:
    generator, kernel and plain version (held against each other again at
    the main path's shape, one batch of generated traces), host redo, end
-   to end, and the host-clock stages of one batch.
+   to end, and the host-clock stages of one batch;
+5. recordings: 2048 seeded synthetic recordings of 20,000 frames on the
+   card. The long kernel (precise machine, production arguments) and the
+   short kernel's precise mode against their plain versions, with the
+   redo-bit and precise-band edge cases; the precise mode's public entry
+   with its own launch count (no production path runs that mode); the
+   dispatch's long route against
+   the float64 golden (256 rows) and the C++ float64 kernel (all rows);
+   ``python -m calciumgan_tpu_torch.dataset.spike_train_inference
+   --device cuda`` in-process on four 102 x 20,000 pickles, with its
+   launch counts, against the dispatch and the golden; the timings, beside
+   the card's name and power limit.
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -43,6 +55,11 @@ G, S_MIN, THRESHOLD = 0.95, 0.55, 0.5
 KERNEL_TRACES = 4096        # phase 2 batch (B >= 4096)
 BATCH, BATCHES = 1024, 2    # phase 3 generation
 GOLDEN_TRACES = 8192        # generated traces checked against float64
+# phase 5: whole recordings (tools/check_long_kernel_tpu.py's size)
+REC_TRACES, REC_T = 2048, 20000
+REC_GOLDEN_TRACES = 256     # of them checked against the numpy golden
+CLI_FILES, CLI_NEURONS = 4, 102
+CLI_GOLDEN_ROWS = 32        # per file, against the numpy golden
 ATOL = 1e-4                 # c, s: float32 pools vs float32 pools
 GEN_F32_TOL = 1e-4          # generator on the card vs the CPU, float32
 # the same in bfloat16: cuDNN and the CPU sum in other orders and round
@@ -121,12 +138,23 @@ def phase_device(root):
     return smi
 
 
-def compare_kernel(y, **kw):
-    """Kernel and plain version on the same CUDA traces; the findings."""
+def compare_kernel(y, long=False, **kw):
+    """Kernel and plain version on the same CUDA traces; the findings. With
+    ``long``, the long entry and its plain twin; ``plain_ms`` is the plain
+    call's own time by CUDA events."""
     import torch
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
-    c, s, redo = oasis_cuda.oasis_ar1_cuda(y, **kw)
-    c_p, s_p, redo_p = oasis_torch.oasis_ar1_torch(y, **kw)
+    if long:
+        kernel = oasis_cuda.oasis_ar1_long
+        plain = oasis_torch.oasis_ar1_long_torch
+    else:
+        kernel, plain = oasis_cuda.oasis_ar1_cuda, oasis_torch.oasis_ar1_torch
+    c, s, redo = kernel(y, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    c_p, s_p, redo_p = plain(y, **kw)
+    end.record()
     torch.cuda.synchronize()
     differ = redo != redo_p
     ok = (redo == 0) & (redo_p == 0)  # flagged lanes' output is unspecified
@@ -135,12 +163,22 @@ def compare_kernel(y, **kw):
         err = max(float((c - c_p)[ok].abs().max()),
                   float((s - s_p)[ok].abs().max()))
     spikes_equal = bool(torch.equal(s[ok] > THRESHOLD, s_p[ok] > THRESHOLD))
+    flags = redo.reshape(-1)
     return dict(lanes=int(redo.numel()), bits_differ=int(differ.sum()),
                 differ_outside_bit2=int(((redo ^ redo_p) & 3).ne(0).sum()),
-                unflagged=int(ok.sum()), max_abs_err=err,
+                unflagged=int(ok.sum()), flagged=int(redo.ne(0).sum()),
+                max_abs_err=err,
                 spikes_equal=spikes_equal,
-                redo=[int(redo.reshape(-1)[0])], redo_plain=[int(
+                bit_frac={f"bit{b}": float(((flags >> b) & 1).float().mean())
+                          for b in range(3)},
+                plain_ms=start.elapsed_time(end),
+                redo=[int(flags[0])], redo_plain=[int(
                     redo_p.reshape(-1)[0])])
+
+
+def strip(found) -> dict:
+    """:func:`compare_kernel`'s findings without the sample redo words."""
+    return {k: v for k, v in found.items() if not k.startswith("redo")}
 
 
 def check_agreement(found) -> None:
@@ -188,7 +226,7 @@ def phase_kernel():
     check(mismatches == 0, f"dispatch spikes: {mismatches} mismatches")
     torch.cuda.synchronize()
     report("phase 2 kernel", shape=[KERNEL_TRACES, T], production=prod,
-           **{k: v for k, v in main.items() if not k.startswith("redo")},
+           **strip(main),
            edge_bits={"bit0": bit0["redo"][0], "bit1": bit1["redo"][0],
                       "bit2": bit2["redo"][0]},
            dispatch_vs_golden=dict(golden="oasis_ref",
@@ -230,13 +268,13 @@ def phase_slice(config, params):
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
     ref_errs = generator_reference_check(config, params)
 
-    oasis_cuda.launches = 0
+    oasis_cuda.launches.clear()
     oasis_torch.calls = 0
     start = time.perf_counter()
     payloads = list(generate(config, params, BATCH * BATCHES, BATCH,
                              with_spikes=True, seed=SEED, device="cuda"))
     seconds = time.perf_counter() - start
-    launches, calls = oasis_cuda.launches, oasis_torch.calls
+    launches, calls = oasis_cuda.launches["oasis_ar1"], oasis_torch.calls
 
     check(len(payloads) == BATCHES, f"{len(payloads)} batches")
     shape = (BATCH, T, config.num_channels)
@@ -327,8 +365,7 @@ def phase_timings(config, params, smi):
     check_agreement(generated)
     kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_cuda(traces, **kw),
                         reps=5)
-    plain_ms = cuda_ms(lambda: oasis_torch.oasis_ar1_torch(traces, **kw),
-                       reps=1)
+    plain_ms = generated["plain_ms"]  # the comparison's own call
     _, _, redo = oasis_cuda.oasis_ar1_cuda(traces, **kw)
     flags = redo.cpu().numpy()
     bit_frac = {f"bit{b}": float(((flags >> b) & 1).mean()) for b in range(3)}
@@ -346,8 +383,7 @@ def phase_timings(config, params, smi):
     e2e_s = time.perf_counter() - start
     stages = e2e_stages(config, params, dev)
     B = traces.shape[0]
-    report("phase 4 timings", card=smi, kernel_vs_plain={
-               k: v for k, v in generated.items() if not k.startswith("redo")},
+    report("phase 4 timings", card=smi, kernel_vs_plain=strip(generated),
            generator_ms_per_batch=gen_ms,
            generator_samples_per_s=BATCH / gen_ms * 1e3,
            kernel_traces=B, kernel_ms=kernel_ms,
@@ -359,6 +395,197 @@ def phase_timings(config, params, smi):
            batch_stages_s=stages)
     torch.cuda.synchronize()
     return kernel_ms, plain_ms, generated["max_abs_err"]
+
+
+def phase_recordings(smi):
+    """Whole recordings: the long kernel and the precise machine against
+    their plain versions, the dispatch's long route against the float64
+    references, and the spike-inference CLI on seeded pickles."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.dataset import spike_train_inference as cli
+    from calciumgan_tpu_torch.ops import golden
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    host = golden.synth_ar1_traces(rng, REC_TRACES, REC_T)
+    y = torch.from_numpy(host).to(dev)
+    ladder = dispatch._long_ladder(REC_T)
+    prod = dict(g=G, lam=0.0, s_min=S_MIN, depth=ladder[0],
+                merge_attempts=dispatch._MERGE_BUDGET, precise=True,
+                flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD, precise=True))
+
+    # 1. the long kernel vs its plain version, production arguments
+    long_main = compare_kernel(y, long=True, **prod)
+    check_agreement(long_main)
+    long_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(y, **prod), reps=3)
+
+    # 2. redo-bit edge cases through the long and the precise short entry
+    ramp = torch.linspace(0.0, 10.0, 160, device=dev)[None].repeat(3, 1)
+    bit0 = compare_kernel(ramp, long=True, s_min=0.0, depth=16, precise=True)
+    dense = torch.from_numpy(golden.synth_ar1_traces(
+        np.random.default_rng(SEED), 4, 128, rate=0.3)).to(dev)
+    bit1 = compare_kernel(dense, long=True, s_min=S_MIN, merge_attempts=1,
+                          precise=True)
+    # the precise band (tests/test_oasis_pallas.py:107-130): a 1e-5 margin
+    # resolves unflagged and as the float64 golden does, 1e-8 sets bit 2
+    edge = torch.zeros((1, 64), device=dev)
+    edge[0, 0] = 2.0
+    band = {}
+    for name, margin in (("resolved", 1e-5), ("bit2", 1e-8)):
+        edge[0, 1] = float(np.float32(G * 2.0 + S_MIN + margin))
+        band[name] = compare_kernel(edge, g=G, s_min=S_MIN, flag_tol=1e-6,
+                                    precise=True)
+        if name == "resolved":
+            _, s_edge, _ = oasis_cuda.oasis_ar1_cuda(
+                edge, g=G, s_min=S_MIN, flag_tol=1e-6, precise=True)
+            ref = golden_spikes(edge.cpu().numpy())
+            check(np.array_equal((s_edge > THRESHOLD).cpu().numpy(),
+                                 ref == 1),
+                  "1e-5 margin: precise spikes differ from float64")
+    for name, case, bit in (("bit0", bit0, 1), ("bit1", bit1, 2),
+                            ("bit2", band["bit2"], 4)):
+        check(case["redo"] == case["redo_plain"] and case["redo"][0] & bit,
+              f"{name} edge case: {case['redo']} vs {case['redo_plain']}")
+    check(band["resolved"]["redo"] == band["resolved"]["redo_plain"] == [0],
+          f"1e-5 margin flagged: {band['resolved']['redo']}")
+
+    # 3. the short kernel's precise mode at sl2048
+    short = torch.from_numpy(golden.synth_ar1_traces(
+        np.random.default_rng(SEED), KERNEL_TRACES, T)).to(dev)
+    short_kw = dict(g=G, lam=0.0, s_min=S_MIN,
+                    depth=dispatch._DEPTH_LADDER[0],
+                    merge_attempts=dispatch._MERGE_BUDGET, precise=True,
+                    flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD,
+                                                precise=True))
+    precise_main = compare_kernel(short, **short_kw)
+    check_agreement(precise_main)
+    precise_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_cuda(short, **short_kw),
+                         reps=5)
+    # no production path runs it (the JAX package calls it only for an
+    # A/B), so its own path is the public entry, counted alone
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    _, _, redo_path = oasis_cuda.oasis_ar1(short, **short_kw)
+    precise_launches = oasis_cuda.launches["oasis_ar1_precise"]
+    check(precise_launches > 0 and oasis_torch.calls == 0,
+          f"precise entry: {dict(oasis_cuda.launches)}, plain calls "
+          f"{oasis_torch.calls}")
+    check(int(redo_path.ne(0).sum()) == precise_main["flagged"],
+          "precise entry flags differ from the compared kernel's")
+
+    # 4. the dispatch's long route on the CUDA corpus
+    before = oasis_cuda.launches["oasis_ar1_long_precise"]
+    spikes = dispatch.deconvolve_signals_host(y)
+    rungs = ladder[:oasis_cuda.launches["oasis_ar1_long_precise"] - before]
+    start = time.perf_counter()
+    spikes_again = dispatch.deconvolve_signals_host(
+        torch.from_numpy(host).to(dev))
+    dispatch_s = time.perf_counter() - start
+    check(np.array_equal(spikes, spikes_again), "dispatch not repeatable")
+    pick = np.sort(np.random.default_rng(SEED).choice(
+        REC_TRACES, REC_GOLDEN_TRACES, replace=False))
+    golden_ref = golden_spikes(host[pick])
+    vs_golden = int((spikes[pick] != golden_ref).sum())
+    check(vs_golden == 0,
+          f"long dispatch: {vs_golden} mismatches vs oasis_ref")
+    exact = dispatch._exact_spikes_host(host, G, S_MIN, THRESHOLD)
+    vs_cxx = int((spikes != exact).sum())
+    check(vs_cxx == 0, f"long dispatch: {vs_cxx} mismatches vs the C++ redo")
+    _, _, redo = oasis_cuda.oasis_ar1_long(y, **prod)
+    flagged = np.nonzero(redo.cpu().numpy())[0]
+    start = time.perf_counter()
+    dispatch._exact_spikes_host(host[flagged], G, S_MIN, THRESHOLD)
+    redo_s = time.perf_counter() - start
+
+    # 5. the CLI on seeded whole-recording pickles: the main path
+    with tempfile.TemporaryDirectory() as tmp:
+        recordings = []
+        for i in range(CLI_FILES):
+            sig = golden.synth_ar1_traces(np.random.default_rng(SEED + 1 + i),
+                                          CLI_NEURONS, REC_T)
+            recordings.append(sig)
+            with open(os.path.join(tmp, f"rec{i}.pkl"), "wb") as f:
+                pickle.dump({"signals": sig}, f)
+        oasis_cuda.launches.clear()
+        oasis_torch.calls = 0
+        start = time.perf_counter()
+        cli.main(["--input_dir", tmp, "--device", "cuda"])
+        cli_s = time.perf_counter() - start
+        cli_launches = dict(oasis_cuda.launches)
+        cli_calls = oasis_torch.calls
+        check(cli_launches.get("oasis_ar1_long_precise", 0) > 0,
+              f"the long kernel was not launched: {cli_launches}")
+        check(cli_calls == 0, f"the plain OASIS version ran {cli_calls} times")
+        cli_golden = 0
+        for i, sig in enumerate(recordings):
+            with open(os.path.join(tmp, f"rec{i}.pkl"), "rb") as f:
+                out = pickle.load(f)["oasis"]
+            check(out.dtype == np.float32 and out.shape == sig.shape,
+                  f"oasis {out.dtype} {out.shape}")
+            check(set(np.unique(out).tolist()) <= {0.0, 1.0},
+                  "oasis not in {0,1}")
+            same = dispatch.deconvolve_signals_host(
+                torch.from_numpy(sig).to(dev))
+            check(np.array_equal(out, same.astype(np.float32)),
+                  f"rec{i}: the CLI differs from deconvolve_signals_host")
+            rows = np.sort(np.random.default_rng(SEED + i).choice(
+                CLI_NEURONS, CLI_GOLDEN_ROWS, replace=False))
+            cli_golden += int((out[rows] != golden_spikes(sig[rows])).sum())
+        check(cli_golden == 0, f"CLI: {cli_golden} mismatches vs oasis_ref")
+        one = torch.from_numpy(recordings[0]).to(dev)  # one recording
+        cli_kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(one, **prod),
+                                reps=3)
+        cli.main(["--input_dir", tmp, "--device", "cuda", "--clean"])
+        for i in range(CLI_FILES):
+            with open(os.path.join(tmp, f"rec{i}.pkl"), "rb") as f:
+                check("oasis" not in pickle.load(f), "--clean kept oasis")
+    torch.cuda.synchronize()
+
+    report("phase 5 recordings", card=smi, shape=[REC_TRACES, REC_T],
+           production=prod, long_vs_plain=strip(long_main),
+           long_kernel_ms=long_ms,
+           long_kernel_traces_per_s=REC_TRACES / long_ms * 1e3,
+           long_plain_ms=long_main["plain_ms"],
+           long_plain_traces_per_s=REC_TRACES / long_main["plain_ms"] * 1e3,
+           edge_bits={"bit0": bit0["redo"][0], "bit1": bit1["redo"][0],
+                      "bit2": band["bit2"]["redo"][0],
+                      "resolved": band["resolved"]["redo"][0]},
+           precise_short=dict(shape=[KERNEL_TRACES, T], **strip(precise_main),
+                              kernel_ms=precise_ms,
+                              entry_launches=precise_launches),
+           dispatch=dict(rungs=list(rungs), ladder=list(ladder),
+                         seconds_host_to_host=dispatch_s,
+                         golden="oasis_ref", golden_traces=REC_GOLDEN_TRACES,
+                         mismatches_vs_golden=vs_golden,
+                         mismatches_vs_cxx_redo=vs_cxx,
+                         spikes=int(spikes.sum()), flagged=len(flagged),
+                         host_redo_s=redo_s),
+           cli=dict(files=CLI_FILES, shape=[CLI_NEURONS, REC_T],
+                    seconds=cli_s, seconds_per_recording=cli_s / CLI_FILES,
+                    kernel_ms_per_recording=cli_kernel_ms,
+                    launches=cli_launches, plain_calls=cli_calls,
+                    golden_rows=CLI_FILES * CLI_GOLDEN_ROWS,
+                    mismatches_vs_golden=cli_golden))
+    err = max(long_main["max_abs_err"], bit0["max_abs_err"],
+              bit1["max_abs_err"])
+    precise_err = max(precise_main["max_abs_err"],
+                      band["resolved"]["max_abs_err"])
+    return dict(
+        precise=dict(launches=precise_launches,
+                     path=f"oasis_cuda.oasis_ar1(precise=True), "
+                          f"{KERNEL_TRACES} x {T}",
+                     max_abs_err=precise_err, ms=precise_ms,
+                     plain_ms=precise_main["plain_ms"]),
+        long=dict(launches=cli_launches.get("oasis_ar1_long", 0)
+                  + cli_launches.get("oasis_ar1_long_precise", 0),
+                  path="spike_train_inference --device cuda",
+                  max_abs_err=err, ms=long_ms,
+                  plain_ms=long_main["plain_ms"]))
 
 
 def main() -> int:
@@ -386,16 +613,23 @@ def main() -> int:
     launches = phase_slice(config, params)
     kernel_ms, plain_ms, err = phase_timings(config, params, smi)
     max_err = max(max_err, err)
+    recordings = phase_recordings(smi)
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "oasis_ar1", "route": "cuda",
-        "source": "calciumgan_tpu_torch/csrc/oasis_ar1.cu",
-        "replaces": "calciumgan_tpu/ops/oasis_pallas.py:599",
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
-        "plain_ms": plain_ms}]}))
+    source = "calciumgan_tpu_torch/csrc/oasis_ar1.cu"
+    print(json.dumps({"kernels": [
+        {"name": "oasis_ar1", "route": "cuda", "source": source,
+         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:599",
+         "launches": launches, "path": "generate --spikes",
+         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "oasis_ar1_precise", "route": "cuda", "source": source,
+         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:599",
+         **recordings["precise"]},
+        {"name": "oasis_ar1_long", "route": "cuda", "source": source,
+         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:509",
+         **recordings["long"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

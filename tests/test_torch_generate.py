@@ -153,6 +153,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import calciumgan_tpu_torch, calciumgan_tpu_torch.generate\n"
         "import calciumgan_tpu_torch.ops.oasis_cuda\n"
+        "import calciumgan_tpu_torch.dataset.spike_train_inference\n"
         "import calciumgan_tpu_torch.ops.golden, calciumgan_tpu_torch.config\n"
         "import calciumgan_tpu_torch.kernels.build\n"
         "import calciumgan_tpu_torch.utils.checkpoint\n"
