@@ -2,15 +2,16 @@
 
 A port of the JAX package :mod:`calciumgan_tpu`, which stays the reference
 it is tested against. The modules mirror the JAX package's layout so that
-each one's counterpart is easy to find. The port imports ``torch`` and never
-``jax``, ``flax`` or ``optax``; from the JAX package it reuses only the
-modules that are free of JAX at import time (``config``, ``registry``,
-``ops.oasis_ref``, ``native``, ``data.segments``, ``utils.h5``), and
-callers of the port reach them through it: :mod:`.config` and
-:mod:`.ops.golden`.
+each one's counterpart is easy to find. The port imports ``torch`` and
+nothing of the JAX package, not even its JAX-free modules: it keeps its own
+copies of what it needs (:mod:`.config`, the registry in
+:mod:`.models.registry`, ``ifft_signals`` in :mod:`.data.pipeline`, the
+float64 golden in :mod:`.ops.golden`, the h5 writer in :mod:`.utils.h5` and
+the C++ float64 redo ``csrc/oasis_host.cc``), each saying which module it
+mirrors.
 
-Slice ported so far: serving (``python -m calciumgan_tpu_torch.generate``):
-restore a JAX checkpoint, run the generator, and deconvolve the generated
-traces with the hand-written OASIS AR(1) CUDA kernel
-(``csrc/oasis_ar1.cu``).
+Slices ported so far: serving (``python -m calciumgan_tpu_torch.generate``)
+and whole-recording spike inference (``python -m
+calciumgan_tpu_torch.dataset.spike_train_inference``), both on the
+hand-written OASIS AR(1) CUDA kernel (``csrc/oasis_ar1.cu``).
 """

@@ -2,22 +2,21 @@
 // per trace, with either of the JAX package's two stack machines.
 //
 // Replaces the Pallas TPU kernels `oasis_ar1_pallas`
-// (calciumgan_tpu/ops/oasis_pallas.py:599-672; body `_oasis_kernel`
-// :414-452) and `oasis_ar1_pallas_long` (:509-596; body
+// (calciumgan_tpu/ops/oasis_pallas.py:603-672; body `_oasis_kernel`
+// :414-452) and `oasis_ar1_pallas_long` (:513-596; body
 // `_oasis_kernel_long` :455-506), each with the classic machine
 // (`_stack_machine` :150-274) or the precise one (`_stack_machine_precise`
 // :277-392), and `_make_recon_step` (:395-411). It keeps their contract: the
 // same (c, s, redo) for the same arguments, the same float32 merge decisions
 // and the same redo bitmask, so the depth ladders and the float64 host redo
 // of calciumgan_tpu_torch/ops/oasis.py drive it unchanged. Its plain PyTorch
-// twin is calciumgan_tpu_torch/ops/oasis_torch.py.
+// twin is calciumgan_tpu_torch/ops/oasis_torch.py; the kernel equals it bit
+// for bit on every lane, overflowed lanes included.
 //
-// Design. The TPU kernels keep the top pool at row 0 of a (D, 128) VMEM
-// stack and roll the whole stack by one row per push and per lane-masked
-// merge, because Mosaic cannot index sublanes per lane. Here each thread
-// owns one trace and keeps a stack pointer in a register: the stack is a
-// ring of D slots in a (D, B) scratch plane per field (row r of trace b at
-// r*B + b), and a push or merge moves the pointer instead of the data.
+// The algorithm. The TPU kernels keep the top pool at row 0 of a (D, 128)
+// VMEM stack and roll the whole stack by one row per push and per
+// lane-masked merge, because Mosaic cannot index sublanes per lane. Here
+// each thread owns one trace and a ring of D pool slots with a top index:
 // Pallas row i is ring slot (top - i) mod D, so even a trace whose stack
 // overflowed sees the same pools. Per timestep: push yy[t] as a singleton
 // pool, then at most K merge attempts while the top pool violates the
@@ -25,37 +24,60 @@
 // attempts sets bit 1, a stack deeper than D sets bit 0, and a decision
 // within the band flag_tol sets bit 2. An attempt that finds no violation
 // ends the step: the attempts left would repeat it unchanged. The
-// reconstruction walks the thread's pools forward from the bottom of the
-// stack: h = max(v/w, 0), c[t] = h*g^k, s[t] = c[t] - g*c[t-1], s[0] = 0.
+// reconstruction walks the pools forward from the bottom of the stack:
+// h = max(v/w, 0), c[t] = h*g^k, s[t] = c[t] - g*c[t-1], s[0] = 0.
 //
 // The classic machine decides v0/w0 < g^l1 * v1/w1 + s_min with v and w
 // accumulated in float32. The precise machine carries v as a double-single
 // pair (TwoProduct by Veltkamp splits, TwoSum) whose compensation term is
-// stored in bfloat16, rounded to nearest even as Pallas stores it; it never
-// stores w but evaluates w(l) = -expm1(2 l ln g)/(1 - g^2) from the exact
-// length, takes g^l from a 12-bit split of ln g, and decides without a
-// division: F = v0*w1 - w0*(g^l1*v1 + s_min*w1) < 0. Its constants and
-// evaluation order are the JAX package's, so that every rounding is the
-// same; w0 is 1 exactly for the pool just pushed, where Pallas drops the
-// factor (multiplying by 1 is exact, so one form serves every attempt).
-// Built with -fmad=false so that no multiply-add is contracted: the
-// compensated sums are exact only if every product and sum rounds alone,
-// and every rounding is then that of the plain PyTorch twin's separate ops.
+// rounded to bfloat16 (nearest even) as Pallas stores it; it never stores
+// w but evaluates w(l) = -expm1(2 l ln g)/(1 - g^2) from the exact length,
+// takes g^l from a 12-bit split of ln g, and decides without a division:
+// F = v0*w1 - w0*(g^l1*v1 + s_min*w1) < 0. Its constants and evaluation
+// order are the JAX package's, so that every rounding is the same; w0 is 1
+// exactly for the pool just pushed, where Pallas drops the factor. Built
+// with -fmad=false so that no multiply-add is contracted: the compensated
+// sums are exact only if every product and sum rounds alone, and every
+// rounding is then that of the plain PyTorch twin's separate ops.
 //
-// The time-chunked TPU kernel walks 2048-frame chunks only because a whole
-// (T, 128) window does not fit in VMEM; here a thread walks its whole trace
-// and its stacks stay in device memory, so one kernel serves any T.
+// What bounds it on this card. The bytes the algorithm needs are 12 per
+// frame (4 B of trace in, 8 B of c and s out, time-major so that a warp's
+// access is coalesced): at 3.35 TB/s that is 0.77 ms for 104,448 x 2048
+// traces and 7.3 us for one 102 x 20,000 recording. The float32 work is
+// under 60 operations a frame, far under 67 TFLOP/s, so bandwidth is the
+// bound. What held the first design far above it (34 ms, 28 ms) was where
+// the pools lived: a (3, D, B) scratch in device memory, 80 MB at serving
+// size (more than the 50 MB L2), with 5-8 dependent scattered loads per
+// merge attempt (each lane its own top, one 32-byte sector per lane), and
+// a serial chain per frame that few warps hide.
 //
-// What bounds it on this card. Per frame a trace reads 4 B (fluorescence)
-// and writes 8 B (c, s), time-major so that a warp's access is coalesced;
-// the stack traffic is a few scattered accesses per merge attempt that stay
-// mostly in the 50 MB L2. Bandwidth is not the limit: the serial chain of
-// each timestep is (classic: expf, two divisions; precise: three to five
-// expf, about 60 dependent float32 operations, dependent stack loads), and
-// the number of warps in flight that hide its latency, i.e. occupancy. A
-// 102-neuron recording is one block on one SM. Faster designs (stacks in
-// shared memory or registers, several traces' work per SM, float64 pools
-// instead of the band, no merge budget) are later work.
+// What this design does about it (state only moves; the arithmetic is the
+// same float32 operations in the same order):
+// - The three top pools live in registers: slots top, top-1 and top-2.
+//   A merge attempt reads registers only. A push writes slot top-2 back
+//   and shifts the three down; a merge writes the abandoned top slot back
+//   (the twin leaves the top pool's values there, and an overflowed lane
+//   can read that slot again once it wraps), shifts up and loads slot
+//   top-3, whose load does not depend on any decision and is first needed
+//   at the next merge. So every slot outside the registers holds exactly
+//   the twin's values, and a push on overflow overwrites the same slot as
+//   the twin's (D >= 8, so it is never a cached one). Values that depend
+//   only on the pool below the top (g^l1 and the decision's right-hand
+//   side, w(l1) in the precise machine) and on the top (v0/w0, w(l0)) are
+//   computed when that pool changes, from the same function of the same
+//   values, so the bits are the same.
+// - The ring lives in shared memory wherever a block of one warp of traces
+//   fits (3 float32 fields x D slots x 32 lanes <= 232,448 B: D <= 605),
+//   laid out [field][slot][lane] so that the bank is the lane whatever
+//   each lane's top is: no bank conflicts. The bf16-rounded compensation
+//   term is kept widened to float32 (the same value). Deeper rings keep the
+//   (3, D, B) device-memory ring, with the same register tops. Which of the
+//   two a launch takes is a pure function of (D, precise) computed by the
+//   wrapper (ops/oasis_cuda.py: launch_plan); there is no switch.
+// - Trace samples are loaded four frames ahead in registers, so the load
+//   latency sits off the per-frame chain.
+// Splitting one trace's chain across threads would change the merge order
+// and so the float32 decisions; it is not done.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,83 +153,97 @@ __device__ __forceinline__ float w_of(float l, const Params& p) {
   return -m * p.inv_1mg2;
 }
 
-// yy, c, s: (T, B) time-major; stacks: three (D, B) planes: v, then w
-// (classic) or the bfloat16 v compensation in the plane's first half
-// (precise), then the lengths.
-template <bool Precise>
-__global__ void oasis_ar1_kernel(const float* __restrict__ yy,
-                                 float* __restrict__ c,
-                                 float* __restrict__ s,
-                                 int* __restrict__ redo,
-                                 float* __restrict__ stacks, Params p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;
+// One pool: v, then w (classic) or the bfloat16-valued compensation of v
+// (precise), then the length.
+struct Pool {
+  float v, x, l;
+};
+
+// One trace's ring of D slots: field f of slot i at base[f*plane +
+// i*stride]. Shared memory: int offsets, stride = lanes per block; device
+// memory: size_t offsets, stride = B.
+template <typename Index>
+struct Ring {
+  float* base;
+  Index stride, plane;
+
+  __device__ __forceinline__ Pool load(int i) const {
+    const Index o = (Index)i * stride;
+    return {base[o], base[plane + o], base[2 * plane + o]};
+  }
+  __device__ __forceinline__ void store(int i, const Pool& q) const {
+    const Index o = (Index)i * stride;
+    base[o] = q.v;
+    base[plane + o] = q.x;
+    base[2 * plane + o] = q.l;
+  }
+};
+
+// The stack machine and the reconstruction of one trace.
+template <bool Precise, typename Index>
+__device__ __forceinline__ void run_trace(const float* __restrict__ yy,
+                                          float* __restrict__ c,
+                                          float* __restrict__ s, int* redo,
+                                          const Ring<Index>& ring, int b,
+                                          const Params& p) {
   const int T = p.T, D = p.D, K = p.K;
   const size_t stride = (size_t)p.B;
-  const size_t plane = (size_t)D * stride;
-  float* v = stacks + b;
-  float* w = stacks + plane + b;
-  __nv_bfloat16* ve = reinterpret_cast<__nv_bfloat16*>(stacks + plane) + b;
-  float* l = stacks + 2 * plane + b;
+  auto dec = [D](int i) { return i == 0 ? D - 1 : i - 1; };
+  auto inc = [D](int i) { return i + 1 == D ? 0 : i + 1; };
+
+  // the twin's initial ring: v 0, w 1 (classic) or compensation 0, l 1
+  const Pool empty{0.0f, Precise ? 0.0f : 1.0f, 1.0f};
+  Pool p0 = empty, p1 = empty, p2 = empty;  // slots top, top-1, top-2
+  // derived from p0: v0/w0 (classic) or w(l0) (precise)
+  float d0 = Precise ? 1.0f : 0.0f;
+  // derived from p1: g^l1; the classic right-hand side g^l1*v1/w1 + s_min
+  // or the precise w(l1) and R = g^l1*v1 + s_min*w1
+  float gl = 1.0f, rhs = 0.0f, w1 = 1.0f;
+  auto below_from = [&](const Pool& q, float q_d0) {
+    if constexpr (Precise) {
+      gl = gl_of(q.l, p);
+      w1 = q_d0;  // w(l) of the same l
+      rhs = (gl * q.v + gl * q.x) + p.s_min * w1;
+    } else {
+      gl = expf(q.l * p.log_g);
+      rhs = gl * q_d0 + p.s_min;  // q_d0 == q.v / q.x
+    }
+  };
+  auto top_derived = [&](const Pool& q) {
+    if constexpr (Precise) {
+      return w_of(q.l, p);
+    } else {
+      return q.v / q.x;
+    }
+  };
 
   int top = D - 1;  // the first push lands in slot 0
   int n = 0;        // pools on the stack (may exceed D: bit 0)
   int bits = 0;
-  for (int t = 0; t < T; ++t) {
-    top = (top + 1 == D) ? 0 : top + 1;
-    v[top * stride] = yy[(size_t)t * stride + b];
-    if constexpr (Precise) {
-      ve[top * stride] = __float2bfloat16_rn(0.0f);
-    } else {
-      w[top * stride] = 1.0f;
-    }
-    l[top * stride] = 1.0f;
+
+  auto frame = [&](float y) {
+    // push: slot top-2 leaves the registers
+    ring.store(dec(dec(top)), p2);
+    p2 = p1;
+    p1 = p0;
+    below_from(p1, d0);
+    top = inc(top);
+    p0 = {y, Precise ? 0.0f : 1.0f, 1.0f};
+    d0 = top_derived(p0);
     ++n;
     if (n > D) bits |= 1;
     // attempts 0..K-1 merge; attempt K only checks what is left
     for (int k = 0; k <= K; ++k) {
-      const int below = (top == 0) ? D - 1 : top - 1;
       const bool active = n >= 2;
       bool viol, bord;
       if constexpr (Precise) {
-        const float v0h = v[top * stride];
-        const float v0e = __bfloat162float(ve[top * stride]);
-        const float v1h = v[below * stride];
-        const float v1e = __bfloat162float(ve[below * stride]);
-        const float l0 = l[top * stride], l1 = l[below * stride];
-        const float gl = gl_of(l1, p);
-        const float w1 = w_of(l1, p);
-        const float R = (gl * v1h + gl * v1e) + p.s_min * w1;
-        const float v0w1 = v0h * w1 + v0e * w1;
-        const float w0 = w_of(l0, p);
-        const float F = v0w1 - w0 * R;
+        const float v0w1 = p0.v * w1 + p0.x * w1;
+        const float F = v0w1 - d0 * rhs;
         viol = active && F < 0.0f;
-        bord = active && fabsf(F) < p.flag_tol * (w0 * (w1 + fabsf(R)));
-        if (viol && k < K) {
-          // compensated merge mv = v1 + gl*v0
-          float pr, pe, sm, se, mvh, mve;
-          two_product(gl, v0h, pr, pe);
-          two_sum(v1h, pr, sm, se);
-          mve = ((se + pe) + gl * v0e) + v1e;
-          fast_two_sum(sm, mve, mvh, mve);
-          v[below * stride] = mvh;
-          ve[below * stride] = __float2bfloat16_rn(mve);
-          l[below * stride] = l1 + l0;
-        }
+        bord = active && fabsf(F) < p.flag_tol * (d0 * (w1 + fabsf(rhs)));
       } else {
-        const float v0 = v[top * stride], w0 = w[top * stride];
-        const float v1 = v[below * stride], w1 = w[below * stride];
-        const float l1 = l[below * stride];
-        const float gl = expf(l1 * p.log_g);
-        const float lhs = v0 / w0;
-        const float rhs = gl * (v1 / w1) + p.s_min;
-        viol = active && lhs < rhs;
-        bord = active && fabsf(lhs - rhs) < p.flag_tol * (1.0f + fabsf(rhs));
-        if (viol && k < K) {
-          v[below * stride] = v1 + gl * v0;
-          w[below * stride] = w1 + gl * gl * w0;
-          l[below * stride] = l1 + l[top * stride];
-        }
+        viol = active && d0 < rhs;
+        bord = active && fabsf(d0 - rhs) < p.flag_tol * (1.0f + fabsf(rhs));
       }
       if (p.flag_tol > 0.0f && bord) bits |= 4;
       if (!viol) break;
@@ -215,33 +251,70 @@ __global__ void oasis_ar1_kernel(const float* __restrict__ yy,
         bits |= 2;
         break;
       }
-      top = below;
+      // merge the top pool into the one below; its slot keeps its values
+      ring.store(top, p0);
+      Pool m;
+      if constexpr (Precise) {
+        // compensated mv = v1 + gl*v0
+        float pr, pe, sm, se, mvh, mve;
+        two_product(gl, p0.v, pr, pe);
+        two_sum(p1.v, pr, sm, se);
+        mve = ((se + pe) + gl * p0.x) + p1.x;
+        fast_two_sum(sm, mve, mvh, mve);
+        m = {mvh, __bfloat162float(__float2bfloat16_rn(mve)), p1.l + p0.l};
+      } else {
+        m = {p1.v + gl * p0.v, p1.x + gl * gl * p0.x, p1.l + p0.l};
+      }
+      top = dec(top);
       --n;
+      p0 = m;
+      d0 = top_derived(p0);
+      p1 = p2;
+      below_from(p1, top_derived(p1));
+      p2 = ring.load(dec(dec(top)));
+    }
+  };
+
+  // the samples four frames ahead, in registers
+  float ya = 0.0f, yb = 0.0f, yc = 0.0f, yd = 0.0f;
+  auto fetch = [&](int t) { return t < T ? yy[(size_t)t * stride + b] : 0.0f; };
+  float na = fetch(0), nb = fetch(1), nc = fetch(2), nd = fetch(3);
+  for (int t0 = 0; t0 < T; t0 += 4) {
+    ya = na; yb = nb; yc = nc; yd = nd;
+    na = fetch(t0 + 4); nb = fetch(t0 + 5);
+    nc = fetch(t0 + 6); nd = fetch(t0 + 7);
+    for (int j = 0; j < 4 && t0 + j < T; ++j) {
+      frame(j == 0 ? ya : j == 1 ? yb : j == 2 ? yc : yd);
     }
   }
+  ring.store(top, p0);
+  ring.store(dec(top), p1);
+  ring.store(dec(dec(top)), p2);
 
   // pool heights h = max(v/w, 0)
-  auto height = [&](int pos) -> float {
+  auto height = [&](const Pool& q) -> float {
     if constexpr (Precise) {
-      return fmaxf((v[pos * stride] + __bfloat162float(ve[pos * stride])) /
-                       w_of(l[pos * stride], p),
-                   0.0f);
+      return fmaxf((q.v + q.x) / w_of(q.l, p), 0.0f);
     } else {
-      return fmaxf(v[pos * stride] / w[pos * stride], 0.0f);
+      return fmaxf(q.v / q.x, 0.0f);
     }
   };
   const int pools = n < D ? n : D;
   int pos = top - (pools - 1);
   if (pos < 0) pos += D;
-  float h = height(pos);
-  float len = l[pos * stride];
+  Pool cur = ring.load(pos);
+  Pool next = ring.load(inc(pos));
+  float h = height(cur);
+  float len = cur.l;
   float k = 0.0f;
   float c_prev = 0.0f;
   for (int t = 0; t < T; ++t) {
     if (k >= len) {
-      pos = (pos + 1 == D) ? 0 : pos + 1;
-      h = height(pos);
-      len = l[pos * stride];
+      pos = inc(pos);
+      cur = next;
+      next = ring.load(inc(pos));
+      h = height(cur);
+      len = cur.l;
       k = 0.0f;
     }
     const float ct = h * expf(k * p.log_g);
@@ -253,29 +326,92 @@ __global__ void oasis_ar1_kernel(const float* __restrict__ yy,
   redo[b] = bits;
 }
 
-template <bool Precise>
+// yy, c, s: (T, B) time-major. Shared: the ring in dynamic shared memory,
+// [field][slot][lane] for the block's blockDim.x lanes; device: `stacks`,
+// a (3, D, B) float32 scratch.
+template <bool Precise, bool Shared>
+__global__ void oasis_ar1_kernel(const float* __restrict__ yy,
+                                 float* __restrict__ c,
+                                 float* __restrict__ s,
+                                 int* __restrict__ redo,
+                                 float* __restrict__ stacks, Params p) {
+  extern __shared__ float ring_smem[];
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= p.B) return;  // lanes are independent: no block barrier
+  if constexpr (Shared) {
+    const int lanes = blockDim.x;
+    const Ring<int> ring{ring_smem + threadIdx.x, lanes, p.D * lanes};
+    run_trace<Precise>(yy, c, s, redo, ring, b, p);
+  } else {
+    const Ring<size_t> ring{stacks + b, (size_t)p.B,
+                            (size_t)p.D * (size_t)p.B};
+    run_trace<Precise>(yy, c, s, redo, ring, b, p);
+  }
+}
+
+template <bool Precise, bool Shared>
 int launch(const float* yy, float* c, float* s, int* redo, float* stacks,
-           const Params& p, void* stream) {
-  const int threads = 128;
-  const int blocks = (p.B + threads - 1) / threads;
-  oasis_ar1_kernel<Precise><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      yy, c, s, redo, stacks, p);
+           const Params& p, int lanes, int shared_bytes, void* stream) {
+  if constexpr (Shared) {
+    // above 48 KB only by opt-in; the whole carveout to shared memory so
+    // that as many one-warp blocks fit on an SM as the ring allows
+    cudaError_t err = cudaFuncSetAttribute(
+        oasis_ar1_kernel<Precise, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          oasis_ar1_kernel<Precise, true>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (p.B + lanes - 1) / lanes;
+  oasis_ar1_kernel<Precise, Shared>
+      <<<blocks, lanes, shared_bytes, (cudaStream_t)stream>>>(
+          yy, c, s, redo, stacks, p);
   return (int)cudaGetLastError();
+}
+
+template <bool Precise>
+int dispatch(const float* yy, float* c, float* s, int* redo, float* stacks,
+             const Params& p, int shared, int lanes, int shared_bytes,
+             void* stream) {
+  // the plan of ops/oasis_cuda.py:launch_plan, checked: whole warps; the
+  // shared ring is 3 float32 fields x D slots x lanes; the device ring is
+  // the caller's scratch
+  const long long ring_bytes = 12LL * p.D * lanes;
+  if (lanes <= 0 || lanes % 32 != 0 || lanes > 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (shared) {
+    if (shared_bytes != ring_bytes) return (int)cudaErrorInvalidValue;
+    return launch<Precise, true>(yy, c, s, redo, nullptr, p, lanes,
+                                 shared_bytes, stream);
+  }
+  if (stacks == nullptr || shared_bytes != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch<Precise, false>(yy, c, s, redo, stacks, p, lanes, 0, stream);
 }
 
 }  // namespace
 
 // yy, c, s: (T, B) float32, time-major; redo: (B,) int32; stacks: (3, D, B)
-// float32 scratch. Launch on `stream` and return cudaGetLastError() (0 on
-// success); neither synchronises.
+// float32 scratch for the device-memory ring (shared == 0), unused (may be
+// null) for the shared-memory ring (shared == 1, shared_bytes = 12*D*lanes);
+// lanes: traces per block, a multiple of 32. Launch on `stream` and return
+// the CUDA error (0 on success); neither synchronises.
 
 // The classic machine.
 extern "C" int oasis_ar1_launch(const float* yy, float* c, float* s,
                                 int* redo, float* stacks, int T, int B,
                                 int D, float g, float log_g, float s_min,
-                                int K, float flag_tol, void* stream) {
+                                int K, float flag_tol, int shared, int lanes,
+                                int shared_bytes, void* stream) {
   const Params p{T, B, D, g, log_g, s_min, K, flag_tol, 0.0f, 0.0f, 0.0f};
-  return launch<false>(yy, c, s, redo, stacks, p, stream);
+  return dispatch<false>(yy, c, s, redo, stacks, p, shared, lanes,
+                         shared_bytes, stream);
 }
 
 // The precise machine; lng_hi, lng_lo: 12-bit split of log(g); inv_1mg2:
@@ -285,8 +421,10 @@ extern "C" int oasis_ar1_precise_launch(const float* yy, float* c, float* s,
                                         int B, int D, float g, float log_g,
                                         float s_min, int K, float flag_tol,
                                         float lng_hi, float lng_lo,
-                                        float inv_1mg2, void* stream) {
+                                        float inv_1mg2, int shared, int lanes,
+                                        int shared_bytes, void* stream) {
   const Params p{T, B, D, g, log_g, s_min, K, flag_tol, lng_hi, lng_lo,
                  inv_1mg2};
-  return launch<true>(yy, c, s, redo, stacks, p, stream);
+  return dispatch<true>(yy, c, s, redo, stacks, p, shared, lanes,
+                        shared_bytes, stream);
 }

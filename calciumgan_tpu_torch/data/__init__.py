@@ -1,2 +1,2 @@
-"""Data helpers (counterpart of :mod:`calciumgan_tpu.data`); the JAX-free
-:mod:`calciumgan_tpu.data.segments` is reused, not copied."""
+"""Data helpers (counterpart of :mod:`calciumgan_tpu.data`): reverse
+preprocessing of generated signals."""

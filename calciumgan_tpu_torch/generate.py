@@ -69,7 +69,7 @@ def generate(config, params, num_samples: int, batch_size: int = 1024,
 def main(config, num_samples: int, out: str, batch_size: int = 1024,
          with_spikes: bool = False, epoch=None, seed: int = 0,
          device="cuda") -> str:
-    from calciumgan_tpu.utils import h5  # h5py only for the CLI
+    from calciumgan_tpu_torch.utils import h5  # h5py only for the CLI
 
     # float32 layers in full float32, not TF32, on the card
     torch.backends.cuda.matmul.allow_tf32 = False

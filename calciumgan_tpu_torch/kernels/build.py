@@ -2,9 +2,8 @@
 
 - :func:`load` compiles ``csrc/<name>.cu`` with ``nvcc`` for Hopper only
   (``sm_90a``);
-- :func:`load_host` compiles a host C++ source with ``g++`` (the JAX
-  package's float64 OASIS, :mod:`calciumgan_tpu.native`, which the port
-  reuses as source).
+- :func:`load_host` compiles a host C++ source with ``g++`` (the float64
+  OASIS redo, ``csrc/oasis_host.cc``).
 
 Each source compiles on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). Libraries go to

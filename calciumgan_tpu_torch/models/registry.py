@@ -1,18 +1,47 @@
 """Model registry (counterpart of ``calciumgan_tpu/models/registry.py``).
 
-Reuses the JAX package's JAX-free :class:`calciumgan_tpu.registry.Registry`
-and keeps its ``wavegan`` alias. Only the generator half is ported so far:
-a builder returns the generator module; the discriminator joins with the
-training slice.
+:class:`Registry` is a copy of the JAX package's name-to-factory registry
+(``calciumgan_tpu/registry.py``). The ``wavegan`` alias is kept. Only the
+generator half is ported so far: a builder returns the generator module;
+the discriminator joins with the training slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Generic, Optional, TypeVar
 
 import torch
 
-from calciumgan_tpu.registry import Registry
+T = TypeVar("T")
+
+
+class Registry(Generic[T]):
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._entries: Dict[str, T] = {}
+
+    def register(self, name: str) -> Callable[[T], T]:
+        def wrapper(obj: T) -> T:
+            if name in self._entries:
+                raise KeyError(f"duplicate {self.kind} name {name!r}")
+            self._entries[name] = obj
+            return obj
+        return wrapper
+
+    def get(self, name: str) -> T:
+        if name not in self._entries:
+            raise KeyError(
+                f"unknown {self.kind} {name!r}; registered: "
+                f"{sorted(self._entries)}")
+        return self._entries[name]
+
+    def names(self):
+        return sorted(self._entries)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
 
 models: Registry = Registry("model")
 register = models.register

@@ -4,8 +4,8 @@
 :func:`deconvolve_signals_host` runs the OASIS kernel with the JAX
 package's production arguments, walks a stack-depth ladder while too many
 traces overflow, and recomputes every flagged trace exactly in float64 on
-the host (the JAX package's C++ OASIS, compiled by the port:
-:func:`host_library`). Traces of up to ``_PALLAS_MAX_T`` frames take
+the host (the port's copy of the JAX package's C++ OASIS, compiled at
+first use: :func:`host_library`). Traces of up to ``_PALLAS_MAX_T`` frames take
 :func:`calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1` with the classic
 machine and ``_DEPTH_LADDER``; longer ones (whole recordings) take
 :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1_long` with the precise
@@ -24,7 +24,6 @@ from __future__ import annotations
 import ctypes
 import os
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -148,15 +147,11 @@ def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
 
 
 def host_library() -> build.Built:
-    """The JAX package's C++ float64 OASIS
-    (``calciumgan_tpu/native/calciumgan_native.cc``), built by
-    :func:`calciumgan_tpu_torch.kernels.build.load_host` without OpenMP: a
-    GPU host may lack libgomp, which fails ``calciumgan_tpu.native``'s own
-    ``make``."""
-    from calciumgan_tpu import native
-    built = build.load_host(
-        "calciumgan_native",
-        Path(native.__file__).with_name("calciumgan_native.cc"))
+    """The C++ float64 OASIS ``csrc/oasis_host.cc`` (the port's copy of the
+    JAX package's, ``calciumgan_tpu/native/calciumgan_native.cc``), built
+    by :func:`calciumgan_tpu_torch.kernels.build.load_host` without OpenMP:
+    a GPU host may lack libgomp."""
+    built = build.load_host("oasis_host", build.CSRC / "oasis_host.cc")
     fn = built.lib.cg_deconvolve_batch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_double, ctypes.c_double, ctypes.c_double,

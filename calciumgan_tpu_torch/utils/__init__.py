@@ -1,2 +1,2 @@
-"""Utilities (counterpart of :mod:`calciumgan_tpu.utils`); the JAX-free
-:mod:`calciumgan_tpu.utils.h5` is reused, not copied."""
+"""Utilities (counterpart of :mod:`calciumgan_tpu.utils`): the JAX
+checkpoint importer and the h5 writer of the serving CLI."""

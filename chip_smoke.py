@@ -5,14 +5,20 @@ inference once on one NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs five phases, printing one line of findings per phase:
+``nvcc`` and runs five phases, printing one line of findings per phase.
+Every comparison of the kernel with its plain PyTorch version is bit for
+bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
+overflowed lanes included. Each launch's ring storage (shared or device
+memory, ``oasis_cuda.launch_plan``) is in its launch counter's key, and
+every (machine, storage) pair the plan can choose is compared:
 
 1. device: the card, its power limit (``nvidia-smi``), the kernel build
    and the build of the float64 C++ redo of flagged traces;
 2. kernel: the OASIS AR(1) CUDA kernel against its plain PyTorch version on
    the card, on seeded spiky traces at sl2048 with the production arguments
-   and on the redo-bit edge cases, plus the dispatch's spikes against the
-   float64 golden;
+   at every rung of the depth ladder (64, 160, 256: shared-memory rings)
+   and at depth 1024 (device-memory rings), and on the redo-bit edge
+   cases, plus the dispatch's spikes against the float64 golden;
 3. slice: ``calciumgan_tpu_torch.generate.generate`` at the flagship width
    (calciumgan, sl2048, 102 neurons, noise 32, units 64, kernel 24, stride
    2, layer_norm, bf16, normalize) with random weights from a seed, two
@@ -24,9 +30,11 @@ Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
    the main path's shape, one batch of generated traces), host redo, end
    to end, and the host-clock stages of one batch;
 5. recordings: 2048 seeded synthetic recordings of 20,000 frames on the
-   card. The long kernel (precise machine, production arguments) and the
-   short kernel's precise mode against their plain versions, with the
-   redo-bit and precise-band edge cases; the precise mode's public entry
+   card. The long kernel (precise machine, production arguments, depth 512:
+   shared-memory rings) and the short kernel's precise mode against their
+   plain versions, the long kernel at depths 1024 and 2048 (device-memory
+   rings) on 256 traces of 8192 frames, with the redo-bit and precise-band
+   edge cases; the precise mode's public entry
    with its own launch count (no production path runs that mode); the
    dispatch's long route against
    the float64 golden (256 rows) and the C++ float64 kernel (all rows);
@@ -35,7 +43,9 @@ Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
    launch counts, against the dispatch and the golden; the timings, beside
    the card's name and power limit.
 
-Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line and, as
+Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
+kernel's time, its plain version's, its bound, and its launches on its
+path by ring storage) and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that line; so does a machine without a CUDA device or a
 directory without the port beside this script. JAX is never imported.
@@ -58,14 +68,25 @@ GOLDEN_TRACES = 8192        # generated traces checked against float64
 # phase 5: whole recordings (tools/check_long_kernel_tpu.py's size)
 REC_TRACES, REC_T = 2048, 20000
 REC_GOLDEN_TRACES = 256     # of them checked against the numpy golden
+DEVICE_RING_TRACES = 256    # traces for the device-memory ring comparisons
+DEVICE_RING_T = 8192        # frames of the long kernel's device-ring cases
 CLI_FILES, CLI_NEURONS = 4, 102
 CLI_GOLDEN_ROWS = 32        # per file, against the numpy golden
-ATOL = 1e-4                 # c, s: float32 pools vs float32 pools
 GEN_F32_TOL = 1e-4          # generator on the card vs the CPU, float32
 # the same in bfloat16: cuDNN and the CPU sum in other orders and round
 # each layer's output to bfloat16, so one-ulp flips propagate; 4.5e-3 was
 # measured on an H100 (NVIDIA H100 80GB HBM3, 700 W)
 GEN_BF16_TOL = 1e-2
+# the bound of a kernel row: the bytes the function must move at the card's
+# memory rate (each frame reads 4 B of trace and writes 8 B of c and s;
+# each trace writes a 4 B redo word), and its float32 operations at the
+# card's rate outside the tensor cores, by the H100 SXM data sheet
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per frame, counted from csrc/oasis_ar1.cu with an expf
+# as 10: the push, the attempts and one merge (merges never outnumber
+# pushes) and the reconstruction; an upper estimate, under the bytes bound
+OPS_PER_FRAME = {False: 60, True: 180}
 
 
 class CheckFailed(Exception):
@@ -138,10 +159,25 @@ def phase_device(root):
     return smi
 
 
+def _same(a, b):
+    """Per lane of ``(..., T)`` outputs: equal bits (NaN equals NaN)."""
+    eq = (a == b) | (a.isnan() & b.isnan())
+    return eq.reshape(-1, a.shape[-1]).all(-1)
+
+
+def _abs_err(a, b):
+    """Largest ``|a - b|``, NaN against NaN counted as 0."""
+    diff = (a - b).abs().masked_fill(a.isnan() & b.isnan(), 0.0)
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def compare_kernel(y, long=False, **kw):
     """Kernel and plain version on the same CUDA traces; the findings. With
     ``long``, the long entry and its plain twin; ``plain_ms`` is the plain
-    call's own time by CUDA events."""
+    call's own time by CUDA events; ``variant`` is the launch counter's key
+    of the kernel call (machine, trace length and ring storage)."""
+    import collections
+
     import torch
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
     if long:
@@ -149,26 +185,22 @@ def compare_kernel(y, long=False, **kw):
         plain = oasis_torch.oasis_ar1_long_torch
     else:
         kernel, plain = oasis_cuda.oasis_ar1_cuda, oasis_torch.oasis_ar1_torch
+    before = collections.Counter(oasis_cuda.launches)
     c, s, redo = kernel(y, **kw)
+    variant = list(oasis_cuda.launches - before)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     c_p, s_p, redo_p = plain(y, **kw)
     end.record()
     torch.cuda.synchronize()
-    differ = redo != redo_p
-    ok = (redo == 0) & (redo_p == 0)  # flagged lanes' output is unspecified
-    err = 0.0
-    if ok.any():
-        err = max(float((c - c_p)[ok].abs().max()),
-                  float((s - s_p)[ok].abs().max()))
-    spikes_equal = bool(torch.equal(s[ok] > THRESHOLD, s_p[ok] > THRESHOLD))
+    same = _same(c, c_p) & _same(s, s_p) & (redo == redo_p).reshape(-1)
     flags = redo.reshape(-1)
-    return dict(lanes=int(redo.numel()), bits_differ=int(differ.sum()),
-                differ_outside_bit2=int(((redo ^ redo_p) & 3).ne(0).sum()),
-                unflagged=int(ok.sum()), flagged=int(redo.ne(0).sum()),
-                max_abs_err=err,
-                spikes_equal=spikes_equal,
+    return dict(variant=variant, lanes=int(redo.numel()),
+                lanes_differ=int((~same).sum()),
+                bits_differ=int((redo != redo_p).sum()),
+                flagged=int(redo.ne(0).sum()),
+                max_abs_err=max(_abs_err(c, c_p), _abs_err(s, s_p)),
                 bit_frac={f"bit{b}": float(((flags >> b) & 1).float().mean())
                           for b in range(3)},
                 plain_ms=start.elapsed_time(end),
@@ -181,13 +213,48 @@ def strip(found) -> dict:
     return {k: v for k, v in found.items() if not k.startswith("redo")}
 
 
-def check_agreement(found) -> None:
-    """Kernel vs plain findings of :func:`compare_kernel` within bounds."""
-    check(found["bits_differ"] <= 0.001 * found["lanes"],
-          f"redo bits differ on {found['bits_differ']} of {found['lanes']}")
-    check(found["differ_outside_bit2"] == 0, "redo bits 0/1 differ")
-    check(found["max_abs_err"] <= ATOL, f"c/s err {found['max_abs_err']}")
-    check(found["spikes_equal"], "binarised spikes differ")
+def check_equal(found, what: str) -> None:
+    """Kernel = plain version bit for bit on every lane."""
+    check(found["lanes_differ"] == 0 and found["max_abs_err"] == 0.0,
+          f"{what}: kernel differs from its plain version on "
+          f"{found['lanes_differ']} of {found['lanes']} lanes (max abs "
+          f"error {found['max_abs_err']}, {found['bits_differ']} redo "
+          f"words)")
+
+
+def launched(prefix: str, counts=None) -> int:
+    """Launches of one machine and trace length (``oasis_ar1``,
+    ``oasis_ar1_long_precise``, ...) over both ring storages."""
+    if counts is None:
+        from calciumgan_tpu_torch.ops import oasis_cuda
+        counts = oasis_cuda.launches
+    return sum(n for key, n in counts.items() if key.split("/")[0] == prefix)
+
+
+def path_launches(prefix: str, counts) -> dict:
+    """A ``kernels`` entry's launches on its path: their count, by ring
+    storage (``{"shared": n, "device": m}``) and the storages taken."""
+    by_storage = {key.split("/")[1]: n for key, n in counts.items()
+                  if key.split("/")[0] == prefix}
+    return dict(launches=launched(prefix, counts),
+                variant="/".join(sorted(by_storage)),
+                launches_by_variant=by_storage)
+
+
+def check_variant(found, key: str, what: str) -> None:
+    check(found["variant"] == [key], f"{what}: launched {found['variant']}, "
+                                     f"expected {key}")
+
+
+def bound(B: int, T: int, precise: bool) -> dict:
+    """The least time for OASIS on ``B`` traces of ``T`` frames: the larger
+    of its bytes at the memory rate and its operations at the float32
+    rate."""
+    bytes_ms = (12 * B * T + 4 * B) / HBM_BYTES_PER_S * 1e3
+    ops_ms = OPS_PER_FRAME[precise] * B * T / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=12 * B * T + 4 * B)
 
 
 def phase_kernel():
@@ -203,7 +270,18 @@ def phase_kernel():
                 merge_attempts=dispatch._MERGE_BUDGET,
                 flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD))
     main = compare_kernel(y, **prod)
-    check_agreement(main)
+    check_equal(main, "classic, depth 64")
+    check_variant(main, "oasis_ar1/shared", "classic, depth 64")
+    # every rung of the ladder, and a depth whose ring is in device memory
+    rungs = {}
+    for d in dispatch._DEPTH_LADDER[1:]:
+        rungs[d] = compare_kernel(y, **dict(prod, depth=d))
+        check_equal(rungs[d], f"classic, depth {d}")
+        check_variant(rungs[d], "oasis_ar1/shared", f"classic, depth {d}")
+    rungs[1024] = compare_kernel(y[:DEVICE_RING_TRACES],
+                                 **dict(prod, depth=1024))
+    check_equal(rungs[1024], "classic, depth 1024")
+    check_variant(rungs[1024], "oasis_ar1/device", "classic, depth 1024")
 
     # redo-bit edge cases (tests/test_oasis_pallas.py:53-104)
     ramp = torch.linspace(0.0, 10.0, 64, device=dev)[None].repeat(3, 1)
@@ -216,8 +294,8 @@ def phase_kernel():
     bit2 = compare_kernel(edge, s_min=S_MIN, flag_tol=1e-5)
     for name, case, bit in (("bit0", bit0, 1), ("bit1", bit1, 2),
                             ("bit2", bit2, 4)):
-        check(case["redo"] == case["redo_plain"] and case["redo"][0] & bit,
-              f"{name} edge case: {case['redo']} vs {case['redo_plain']}")
+        check_equal(case, f"{name} edge case")
+        check(case["redo"][0] & bit, f"{name} edge case: {case['redo']}")
 
     # the dispatch (ladder + float64 host redo) on the CUDA tensor
     spikes = dispatch.deconvolve_signals_host(y)
@@ -227,12 +305,14 @@ def phase_kernel():
     torch.cuda.synchronize()
     report("phase 2 kernel", shape=[KERNEL_TRACES, T], production=prod,
            **strip(main),
+           rungs={d: dict(strip(f), shape=[f["lanes"], T])
+                  for d, f in rungs.items()},
            edge_bits={"bit0": bit0["redo"][0], "bit1": bit1["redo"][0],
                       "bit2": bit2["redo"][0]},
            dispatch_vs_golden=dict(golden="oasis_ref",
                                    mismatches=mismatches,
                                    spikes=int(golden.sum())))
-    return main["max_abs_err"]
+    return max(f["max_abs_err"] for f in (main, *rungs.values()))
 
 
 def generator_reference_check(config, params):
@@ -274,7 +354,7 @@ def phase_slice(config, params):
     payloads = list(generate(config, params, BATCH * BATCHES, BATCH,
                              with_spikes=True, seed=SEED, device="cuda"))
     seconds = time.perf_counter() - start
-    launches, calls = oasis_cuda.launches["oasis_ar1"], oasis_torch.calls
+    launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
 
     check(len(payloads) == BATCHES, f"{len(payloads)} batches")
     shape = (BATCH, T, config.num_channels)
@@ -290,7 +370,8 @@ def phase_slice(config, params):
     check(config.signals_min <= lo and hi <= config.signals_max,
           f"signals outside [{config.signals_min}, {config.signals_max}]")
     check(set(np.unique(spikes).tolist()) <= {0, 1}, "spikes not in {0,1}")
-    check(launches > 0, "the OASIS kernel was not launched")
+    check(launches.get("oasis_ar1/shared", 0) > 0,
+          f"the shared-memory OASIS kernel was not launched: {launches}")
     check(calls == 0, f"the plain OASIS version ran {calls} times")
 
     traces = np.ascontiguousarray(np.transpose(signals, (0, 2, 1))).reshape(
@@ -362,7 +443,8 @@ def phase_timings(config, params, smi):
               flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD))
     # the kernel vs its plain version at the main path's shape
     generated = compare_kernel(traces, **kw)
-    check_agreement(generated)
+    check_equal(generated, "classic on generated traces")
+    check_variant(generated, "oasis_ar1/shared", "classic on generated traces")
     kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_cuda(traces, **kw),
                         reps=5)
     plain_ms = generated["plain_ms"]  # the comparison's own call
@@ -394,7 +476,8 @@ def phase_timings(config, params, smi):
            e2e_samples=n, e2e_s=e2e_s, e2e_samples_per_s=n / e2e_s,
            batch_stages_s=stages)
     torch.cuda.synchronize()
-    return kernel_ms, plain_ms, generated["max_abs_err"]
+    return dict(ms=kernel_ms, plain_ms=plain_ms, shape=[B, T],
+                max_abs_err=generated["max_abs_err"], **bound(B, T, False))
 
 
 def phase_recordings(smi):
@@ -421,8 +504,22 @@ def phase_recordings(smi):
 
     # 1. the long kernel vs its plain version, production arguments
     long_main = compare_kernel(y, long=True, **prod)
-    check_agreement(long_main)
+    check_equal(long_main, "long kernel, depth 512")
+    check_variant(long_main, "oasis_ar1_long_precise/shared",
+                  "long kernel, depth 512")
     long_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(y, **prod), reps=3)
+    # the ladder's deeper rungs keep their rings in device memory
+    deep = torch.from_numpy(golden.synth_ar1_traces(
+        np.random.default_rng(SEED + 7), DEVICE_RING_TRACES,
+        DEVICE_RING_T)).to(dev)
+    device_rungs = {}
+    for d in ladder[1:]:
+        device_rungs[d] = compare_kernel(deep, long=True, **dict(prod, depth=d))
+        check_equal(device_rungs[d], f"long kernel, depth {d}")
+        check_variant(device_rungs[d], "oasis_ar1_long_precise/device",
+                      f"long kernel, depth {d}")
+    device_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(
+        y, **dict(prod, depth=ladder[1])), reps=1)
 
     # 2. redo-bit edge cases through the long and the precise short entry
     ramp = torch.linspace(0.0, 10.0, 160, device=dev)[None].repeat(3, 1)
@@ -449,9 +546,10 @@ def phase_recordings(smi):
                   "1e-5 margin: precise spikes differ from float64")
     for name, case, bit in (("bit0", bit0, 1), ("bit1", bit1, 2),
                             ("bit2", band["bit2"], 4)):
-        check(case["redo"] == case["redo_plain"] and case["redo"][0] & bit,
-              f"{name} edge case: {case['redo']} vs {case['redo_plain']}")
-    check(band["resolved"]["redo"] == band["resolved"]["redo_plain"] == [0],
+        check_equal(case, f"precise {name} edge case")
+        check(case["redo"][0] & bit, f"{name} edge case: {case['redo']}")
+    check_equal(band["resolved"], "precise 1e-5 margin")
+    check(band["resolved"]["redo"] == [0],
           f"1e-5 margin flagged: {band['resolved']['redo']}")
 
     # 3. the short kernel's precise mode at sl2048
@@ -463,7 +561,9 @@ def phase_recordings(smi):
                     flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD,
                                                 precise=True))
     precise_main = compare_kernel(short, **short_kw)
-    check_agreement(precise_main)
+    check_equal(precise_main, "precise short, depth 64")
+    check_variant(precise_main, "oasis_ar1_precise/shared",
+                  "precise short, depth 64")
     precise_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_cuda(short, **short_kw),
                          reps=5)
     # no production path runs it (the JAX package calls it only for an
@@ -471,17 +571,18 @@ def phase_recordings(smi):
     oasis_cuda.launches.clear()
     oasis_torch.calls = 0
     _, _, redo_path = oasis_cuda.oasis_ar1(short, **short_kw)
-    precise_launches = oasis_cuda.launches["oasis_ar1_precise"]
-    check(precise_launches > 0 and oasis_torch.calls == 0,
-          f"precise entry: {dict(oasis_cuda.launches)}, plain calls "
+    precise_launches = dict(oasis_cuda.launches)
+    check(precise_launches.get("oasis_ar1_precise/shared", 0) > 0
+          and oasis_torch.calls == 0,
+          f"precise entry: {precise_launches}, plain calls "
           f"{oasis_torch.calls}")
     check(int(redo_path.ne(0).sum()) == precise_main["flagged"],
           "precise entry flags differ from the compared kernel's")
 
     # 4. the dispatch's long route on the CUDA corpus
-    before = oasis_cuda.launches["oasis_ar1_long_precise"]
+    before = launched("oasis_ar1_long_precise")
     spikes = dispatch.deconvolve_signals_host(y)
-    rungs = ladder[:oasis_cuda.launches["oasis_ar1_long_precise"] - before]
+    rungs = ladder[:launched("oasis_ar1_long_precise") - before]
     start = time.perf_counter()
     spikes_again = dispatch.deconvolve_signals_host(
         torch.from_numpy(host).to(dev))
@@ -518,8 +619,9 @@ def phase_recordings(smi):
         cli_s = time.perf_counter() - start
         cli_launches = dict(oasis_cuda.launches)
         cli_calls = oasis_torch.calls
-        check(cli_launches.get("oasis_ar1_long_precise", 0) > 0,
-              f"the long kernel was not launched: {cli_launches}")
+        check(cli_launches.get("oasis_ar1_long_precise/shared", 0) > 0,
+              f"the shared-memory long kernel was not launched: "
+              f"{cli_launches}")
         check(cli_calls == 0, f"the plain OASIS version ran {cli_calls} times")
         cli_golden = 0
         for i, sig in enumerate(recordings):
@@ -552,6 +654,10 @@ def phase_recordings(smi):
            long_kernel_traces_per_s=REC_TRACES / long_ms * 1e3,
            long_plain_ms=long_main["plain_ms"],
            long_plain_traces_per_s=REC_TRACES / long_main["plain_ms"] * 1e3,
+           device_rings={d: dict(strip(f), shape=[DEVICE_RING_TRACES,
+                                                   DEVICE_RING_T])
+                         for d, f in device_rungs.items()},
+           long_kernel_ms_depth_1024_device=device_ms,
            edge_bits={"bit0": bit0["redo"][0], "bit1": bit1["redo"][0],
                       "bit2": band["bit2"]["redo"][0],
                       "resolved": band["resolved"]["redo"][0]},
@@ -571,21 +677,27 @@ def phase_recordings(smi):
                     launches=cli_launches, plain_calls=cli_calls,
                     golden_rows=CLI_FILES * CLI_GOLDEN_ROWS,
                     mismatches_vs_golden=cli_golden))
-    err = max(long_main["max_abs_err"], bit0["max_abs_err"],
-              bit1["max_abs_err"])
+    err = max(f["max_abs_err"] for f in (
+        long_main, bit0, bit1, band["bit2"], *device_rungs.values()))
     precise_err = max(precise_main["max_abs_err"],
                       band["resolved"]["max_abs_err"])
     return dict(
-        precise=dict(launches=precise_launches,
+        precise=dict(**path_launches("oasis_ar1_precise", precise_launches),
                      path=f"oasis_cuda.oasis_ar1(precise=True), "
                           f"{KERNEL_TRACES} x {T}",
                      max_abs_err=precise_err, ms=precise_ms,
-                     plain_ms=precise_main["plain_ms"]),
-        long=dict(launches=cli_launches.get("oasis_ar1_long", 0)
-                  + cli_launches.get("oasis_ar1_long_precise", 0),
+                     plain_ms=precise_main["plain_ms"],
+                     **bound(KERNEL_TRACES, T, True)),
+        long=dict(**path_launches("oasis_ar1_long_precise", cli_launches),
                   path="spike_train_inference --device cuda",
                   max_abs_err=err, ms=long_ms,
-                  plain_ms=long_main["plain_ms"]))
+                  plain_ms=long_main["plain_ms"],
+                  shape=[REC_TRACES, REC_T],
+                  **bound(REC_TRACES, REC_T, True),
+                  ms_per_recording=cli_kernel_ms,
+                  bound_ms_per_recording=bound(CLI_NEURONS, REC_T,
+                                               True)["bound_ms"],
+                  device_ring_ms=device_ms))
 
 
 def main() -> int:
@@ -610,26 +722,27 @@ def main() -> int:
     config = flagship_config()
     weights = get_models(config, rng=torch.Generator().manual_seed(SEED))
     params = convert.flax_generator_params(weights.state_dict())
-    launches = phase_slice(config, params)
-    kernel_ms, plain_ms, err = phase_timings(config, params, smi)
-    max_err = max(max_err, err)
+    serving_launches = phase_slice(config, params)
+    serving = phase_timings(config, params, smi)
     recordings = phase_recordings(smi)
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
     print(smi)
     source = "calciumgan_tpu_torch/csrc/oasis_ar1.cu"
+    # no single PyTorch call computes OASIS: library_ms is null
     print(json.dumps({"kernels": [
         {"name": "oasis_ar1", "route": "cuda", "source": source,
-         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:599",
-         "launches": launches, "path": "generate --spikes",
-         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms},
+         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:603",
+         **path_launches("oasis_ar1", serving_launches),
+         "path": "generate --spikes", "library_ms": None,
+         **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"]))},
         {"name": "oasis_ar1_precise", "route": "cuda", "source": source,
-         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:599",
-         **recordings["precise"]},
+         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:603",
+         "library_ms": None, **recordings["precise"]},
         {"name": "oasis_ar1_long", "route": "cuda", "source": source,
-         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:509",
-         **recordings["long"]}]}))
+         "replaces": "calciumgan_tpu/ops/oasis_pallas.py:513",
+         "library_ms": None, **recordings["long"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,252 @@
+"""The port imports nothing of the JAX package, and its copies of the JAX
+package's JAX-free modules equal the originals.
+
+Every ``.py`` file of ``calciumgan_tpu_torch/`` and ``chip_smoke.py`` is
+walked as an AST (imports inside functions included) for imports of
+``calciumgan_tpu``, ``jax``, ``flax`` or ``optax`` and for paths into
+``calciumgan_tpu/``. The copies (``Config``, ``Registry``, ``ifft_signals``,
+the float64 golden and ``synth_ar1_traces``, the h5 writer and the C++
+float64 redo) are held against the JAX package's modules on seeded inputs.
+"""
+
+import argparse
+import ast
+import dataclasses
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from calciumgan_tpu import config as jax_config
+from calciumgan_tpu import registry as jax_registry
+from calciumgan_tpu.data import segments
+from calciumgan_tpu.ops import oasis_ref
+from calciumgan_tpu.utils import h5 as jax_h5
+from calciumgan_tpu_torch import config as port_config
+from calciumgan_tpu_torch.data import pipeline as port_pipeline
+from calciumgan_tpu_torch.models import registry as port_registry
+from calciumgan_tpu_torch.ops import golden
+from calciumgan_tpu_torch.ops import oasis as port_oasis
+from calciumgan_tpu_torch.utils import h5 as port_h5
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "calciumgan_tpu_torch")
+FORBIDDEN = {"calciumgan_tpu", "jax", "flax", "optax"}
+# a citation "calciumgan_tpu/<file>.py:<line>" names the TPU kernel a
+# port kernel replaces (chip_smoke.py's `replaces`); it opens nothing
+_CITATION = re.compile(r"^calciumgan_tpu/[\w/]+\.py:\d+$")
+
+
+def _sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in sorted(names)
+                  if n.endswith(".py")]
+    return sorted(os.path.relpath(f, ROOT) for f in files)
+
+
+def _docstrings(tree):
+    nodes = [tree] + [n for n in ast.walk(tree) if isinstance(
+        n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))]
+    return {id(n.body[0].value) for n in nodes
+            if n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+
+
+def _violations(source: str) -> list:
+    tree = ast.parse(source)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names
+                      if a.name.split(".")[0] in FORBIDDEN]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and (
+                    node.module.split(".")[0] in FORBIDDEN):
+                found.append(node.module)
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            func = node.func
+            name = func.attr if isinstance(func, ast.Attribute) else getattr(
+                func, "id", "")
+            if name in ("import_module", "__import__") and (
+                    node.args[0].value.split(".")[0] in FORBIDDEN):
+                found.append(node.args[0].value)
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            parts = re.split(r"[/\\]", node.value)
+            if "calciumgan_tpu" in parts and not _CITATION.match(node.value):
+                found.append(f"path {node.value!r}")
+    return found
+
+
+@pytest.mark.parametrize("path", _sources())
+def test_port_file_imports_nothing_of_the_jax_package(path):
+    with open(os.path.join(ROOT, path)) as f:
+        assert _violations(f.read()) == [], path
+
+
+@pytest.mark.parametrize("source", [
+    "import calciumgan_tpu.ops.oasis_ref\n",
+    "def f():\n    from calciumgan_tpu import native\n",
+    "def f():\n    import jax.numpy as jnp\n",
+    "from flax import linen\n",
+    "import importlib\nimportlib.import_module('optax')\n",
+    "p = os.path.join(root, 'calciumgan_tpu', 'native', 'x.cc')\n",
+    "p = Path(root) / 'calciumgan_tpu/native/calciumgan_native.cc'\n",
+])
+def test_boundary_check_catches(source):
+    # the walk above finds each way in, even inside a function
+    assert _violations(source)
+
+
+def test_port_loads_no_jax_package_module():
+    code = (
+        "import sys\n"
+        "import calciumgan_tpu_torch.config, calciumgan_tpu_torch.generate\n"
+        "import calciumgan_tpu_torch.ops.oasis\n"
+        "import calciumgan_tpu_torch.dataset.spike_train_inference\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "    ('calciumgan_tpu', 'jax', 'jaxlib', 'flax', 'optax')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+# ---- Config ---------------------------------------------------------------
+
+def _field_table(cls):
+    return [(f.name, str(f.type), f.default if f.default_factory is
+             dataclasses.MISSING else f.default_factory())
+            for f in dataclasses.fields(cls)]
+
+
+def test_config_fields_and_defaults_equal_jax():
+    assert _field_table(port_config.Config) == _field_table(jax_config.Config)
+    assert port_config._TUPLE_FIELDS == jax_config._TUPLE_FIELDS
+
+
+def _sample(cls):
+    return cls(model="calciumgan", sequence_length=2048, num_neurons=102,
+               num_channels=102, signal_shape=[2048, 102], noise_dim=32,
+               layer_norm=True, signals_min=0.0, signals_max=1.5, ema=0.99,
+               seed=7, git_hash="abc123")
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_config_hparams_round_trip(tmp_path, writer):
+    # either package reads the hparams.json the other writes
+    mods = {"port": port_config.Config, "jax": jax_config.Config}
+    reader = mods["jax" if writer == "port" else "port"]
+    saved = _sample(mods[writer])
+    saved.extras["legacy_flag"] = 3
+    run = str(tmp_path / "run")
+    saved.save(os.path.join(run, "hparams.json"))
+    loaded = reader(output_dir=run).load()
+    assert loaded.to_dict() == saved.to_dict() | {"output_dir": run}
+    assert loaded.signal_shape == (2048, 102)
+    assert loaded.extras == {"legacy_flag": 3}
+    with open(os.path.join(run, "hparams.json")) as f:
+        assert json.load(f)["ema"] == 0.99
+
+
+def test_config_load_keeps_cli_flags_as_jax_does(tmp_path):
+    _sample(jax_config.Config).save(str(tmp_path / "hparams.json"))
+    args = argparse.Namespace(output_dir=str(tmp_path), seed=1234,
+                              num_samples=10)
+    ours = port_config.Config.from_args(args).load()
+    theirs = jax_config.Config.from_args(args).load()
+    assert ours.to_dict() == theirs.to_dict()
+    assert ours.seed == 1234 and ours.ema == 0.99
+
+
+@pytest.mark.parametrize("sl,ok", [(2048, True), (48, False)])
+def test_config_validate_model_shapes_equal_jax(sl, ok):
+    for cls in (port_config.Config, jax_config.Config):
+        cfg = cls(sequence_length=sl)
+        if ok:
+            cfg.validate_model_shapes()
+        else:
+            with pytest.raises(ValueError, match="strides"):
+                cfg.validate_model_shapes()
+
+
+# ---- Registry, ifft_signals, h5 --------------------------------------------
+
+def test_registry_behaves_as_jax():
+    for cls in (port_registry.Registry, jax_registry.Registry):
+        reg = cls("model")
+        reg.register("a")(1)
+        assert reg.get("a") == 1 and "a" in reg and reg.names() == ["a"]
+        with pytest.raises(KeyError, match="duplicate model"):
+            reg.register("a")(2)
+        with pytest.raises(KeyError, match="unknown model 'b'"):
+            reg.get("b")
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 8), (2, 33, 10)])
+def test_ifft_signals_equals_jax(shape):
+    x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    ours = port_pipeline.ifft_signals(x)
+    assert ours.dtype == np.float32
+    np.testing.assert_array_equal(ours, segments.ifft_signals(x))
+
+
+def test_h5_write_appends_as_jax_reads(tmp_path):
+    rng = np.random.default_rng(4)
+    parts = [rng.standard_normal((n, 16, 3)).astype(np.float32)
+             for n in (2, 5)]
+    out = str(tmp_path / "samples.h5")
+    for part in parts:
+        port_h5.write(out, {"signals": part,
+                            "spikes": (part > 0).astype(np.int8)})
+    full = np.concatenate(parts)
+    np.testing.assert_array_equal(jax_h5.get(out, "signals"), full)
+    np.testing.assert_array_equal(jax_h5.get(out, "spikes"),
+                                  (full > 0).astype(np.int8))
+
+
+# ---- float64 golden and the C++ redo ----------------------------------------
+
+@pytest.mark.parametrize("n,T,rate", [(4, 300, 0.02), (3, 500, 0.2)])
+def test_synth_traces_equal_jax(n, T, rate):
+    ours = golden.synth_ar1_traces(np.random.default_rng(5), n, T, rate=rate)
+    theirs = oasis_ref.synth_ar1_traces(np.random.default_rng(5), n, T,
+                                        rate=rate)
+    np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("lam,s_min", [(0.0, 0.55), (0.0, 0.0), (1.0, 0.2)])
+def test_golden_oasis_equals_jax(lam, s_min):
+    y = golden.synth_ar1_traces(np.random.default_rng(6), 3, 400)
+    for row in y:
+        ours = golden.oasis_ar1(row, g=0.95, lam=lam, s_min=s_min)
+        theirs = oasis_ref.oasis_ar1(row, g=0.95, lam=lam, s_min=s_min)
+        for a, b in zip(ours, theirs):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        golden.deconvolve_signals_ref(y, s_min=s_min),
+        oasis_ref.deconvolve_signals_ref(y, s_min=s_min))
+
+
+@pytest.mark.parametrize("T", [200, 4500])
+def test_cxx_redo_copy_equals_jax_golden(T):
+    y = golden.synth_ar1_traces(np.random.default_rng(8), 5, T)
+    built = port_oasis.host_library()
+    assert os.path.basename(built.path).startswith("liboasis_host-")
+    spikes = port_oasis._exact_spikes_host(y, 0.95, 0.55, 0.5)
+    np.testing.assert_array_equal(spikes, oasis_ref.deconvolve_signals_ref(
+        y.astype(np.float64)).astype(np.int8))
+
+
+def test_cxx_redo_source_lives_in_the_port():
+    # a file of csrc/ (the kernel build hashes every entry of it)
+    assert os.path.isfile(os.path.join(PORT, "csrc", "oasis_host.cc"))
