@@ -1,18 +1,40 @@
-"""Inference half of the GAN algorithm (counterpart of
-``calciumgan_tpu/algorithms/gan.py:88-108,226-231``).
+"""Vanilla (non-saturating) GAN with BCE-from-logits losses (counterpart of
+``calciumgan_tpu/algorithms/gan.py``).
 
-Noise comes from an explicit ``torch.Generator``: JAX's threefry and
-PyTorch's Philox never draw the same numbers, so parity tests hand both
-packages the same numpy noise instead. The train and eval steps come with
-the training slice.
+The JAX package's steps are pure ``(state, batch, key) -> (state, logs)``
+functions; here a step updates the :class:`~.state.GANState` in place and
+returns its logs as device tensors (no host synchronisation per step).
+Behaviours kept:
+
+- both gradients of the vanilla GAN come from ONE forward pass: the same
+  noise and phase shifts, real and fake through one discriminator pass over
+  ``concat(real, fake)`` (``gan.py:154-209``); each loss is differentiated
+  w.r.t. its own net only, so neither optimizer sees the other's loss;
+- Adam with ``eps=1e-7`` (:mod:`.state`), no loss scaling under bf16;
+- per-batch signal metrics on denormalised data (``gan.py:110-112``);
+- the generator EMA is a side-car: updated after each generator step, used
+  by evaluation and sampling, never by training (``gan.py:56-64,97-103``).
+
+Randomness comes from a :class:`Draws`, one per step: noise and GP alpha
+from a ``torch.Generator`` on the device, phase shifts from one on the host,
+both seeded from ``(seed, counter)``. JAX's threefry and PyTorch's Philox
+never draw the same numbers, so the parity tests pass an object with the
+same three methods that replays the JAX package's draws instead.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
+
+from calciumgan_tpu_torch.algorithms.registry import register
+from calciumgan_tpu_torch.algorithms.state import (GANState, apply_updates,
+                                                   make_net_state)
+from calciumgan_tpu_torch.ops import signal_metrics
+from calciumgan_tpu_torch.ops.phase_shuffle import draw_shifts
 
 
 def get_noise(gen: torch.Generator, n: int, noise_dim: int,
@@ -21,6 +43,33 @@ def get_noise(gen: torch.Generator, n: int, noise_dim: int,
     must live on ``device``)."""
     return torch.randn((n, noise_dim), generator=gen, device=device,
                        dtype=torch.float32)
+
+
+class Draws:
+    """The random numbers of one step: standard-normal noise and uniform GP
+    alpha drawn on ``device``, phase shifts on the host. ``(seed, counter)``
+    seeds both generators, so a resumed run that replays a step's counter
+    replays its draws (the JAX package folds ``global_step`` into its run
+    key, ``train.py:123``)."""
+
+    def __init__(self, seed: int, counter: int, device):
+        state = np.random.SeedSequence([seed, counter]).generate_state(
+            2, np.uint64)
+        self.device = torch.device(device)
+        self._device_gen = torch.Generator(device=self.device).manual_seed(
+            int(state[0] >> np.uint64(1)))
+        self._host_gen = torch.Generator().manual_seed(
+            int(state[1] >> np.uint64(1)))
+
+    def noise(self, n: int, noise_dim: int) -> torch.Tensor:
+        return get_noise(self._device_gen, n, noise_dim, self.device)
+
+    def alpha(self, n: int) -> torch.Tensor:
+        return torch.rand((n,), generator=self._device_gen,
+                          device=self.device, dtype=torch.float32)
+
+    def shifts(self, m: int, count: int):
+        return draw_shifts(self._host_gen, m, count)
 
 
 def eval_gen_params(state: Mapping):
@@ -53,3 +102,121 @@ def generate(generator: torch.nn.Module, noise: torch.Tensor) -> torch.Tensor:
     there is no mode to set."""
     with torch.no_grad():
         return generator(noise)
+
+
+def bce_with_logits(logits: torch.Tensor, label: int,
+                    mask=None) -> torch.Tensor:
+    """Keras ``BinaryCrossentropy(from_logits=True)`` against a constant
+    label: ``softplus(-x)`` or ``softplus(x)`` as ``logaddexp(., 0)``, exact
+    for large logits as ``jax.nn.softplus`` is."""
+    logits = logits.float()
+    per = torch.logaddexp(-logits if label == 1 else logits,
+                          torch.zeros_like(logits))
+    return signal_metrics.batch_weighted_mean(per, mask)
+
+
+def _real_rows(real: torch.Tensor, mask) -> torch.Tensor:
+    """This batch's real-row count (the epoch mean's weight)."""
+    if mask is None:
+        return torch.tensor(float(real.shape[0]), device=real.device)
+    return mask.float().sum()
+
+
+@register("gan")
+class GAN:
+    """Holds the config and the two modules; the steps update a
+    :class:`~.state.GANState` made by :meth:`init_state`."""
+
+    has_gradient_penalty = False
+
+    def __init__(self, config, generator, discriminator):
+        self.config = config
+        self.generator = generator
+        self.discriminator = discriminator
+        self.noise_dim = int(config.noise_dim)
+        self.learning_rate = float(config.learning_rate)
+        self.ema = float(getattr(config, "ema", 0.0) or 0.0)
+        if not 0.0 <= self.ema < 1.0:
+            raise ValueError(f"--ema must be in [0, 1), got {self.ema}")
+
+    def init_state(self) -> GANState:
+        ema = ({n: p.detach().clone()
+                for n, p in self.generator.named_parameters()}
+               if self.ema > 0 else None)
+        return GANState(make_net_state(self.generator, self.learning_rate),
+                        make_net_state(self.discriminator,
+                                       self.learning_rate), ema)
+
+    # ------------------------------------------------------------------
+    def update_ema(self, state: GANState) -> None:
+        """``ema = decay * ema + (1 - decay) * params`` after a generator
+        step (no-op without an EMA)."""
+        if state.ema is None:
+            return
+        params = dict(self.generator.named_parameters())
+        ema = list(state.ema.values())
+        torch._foreach_mul_(ema, self.ema)
+        torch._foreach_add_(ema, [params[n].detach() for n in state.ema],
+                            alpha=1.0 - self.ema)
+
+    def sample(self, state: GANState, noise: torch.Tensor) -> torch.Tensor:
+        """Generator output for evaluation and sampling: the EMA params when
+        the state has them, else the raw ones."""
+        with torch.no_grad():
+            if state.ema is None:
+                return self.generator(noise)
+            return functional_call(self.generator, state.ema, (noise,))
+
+    def metrics(self, real, fake, mask=None) -> dict:
+        return signal_metrics.all_signal_metrics(
+            denormalize(self.config, real), denormalize(self.config, fake),
+            mask)
+
+    def dis(self, x: torch.Tensor, draws) -> torch.Tensor:
+        """One discriminator pass with this pass's phase shifts."""
+        d = self.discriminator
+        return d(x, draws.shifts(d.m, d.num_shifts))
+
+    # ---- losses -------------------------------------------------------
+    def generator_loss(self, fake_output, mask=None):
+        return bce_with_logits(fake_output, 1, mask)
+
+    def discriminator_loss(self, real_output, fake_output, mask=None):
+        return (bce_with_logits(real_output, 1, mask) +
+                bce_with_logits(fake_output, 0, mask))
+
+    # ---- steps --------------------------------------------------------
+    def train_step(self, state: GANState, real: torch.Tensor,
+                   draws) -> dict:
+        B = real.shape[0]
+        fake = self.generator(draws.noise(B, self.noise_dim))
+        out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws)
+        gen_loss = self.generator_loss(out[B:])
+        dis_loss = self.discriminator_loss(out[:B], out[B:])
+        g_grads = torch.autograd.grad(
+            gen_loss, list(self.generator.parameters()), retain_graph=True)
+        d_grads = torch.autograd.grad(
+            dis_loss, list(self.discriminator.parameters()))
+        apply_updates(state.generator, g_grads)
+        apply_updates(state.discriminator, d_grads)
+        self.update_ema(state)
+        logs = {"loss/generator": gen_loss.detach(),
+                "loss/discriminator": dis_loss.detach()}
+        logs.update(self.metrics(real, fake.detach()))
+        return logs
+
+    def eval_step(self, state: GANState, real: torch.Tensor, draws,
+                  mask: Optional[torch.Tensor] = None):
+        """``mask`` (B,) zero-weights padded tail-batch rows so every logged
+        mean reduces exactly over the real rows (None = all rows real).
+        Returns ``(fake, logs)``."""
+        B = real.shape[0]
+        fake = self.sample(state, draws.noise(B, self.noise_dim))
+        with torch.no_grad():
+            out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws)
+            logs = {"loss/generator": self.generator_loss(out[B:], mask),
+                    "loss/discriminator": self.discriminator_loss(
+                        out[:B], out[B:], mask)}
+            logs.update(self.metrics(real, fake, mask))
+        logs["batch/real_rows"] = _real_rows(real, mask)
+        return fake, logs

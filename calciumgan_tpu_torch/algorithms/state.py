@@ -1,0 +1,48 @@
+"""Train state (counterpart of ``calciumgan_tpu/algorithms/state.py``).
+
+The JAX package keeps the whole state in one immutable pytree; here each
+net is its module, its Adam optimizer (optax's ``adam(lr, eps=1e-7)``:
+``betas=(0.9, 0.999)``, epsilon outside the square root, as Keras has it)
+and its update count, all updated in place. The optional generator EMA is a
+copy of the generator's parameters, updated after each generator step and
+never fed back into training (``calciumgan_tpu/algorithms/gan.py:56-64,
+97-103``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass
+class NetState:
+    module: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0  # optimizer updates taken
+
+
+@dataclasses.dataclass
+class GANState:
+    generator: NetState
+    discriminator: NetState
+    # parameter name -> EMA tensor (None when --ema is 0)
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+
+def make_net_state(module: nn.Module, learning_rate: float) -> NetState:
+    return NetState(module, torch.optim.Adam(
+        module.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-7))
+
+
+def apply_updates(net: NetState, grads) -> None:
+    """One Adam step of ``net`` with ``grads`` (one per parameter, in
+    ``parameters()`` order)."""
+    for p, g in zip(net.module.parameters(), grads):
+        p.grad = g
+    net.optimizer.step()
+    net.optimizer.zero_grad(set_to_none=True)
+    net.step += 1

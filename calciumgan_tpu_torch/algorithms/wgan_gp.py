@@ -1,0 +1,121 @@
+"""WGAN-GP: Wasserstein GAN with gradient penalty (counterpart of
+``calciumgan_tpu/algorithms/wgan_gp.py``).
+
+The paper's semantics, as the JAX package keeps them:
+
+- the SAME real batch feeds all ``n_critic`` critic steps and the generator
+  step, with fresh noise each step (``wgan_gp.py:103-135``);
+- each critic step makes one discriminator pass over ``concat(real,
+  fake)`` with one shift draw, and the gradient penalty its own pass with
+  its own shift draw (``:70``);
+- the penalty interpolates with per-sample ``alpha ~ U(0, 1)`` against the
+  detached fake and takes ``dD(x_hat)/dx_hat`` of the float32 sum with
+  ``create_graph=True``, so the critic's gradient differentiates through it;
+  the norm is per sample, float32, with ``+1e-12`` inside the square root
+  (``:68-84``);
+- the generator step runs the UPDATED critic with a third shift draw and
+  differentiates w.r.t. the generator's parameters only (``:141-155``).
+
+``--unroll_critic`` (XLA cost accounting) and the sharding pins (a
+partitioner workaround) have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from calciumgan_tpu_torch.algorithms.gan import GAN, _real_rows
+from calciumgan_tpu_torch.algorithms.registry import register
+from calciumgan_tpu_torch.algorithms.state import GANState, apply_updates
+from calciumgan_tpu_torch.ops import signal_metrics
+
+
+@register("wgan-gp")
+class WGAN_GP(GAN):
+
+    has_gradient_penalty = True
+
+    def __init__(self, config, generator, discriminator):
+        super().__init__(config, generator, discriminator)
+        self.penalty = float(config.gradient_penalty)
+        self.n_critic = int(config.n_critic)
+        if self.n_critic < 1:
+            raise ValueError(f"n_critic must be >= 1, got {self.n_critic}")
+
+    # ---- losses -------------------------------------------------------
+    def generator_loss(self, fake_output, mask=None):
+        return -signal_metrics.batch_weighted_mean(fake_output.float(), mask)
+
+    def wasserstein_dis_loss(self, real_output, fake_output, mask=None):
+        return (-signal_metrics.batch_weighted_mean(real_output.float(), mask)
+                + signal_metrics.batch_weighted_mean(fake_output.float(),
+                                                     mask))
+
+    def gradient_penalty(self, draws, real, fake, mask=None,
+                         create_graph: bool = True) -> torch.Tensor:
+        B = real.shape[0]
+        alpha = draws.alpha(B).reshape((B,) + (1,) * (real.ndim - 1))
+        with torch.enable_grad():
+            x_hat = (alpha * real + (1.0 - alpha) *
+                     fake.detach().to(real.dtype)).requires_grad_(True)
+            out = self.dis(x_hat, draws)
+            grad, = torch.autograd.grad(out.float().sum(), x_hat,
+                                        create_graph=create_graph)
+        norm = torch.sqrt(grad.float().reshape(B, -1).square().sum(1)
+                          + 1e-12)
+        return signal_metrics.batch_weighted_mean((norm - 1.0).square(), mask)
+
+    # ---- steps --------------------------------------------------------
+    def train_step(self, state: GANState, real: torch.Tensor,
+                   draws) -> dict:
+        B = real.shape[0]
+        d_params = list(self.discriminator.parameters())
+        dis_losses, gps = [], []
+        for _ in range(self.n_critic):
+            with torch.no_grad():
+                fake = self.generator(draws.noise(B, self.noise_dim))
+            out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws)
+            gp = self.gradient_penalty(draws, real, fake)
+            loss = self.wasserstein_dis_loss(out[:B], out[B:]) \
+                + self.penalty * gp
+            apply_updates(state.discriminator,
+                          torch.autograd.grad(loss, d_params))
+            dis_losses.append(loss.detach())
+            gps.append(gp.detach())
+
+        fake = self.generator(draws.noise(B, self.noise_dim))
+        gen_loss = self.generator_loss(self.dis(fake, draws))
+        apply_updates(state.generator, torch.autograd.grad(
+            gen_loss, list(self.generator.parameters())))
+        self.update_ema(state)
+
+        logs = {"loss/generator": gen_loss.detach(),
+                "loss/discriminator": torch.stack(dis_losses).mean(),
+                "loss/gradient_penalty": torch.stack(gps).mean()}
+        logs.update(self.metrics(real, fake.detach()))
+        return logs
+
+    def eval_step(self, state: GANState, real: torch.Tensor, draws,
+                  mask: Optional[torch.Tensor] = None):
+        """``mask`` (B,) zero-weights padded tail-batch rows so every logged
+        mean reduces exactly over the real rows (None = all rows real).
+        Returns ``(fake, logs)``."""
+        fake = self.sample(state, draws.noise(real.shape[0], self.noise_dim))
+        with torch.no_grad():
+            real_out = self.dis(real, draws)
+            fake_out = self.dis(fake, draws)
+        gp = self.gradient_penalty(draws, real, fake, mask,
+                                   create_graph=False)
+        with torch.no_grad():
+            logs = {
+                "loss/generator": self.generator_loss(fake_out, mask),
+                "loss/discriminator":
+                    self.wasserstein_dis_loss(real_out, fake_out, mask)
+                    + self.penalty * gp,
+                "loss/gradient_penalty": gp.detach(),
+            }
+            logs.update(self.metrics(real, fake, mask))
+        logs["batch/real_rows"] = _real_rows(real, mask)
+        return fake, logs

@@ -1,14 +1,22 @@
-"""Flax generator parameters <-> the port's ``state_dict``.
+"""Flax generator and discriminator parameters <-> the port's
+``state_dict``s.
 
-Flax names its submodules by class and order (``Dense_0``,
-``ConvTranspose_0..4``, ``Norm_i/LayerNorm_0``, ``Dense_1``); the port's
-:class:`~calciumgan_tpu_torch.models.calciumgan.Generator` names them
-``dense_0``, ``conv_transpose.i``, ``norm.i``, ``dense_1``. Layouts:
+Flax names its submodules by class and order. The generator's (``Dense_0``,
+``ConvTranspose_0..4``, ``Norm_i/LayerNorm_0``, ``Dense_1``) are the port's
+:class:`~calciumgan_tpu_torch.models.calciumgan.Generator`'s ``dense_0``,
+``conv_transpose.i``, ``norm.i``, ``dense_1``; the discriminator's
+(``Conv_0..4``, ``Dense_0``) are the
+:class:`~calciumgan_tpu_torch.models.calciumgan.Discriminator`'s ``conv.i``
+and ``dense``. Layouts:
 
-- Dense kernel ``(in, out)`` -> Linear weight ``(out, in)``;
+- Dense kernel ``(in, out)`` -> Linear weight ``(out, in)``; the
+  discriminator's ``Dense_0`` reads a time-major flatten in both packages,
+  so ``(W*C, 1)`` -> ``(1, W*C)`` needs no permutation;
 - ConvTranspose kernel ``(K, Cin, Cout)`` -> ``(Cin, Cout, K)`` with the K
   axis flipped: Flax does not flip its kernel (``transpose_kernel=False``),
   ``F.conv_transpose1d`` does;
+- Conv kernel ``(K, Cin, Cout)`` -> ``(Cout, Cin, K)``, not flipped:
+  ``F.conv1d`` is a correlation, as ``lax.conv`` is;
 - LayerNorm ``scale``/``bias`` unchanged. A size-1 channel axis has no
   LayerNorm (``calciumgan_tpu/models/base.py:45-70``), so no entry.
 """
@@ -24,6 +32,11 @@ import torch
 _DENSE = re.compile(r"Dense_(\d+)$")
 _CONV_T = re.compile(r"ConvTranspose_(\d+)$")
 _NORM = re.compile(r"Norm_(\d+)$")
+_CONV = re.compile(r"Conv_(\d+)$")
+
+
+def _tensor(array) -> torch.Tensor:
+    return torch.from_numpy(np.array(array, np.float32, order="C"))
 
 
 def generator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -31,7 +44,7 @@ def generator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     out = {}
 
     def put(name, array):
-        out[name] = torch.from_numpy(np.array(array, np.float32, order="C"))
+        out[name] = _tensor(array)
 
     for key, sub in params.items():
         if m := _DENSE.match(key):
@@ -77,4 +90,43 @@ def flax_generator_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
                 field] = a
         else:
             raise KeyError(f"unexpected state_dict entry {name!r}")
+    return params
+
+
+def discriminator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax discriminator params -> ``state_dict``."""
+    out = {}
+    for key, sub in params.items():
+        if m := _CONV.match(key):
+            out[f"conv.{m[1]}.weight"] = _tensor(
+                np.transpose(np.asarray(sub["kernel"]), (2, 1, 0)))
+            out[f"conv.{m[1]}.bias"] = _tensor(sub["bias"])
+        elif key == "Dense_0":
+            out["dense.weight"] = _tensor(np.asarray(sub["kernel"]).T)
+            out["dense.bias"] = _tensor(sub["bias"])
+        else:
+            raise KeyError(
+                f"unexpected discriminator parameter group {key!r}")
+    return out
+
+
+def flax_discriminator_params(state_dict: Mapping[str, torch.Tensor]
+                              ) -> dict:
+    """Inverse of :func:`discriminator_state_dict`."""
+    params: dict = {}
+    for name, tensor in state_dict.items():
+        a = tensor.detach().cpu().float().numpy()
+        module, field = name.rsplit(".", 1)
+        if module.startswith("conv."):
+            group = f"Conv_{module.split('.')[1]}"
+            if field == "weight":
+                a = np.ascontiguousarray(np.transpose(a, (2, 1, 0)))
+        elif module == "dense":
+            group = "Dense_0"
+            if field == "weight":
+                a = np.ascontiguousarray(a.T)
+        else:
+            raise KeyError(f"unexpected state_dict entry {name!r}")
+        params.setdefault(group, {})[
+            {"weight": "kernel"}.get(field, field)] = a
     return params

@@ -1,2 +1,2 @@
-"""Data helpers (counterpart of :mod:`calciumgan_tpu.data`): reverse
-preprocessing of generated signals."""
+"""Data (counterpart of :mod:`calciumgan_tpu.data`): the TFRecord codec,
+dataset loading, batches on the device and reverse preprocessing."""

@@ -1,16 +1,262 @@
-"""Reverse preprocessing (counterpart of
-``calciumgan_tpu/data/pipeline.py:236-251``, reference ``utils.py:49-63``).
+"""Input pipeline (counterpart of ``calciumgan_tpu/data/pipeline.py``):
+dataset loading, batches on the device, and reverse preprocessing.
 
-The loading half of the JAX pipeline comes with the training slice.
+Shards are decoded once into contiguous numpy arrays (cached as ``.npy``
+beside the records, the names the JAX package uses, so either package reads
+the other's cache) and shuffled per epoch by an explicit numpy RNG, exactly
+as the JAX training loop does, so the port's batches are JAX's. One
+process: no per-process record split.
+
+:class:`DeviceStore` is the counterpart of the JAX ``DeviceStore``: the
+signals go to the card once and each batch is gathered there by index. Where
+they do not fit (``--device_store``), :class:`HostBatches` copies each batch
+from pinned host memory.
 """
 
 from __future__ import annotations
+
+import glob
+import os
+import pickle
+import threading
+from math import ceil
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from calciumgan_tpu_torch.algorithms.gan import denormalize
+from calciumgan_tpu_torch.data import tfrecord
 
+
+class ArrayDataset:
+    """An in-memory (signals, spikes) dataset with epoch iteration (copy of
+    the JAX package's ``ArrayDataset``)."""
+
+    def __init__(self, signals: np.ndarray, spikes: np.ndarray):
+        if len(signals) != len(spikes):
+            raise ValueError(f"{len(signals)} signals vs {len(spikes)} "
+                             f"spikes")
+        self.signals = signals
+        self.spikes = spikes
+
+    def __len__(self):
+        return len(self.signals)
+
+    def batches(self, batch_size: int, shuffle: bool = False,
+                rng: Optional[np.random.Generator] = None,
+                drop_remainder: bool = False
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        n = len(self)
+        order = np.arange(n)
+        if shuffle:
+            (rng or np.random.default_rng()).shuffle(order)
+        end = n - n % batch_size if drop_remainder else n
+        for i in range(0, end, batch_size):
+            idx = order[i:i + batch_size]
+            yield self.signals[idx], self.spikes[idx]
+
+    def steps(self, batch_size: int, drop_remainder: bool = False) -> int:
+        if drop_remainder:
+            return len(self) // batch_size
+        return ceil(len(self) / batch_size)
+
+
+# ---------------------------------------------------------------------------
+# loading
+# ---------------------------------------------------------------------------
+
+def load_info(input_dir: str) -> dict:
+    with open(os.path.join(input_dir, "info.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def apply_dataset_info(config, info: dict) -> None:
+    """Copy dataset metadata onto the config
+    (reference ``dataset_helper.py:113-144``)."""
+    config.train_files = os.path.join(config.input_dir, "train-*.record")
+    config.validation_files = os.path.join(config.input_dir,
+                                           "validation-*.record")
+    for key in ("train_size", "validation_size", "sequence_length",
+                "num_neurons", "num_channels", "num_train_shards",
+                "num_validation_shards", "buffer_size", "normalize", "fft",
+                "conv2d"):
+        setattr(config, key, info[key])
+    config.signal_shape = tuple(info["signal_shape"])
+    config.spike_shape = tuple(info["spike_shape"])
+    config.fft_norm = info.get("fft_norm", "global")
+    if config.normalize:
+        # per-channel fft norm stores one (min, max) per coefficient
+        # position, shaped like signal_shape; global norm stores scalars
+        if np.ndim(info["signals_min"]):
+            config.signals_min = np.asarray(info["signals_min"], np.float32)
+            config.signals_max = np.asarray(info["signals_max"], np.float32)
+        else:
+            config.signals_min = float(info["signals_min"])
+            config.signals_max = float(info["signals_max"])
+    if config.save_generated:
+        config.generated_dir = os.path.join(config.output_dir, "generated")
+        os.makedirs(config.generated_dir, exist_ok=True)
+        config.validation_cache = os.path.join(config.generated_dir,
+                                               "validation.h5")
+
+
+def _read_shards(pattern: str, signal_shape, spike_shape) -> ArrayDataset:
+    all_files = sorted(glob.glob(pattern))
+    if not all_files:
+        raise FileNotFoundError(f"no record files match {pattern}")
+    # decoded-array cache: the first decode persists signals and spikes as
+    # .npy next to the records; later runs (resumes) memory-map them
+    newest = max(os.path.getmtime(f) for f in all_files)
+    tag = os.path.basename(pattern).split("-")[0].rstrip("*")
+    cache_base = os.path.join(os.path.dirname(pattern),
+                              f".{tag}.cache-000-of-001")
+    sig_npy, spk_npy = cache_base + ".signals.npy", cache_base + ".spikes.npy"
+    if (os.path.exists(sig_npy) and os.path.exists(spk_npy)
+            # both files must postdate the records: a run killed between
+            # the two os.replace calls below leaves a stale pair
+            and min(os.path.getmtime(sig_npy),
+                    os.path.getmtime(spk_npy)) >= newest):
+        return ArrayDataset(np.load(sig_npy, mmap_mode="r"),
+                            np.load(spk_npy, mmap_mode="r"))
+    signals, spikes = [], []
+    for path in all_files:
+        for signal, spike in tfrecord.read_signal_records(
+                path, signal_shape, spike_shape):
+            signals.append(signal)
+            spikes.append(spike)
+    if not signals:
+        raise ValueError(f"no records in {pattern}")
+    signals, spikes = np.stack(signals), np.stack(spikes)
+    try:  # best-effort cache write, atomic, tmp names unique per writer
+        uid = f".tmp.{os.getpid()}.{threading.get_ident()}.npy"
+        np.save(sig_npy + uid, signals)
+        np.save(spk_npy + uid, spikes)
+        os.replace(sig_npy + uid, sig_npy)
+        os.replace(spk_npy + uid, spk_npy)
+    except OSError:
+        pass
+    return ArrayDataset(signals, spikes)
+
+
+def load_tfrecord_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
+    if not os.path.exists(config.input_dir):
+        raise FileNotFoundError(
+            f"input directory {config.input_dir} cannot be found")
+    apply_dataset_info(config, load_info(config.input_dir))
+    train = _read_shards(config.train_files, config.signal_shape,
+                         config.spike_shape)
+    validation = _read_shards(config.validation_files, config.signal_shape,
+                              config.spike_shape)
+    return train, validation
+
+
+def load_surrogate_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
+    """Surrogate pickle path (reference ``dataset_helper.py:54-110``):
+    transpose to (trial, time, neuron), min-max normalise, split at 8192."""
+    filename = os.path.join(config.input_dir, "training.pkl")
+    if not os.path.exists(filename):
+        raise FileNotFoundError(f"training dataset {filename} not found")
+    with open(filename, "rb") as f:
+        data = pickle.load(f)
+
+    signals = np.transpose(data["signals"], (0, 2, 1)).astype(np.float32)
+    config.signals_min = float(np.min(signals))
+    config.signals_max = float(np.max(signals))
+    signals = (signals - config.signals_min) / (
+        config.signals_max - config.signals_min)
+    spikes = np.asarray(data["spikes"], np.float32)
+
+    # the reference records the actual split length, so a smaller pickle
+    # does not inflate train_size past the data
+    train_size = min(8192, len(signals))
+    config.train_size = train_size
+    config.validation_size = len(signals) - train_size
+    train = ArrayDataset(signals[:train_size], spikes[:train_size])
+    validation = ArrayDataset(signals[train_size:], spikes[train_size:])
+    config.signal_shape = train.signals.shape[1:]
+    config.spike_shape = spikes.shape[1:]
+    config.sequence_length = train.signals.shape[1]
+    config.num_neurons = train.signals.shape[-1]
+    config.num_channels = train.signals.shape[-1]
+    config.normalize = True
+    config.fft = False
+    config.conv2d = False
+    if config.save_generated:
+        config.generated_dir = os.path.join(config.output_dir, "generated")
+        os.makedirs(config.generated_dir, exist_ok=True)
+        config.validation_cache = os.path.join(config.generated_dir,
+                                               "validation.h5")
+    return train, validation
+
+
+def get_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
+    """Top-level dispatch (reference ``dataset_helper.py:185-206``)."""
+    config.noise_shape = (config.noise_dim,)
+    if config.surrogate_ds:
+        train, validation = load_surrogate_datasets(config)
+    else:
+        train, validation = load_tfrecord_datasets(config)
+    config.train_steps = ceil(config.train_size / config.batch_size)
+    config.validation_steps = ceil(
+        config.validation_size / config.batch_size)
+    return train, validation
+
+
+# ---------------------------------------------------------------------------
+# batches on the device
+# ---------------------------------------------------------------------------
+
+class DeviceStore:
+    """The signals on ``device`` once; :meth:`batch` gathers rows there, so
+    a step moves only its index vector."""
+
+    def __init__(self, signals: np.ndarray, device):
+        self.device = torch.device(device)
+        # a copy: the signals may be a read-only memory map of the cache
+        self.signals = torch.from_numpy(np.array(signals, np.float32)).to(
+            self.device)
+
+    @property
+    def nbytes(self) -> int:
+        return self.signals.numel() * self.signals.element_size()
+
+    def batch(self, idx: np.ndarray) -> torch.Tensor:
+        index = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
+        return self.signals.index_select(0, index)
+
+
+class HostBatches:
+    """Batches gathered on the host and copied to ``device`` per step, from
+    pinned memory when the device is a GPU."""
+
+    def __init__(self, signals: np.ndarray, device):
+        self.device = torch.device(device)
+        self.signals = signals
+
+    def batch(self, idx: np.ndarray) -> torch.Tensor:
+        rows = torch.from_numpy(np.ascontiguousarray(
+            self.signals[np.asarray(idx)], np.float32))
+        if self.device.type == "cuda":
+            return rows.pin_memory().to(self.device, non_blocking=True)
+        return rows.to(self.device)
+
+
+def device_store_enabled(config, nbytes: int, device) -> bool:
+    """``auto``: a GPU device and the signals fit ``--device_store_mb``;
+    ``on``/``off`` force it."""
+    mode = getattr(config, "device_store", "auto")
+    if mode == "off":
+        return False
+    if mode == "on":
+        return True
+    budget = int(getattr(config, "device_store_mb", 4096)) * 2**20
+    return torch.device(device).type == "cuda" and nbytes <= budget
+
+
+# ---------------------------------------------------------------------------
+# reverse preprocessing (reference utils.py:49-63)
+# ---------------------------------------------------------------------------
 
 def ifft_signals(signals: np.ndarray) -> np.ndarray:
     """Inverse FFT of ``(N, W, C)`` spectra, real part only: a copy of

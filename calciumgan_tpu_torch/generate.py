@@ -1,15 +1,17 @@
-"""Generate synthetic calcium signals from a JAX-trained checkpoint on the
-GPU (serving; counterpart of ``generate.py`` at the repo root).
+"""Generate synthetic calcium signals from a trained checkpoint on the GPU
+(serving; counterpart of ``generate.py`` at the repo root).
 
     python -m calciumgan_tpu_torch.generate --output_dir runs/001 \\
         --num_samples 100000 --spikes
 
-Restores the generator (the EMA when the run kept one) from
-``<output_dir>/checkpoints/epoch-NNN.msgpack``, generates on ``--device``
-(default ``cuda``) and writes denormalised NWC float32 signals to the h5
-dataset ``signals``, with OASIS spikes as int8 ``spikes`` under
-``--spikes``. One device, eager; the JAX package's sharded multi-host
-generation has no counterpart yet.
+Restores the generator (the EMA when the run kept one) from the newest
+checkpoint under ``<output_dir>/checkpoints``: the port's own
+``epoch-NNN.pt`` or the JAX package's ``epoch-NNN.msgpack``
+(:func:`~calciumgan_tpu_torch.utils.checkpoint.restore_generator_params`),
+generates on ``--device`` (default ``cuda``) and writes denormalised NWC
+float32 signals to the h5 dataset ``signals``, with OASIS spikes as int8
+``spikes`` under ``--spikes``. One device, eager; the JAX package's
+sharded multi-host generation has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -27,12 +29,12 @@ from calciumgan_tpu_torch.config import Config
 from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
 from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
 from calciumgan_tpu_torch.models import get_models
-from calciumgan_tpu_torch.utils.checkpoint import import_jax_checkpoint
+from calciumgan_tpu_torch.utils.checkpoint import restore_generator_params
 
 
 def build_generator(config, params, device) -> torch.nn.Module:
     """The configured generator on ``device`` with Flax ``params``."""
-    generator = get_models(config, device=device)
+    generator, _ = get_models(config, device=device)
     generator.load_state_dict(convert.generator_state_dict(params))
     return generator
 
@@ -78,10 +80,10 @@ def main(config, num_samples: int, out: str, batch_size: int = 1024,
     config.validate_model_shapes()
     ckpt_dir = config.ckpt_dir or os.path.join(config.output_dir,
                                                "checkpoints")
-    params, restored_epoch = import_jax_checkpoint(
+    params, restored_epoch = restore_generator_params(
         ckpt_dir, epoch=epoch, ema=float(config.ema or 0.0) > 0.0)
     if config.verbose:
-        print(f"Imported checkpoint epoch {restored_epoch} from {ckpt_dir}")
+        print(f"Restored checkpoint epoch {restored_epoch} from {ckpt_dir}")
     if os.path.exists(out):
         os.remove(out)
     written = 0

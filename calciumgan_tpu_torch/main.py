@@ -1,0 +1,91 @@
+"""Train CalciumGAN with the PyTorch port (counterpart of ``main.py`` at the
+repo root; same flags and defaults, plus ``--device``).
+
+    python -m calciumgan_tpu_torch.main --input_dir dataset/tfrecords \\
+        --output_dir runs/001 --batch_size 128 --num_units 64 --m 10 \\
+        --layer_norm --mixed_precision --device cuda
+
+Trains on ``--device`` (default ``cuda``; ``--device cpu`` runs on the
+host; ``cuda`` without a card raises). Checkpoints are the port's own
+``<output_dir>/checkpoints/epoch-NNN.pt``, resumed automatically and served
+by ``python -m calciumgan_tpu_torch.generate``. The mesh flags
+(``--data_parallelism``, ``--model_parallelism``, ``--dcn_slices``) are
+accepted for ``hparams.json`` parity and ignored: the port trains on one
+device; ``--time_parallelism`` above 1 and ``--save_generated`` raise.
+"""
+
+import argparse
+
+from calciumgan_tpu_torch.config import Config
+
+
+def parse_args(argv=None):
+    """``(config, device)`` from the command line."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--input_dir", default="dataset/tfrecords", type=str)
+    parser.add_argument("--output_dir", default="runs", type=str)
+    parser.add_argument("--batch_size", default=64, type=int)
+    parser.add_argument("--num_units", default=32, type=int)
+    parser.add_argument("--kernel_size", default=24, type=int)
+    parser.add_argument("--strides", default=2, type=int)
+    parser.add_argument("--m", default=2, type=int,
+                        help="phase shuffle shift (temporal)")
+    parser.add_argument("--n", default=2, type=int,
+                        help="phase shuffle shift (neuron axis, 2d model)")
+    parser.add_argument("--epochs", default=20, type=int)
+    parser.add_argument("--dropout", default=0.2, type=float)
+    parser.add_argument("--learning_rate", default=1e-4, type=float)
+    parser.add_argument("--noise_dim", default=32, type=int)
+    parser.add_argument("--gradient_penalty", default=10.0, type=float)
+    parser.add_argument("--model", default="calciumgan", type=str)
+    parser.add_argument("--activation", default="leakyrelu", type=str)
+    parser.add_argument("--batch_norm", action="store_true")
+    parser.add_argument("--layer_norm", action="store_true")
+    parser.add_argument("--algorithm", default="wgan-gp", type=str)
+    parser.add_argument("--n_critic", default=5, type=int)
+    parser.add_argument("--ema", default=0.0, type=float,
+                        help="generator-EMA decay per generator update "
+                             "(0 = off, typical 0.999)")
+    parser.add_argument("--clear_output_dir", action="store_true")
+    parser.add_argument("--save_generated", default="", type=str,
+                        choices=["", "last", "all"])
+    parser.add_argument("--plot_weights", action="store_true")
+    parser.add_argument("--skip_checkpoints", action="store_true")
+    parser.add_argument("--mixed_precision", action="store_true",
+                        help="bfloat16 compute (no loss scaling needed)")
+    parser.add_argument("--profile", action="store_true",
+                        help="torch.profiler window at epoch 1, batches 2-6")
+    parser.add_argument("--dpi", default=120, type=int)
+    parser.add_argument("--verbose", default=1, type=int)
+    parser.add_argument("--seed", default=1234, type=int)
+    parser.add_argument("--data_parallelism", default=-1, type=int)
+    parser.add_argument("--model_parallelism", default=1, type=int)
+    parser.add_argument("--time_parallelism", default=1, type=int)
+    parser.add_argument("--dcn_slices", default=1, type=int)
+    parser.add_argument("--checkpoint_every", default=10, type=int)
+    parser.add_argument("--device_store", default="auto",
+                        choices=["auto", "on", "off"],
+                        help="keep the dataset signals on the device and "
+                             "gather batches there (auto: a GPU and the "
+                             "signals fit --device_store_mb)")
+    parser.add_argument("--device_store_mb", default=4096, type=int)
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="torch device to train on")
+    args = parser.parse_args(argv)
+    device = args.device
+    del args.device  # a run's device is not a hyper-parameter
+
+    config = Config.from_args(args)
+    # the reference flags surrogate datasets by directory name
+    config.surrogate_ds = "surrogate" in config.input_dir
+    return config, device
+
+
+def cli(argv=None):
+    from calciumgan_tpu_torch.train import main
+    config, device = parse_args(argv)
+    return main(config, device=device)
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,7 +1,7 @@
 """Model zoo (PyTorch counterpart of :mod:`calciumgan_tpu.models`).
 
 Importing this package registers the ported models: ``calciumgan``
-(generator only so far).
+(generator and discriminator).
 """
 
 from calciumgan_tpu_torch.models import calciumgan  # noqa: F401

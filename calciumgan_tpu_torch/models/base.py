@@ -13,7 +13,7 @@ Mixed precision follows Flax, not autocast: each module carries its compute
 ``dtype`` as an attribute, keeps float32 parameters and casts inputs and
 parameters to ``dtype`` on use. LayerNorm statistics are float32.
 
-Layout: modules compute in NCW (batch, channel, time); the generator's public
+Layout: modules compute in NCW (batch, channel, time); the models' public
 boundary is NWC (:mod:`calciumgan_tpu_torch.models.calciumgan`). Flax kernel
 layouts are converted by :mod:`calciumgan_tpu_torch.convert`.
 """
@@ -87,6 +87,50 @@ class Dense(nn.Module):
         return y + self.bias.to(self.dtype)
 
 
+def same_conv_padding(width: int, kernel_size: int, stride: int) -> tuple:
+    """(pad_lo, pad_hi) of XLA's SAME convolution: the output has
+    ``ceil(W/s)`` frames, the padding totals ``max((ceil(W/s)-1)*s + K - W,
+    0)`` and its floor half goes on the left, so it is asymmetric when the
+    total is odd."""
+    out = -(-width // stride)
+    total = max((out - 1) * stride + kernel_size - width, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """Flax ``nn.Conv`` with padding SAME and stride ``s``, in NCW; weight
+    stored ``(Cout, Cin, K)``. ``F.conv1d`` is a correlation, as
+    ``lax.conv`` is, so the Flax kernel is not flipped. Torch's
+    ``padding="same"`` rejects stride > 1, so the SAME padding of
+    :func:`same_conv_padding` is given explicitly."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, dtype: torch.dtype, rng: torch.Generator,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel_size, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+        glorot_uniform_(self.weight, kernel_size * in_channels,
+                        kernel_size * out_channels, rng)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        lo, hi = same_conv_padding(x.shape[-1], self.kernel_size,
+                                   self.stride)
+        if lo == hi:
+            y = F.conv1d(x, self.weight.to(self.dtype), stride=self.stride,
+                         padding=lo)
+        else:
+            y = F.conv1d(F.pad(x, (lo, hi)), self.weight.to(self.dtype),
+                         stride=self.stride)
+        # bias added after the convolution, as Flax does
+        return y + self.bias.to(self.dtype)[:, None]
+
+
 def same_transpose_padding(kernel_size: int, stride: int) -> tuple:
     """(pad_a, pad_b) that ``lax.conv_transpose`` gives padding SAME on the
     dilated input: ``pad_len = K+s-2``, ``pad_a = K-1`` if ``s > K-1`` else
@@ -142,7 +186,7 @@ class ConvTranspose(nn.Module):
 
 class Norm(nn.Module):
     """LayerNorm over the channel axis of NCW input (``base.py:45-70``).
-    BatchNorm is not ported yet: the serving recipe does not use it."""
+    BatchNorm is not ported yet: the flagship recipe uses layer_norm."""
 
     def __init__(self, channels: int, batch_norm: bool = False,
                  layer_norm: bool = False, dtype: torch.dtype = torch.float32,
@@ -151,7 +195,7 @@ class Norm(nn.Module):
         if batch_norm:
             raise NotImplementedError(
                 "batch_norm is not ported to calciumgan_tpu_torch yet "
-                "(ROADMAP: training slice)")
+                "(ROADMAP Queue 1)")
         self.dtype = dtype
         self.layer_norm = layer_norm and channels > 1
         if self.layer_norm:

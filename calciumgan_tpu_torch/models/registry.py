@@ -1,9 +1,9 @@
 """Model registry (counterpart of ``calciumgan_tpu/models/registry.py``).
 
 :class:`Registry` is a copy of the JAX package's name-to-factory registry
-(``calciumgan_tpu/registry.py``). The ``wavegan`` alias is kept. Only the
-generator half is ported so far: a builder returns the generator module;
-the discriminator joins with the training slice.
+(``calciumgan_tpu/registry.py``). The ``wavegan`` alias is kept. A model's
+build function returns ``(generator, discriminator)``, as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -49,9 +49,10 @@ register = models.register
 
 def get_models(config, rng: Optional[torch.Generator] = None,
                device=None):
-    """Instantiate the generator for ``config.model`` on ``device``. Its
-    initial weights are glorot-uniform draws from ``rng`` (default: a CPU
-    generator seeded with ``config.seed``)."""
+    """Instantiate ``(generator, discriminator)`` for ``config.model`` on
+    ``device``. Their initial weights are glorot-uniform draws from ``rng``
+    (default: a CPU generator seeded with ``config.seed``), the generator's
+    first."""
     name = config.model
     if name == "wavegan" and name not in models:
         name = "calciumgan"

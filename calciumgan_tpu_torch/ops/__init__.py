@@ -1,4 +1,5 @@
 """Ops (counterpart of :mod:`calciumgan_tpu.ops`): the OASIS AR(1) kernel
 (:mod:`.oasis_cuda`), its plain PyTorch version (:mod:`.oasis_torch`),
 the host-side dispatch (:mod:`.oasis`) and the float64 golden model it is
-held to (:mod:`.golden`)."""
+held to (:mod:`.golden`); the phase shuffle and the train-time signal
+metrics."""

@@ -1,0 +1,421 @@
+"""Training loop (counterpart of ``calciumgan_tpu/train.py``): epoch loop,
+validation, sampling with spike deconvolution, checkpointing.
+
+The epoch structure is the JAX package's (reference ``main.py:22-224``):
+train pass, validation pass, sample + plot + checkpoint every
+``--checkpoint_every`` epochs and at the last one, a profiler window at
+epoch 1 batches 2-6, per-epoch elapse scalars, and optional surrogate-set
+generation. The batches are the JAX package's too: each epoch shuffles with
+``np.random.default_rng(seed + epoch)`` and drops the remainder; validation
+pads its tail batch by repeating the last real row and masks the filler.
+
+Randomness: a step's :class:`~calciumgan_tpu_torch.algorithms.gan.Draws` is
+seeded from ``(seed, global_step)``, so a resumed run replays the same
+draws (``train.py:123``); validation from ``(seed, 10**9 + epoch * steps +
+i)`` (``:191``). Eager PyTorch on one device; steps return their logs as
+device tensors, which are read once per epoch.
+
+Not ported: meshes and ``--time_parallelism`` (one device; values above 1
+raise), the background ``DevicePrefetcher`` thread, the persistent compile
+cache, the backend probe, and ``--save_generated`` (raises).
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import pickle
+from shutil import rmtree
+from time import perf_counter, time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from calciumgan_tpu_torch.algorithms import get_algorithm
+from calciumgan_tpu_torch.algorithms.gan import Draws
+from calciumgan_tpu_torch.data import pipeline
+from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
+from calciumgan_tpu_torch.models import get_models
+from calciumgan_tpu_torch.utils import checkpoint
+from calciumgan_tpu_torch.utils.summary import Summary
+
+# draw counters outside the train steps' global_step range
+_VALIDATION_COUNTER = 10**9
+_TEST_NOISE_COUNTER = 2**31 - 1
+
+
+def _progress(iterable, desc, total, verbose):
+    if not verbose:
+        return iterable
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return iterable
+    return tqdm(iterable, desc=desc, total=total)
+
+
+def count_params(module: torch.nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises (no fallback to the host)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device (use --device cpu "
+                           "to run on the host)")
+    return device
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _mean_logs(all_logs, weights=None) -> Dict[str, float]:
+    """Average per-batch log dicts of device tensors, optionally weighted by
+    real rows, with one copy to the host."""
+    if not all_logs:
+        return {}
+    keys = list(all_logs[0])
+    table = torch.stack([torch.stack([logs[k].float() for k in keys])
+                         for logs in all_logs]).double().cpu().numpy()
+    w = None if weights is None else torch.stack(
+        [x.float() for x in weights]).double().cpu().numpy()
+    return {k: float(np.average(table[:, j], weights=w))
+            for j, k in enumerate(keys)}
+
+
+def focus_neurons(config):
+    """The reference's 9 plotted neurons, clamped to the dataset's neuron
+    count (``train.py:76-82``)."""
+    idx = [i for i in config.focus_neurons if i < config.num_neurons]
+    return idx or list(range(min(9, config.num_neurons)))
+
+
+class _ProfileWindow:
+    """``torch.profiler`` over a few steps: writes the Chrome trace, and to
+    ``window.json`` the window's host seconds, device-busy seconds (union
+    of the device's kernel intervals), busy share and the kernels that took
+    the most device time."""
+
+    def __init__(self, profiler_dir: str, device: torch.device):
+        from torch.profiler import ProfilerActivity, profile
+        self.dir, self.device = profiler_dir, device
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        _synchronize(device)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        self._start = perf_counter()
+        self.steps = 0
+
+    def stop(self) -> dict:
+        _synchronize(self.device)
+        wall = perf_counter() - self._start
+        self._prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self._prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        kernels = [e for e in self._prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels)
+        busy_us, reach = 0.0, float("-inf")
+        for start, end in spans:  # union of the kernels' intervals
+            if end > reach:
+                busy_us += end - max(start, reach)
+                reach = end
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for e in kernels:
+            by_name[e.name][0] += e.time_range.end - e.time_range.start
+            by_name[e.name][1] += 1
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        window = {"steps": self.steps, "wall_s": wall,
+                  "device_busy_s": busy_us * 1e-6 if spans else None,
+                  "device_busy_share": (busy_us * 1e-6 / wall
+                                        if spans else None),
+                  "device_events": len(spans),
+                  "top_kernels": [{"name": n[:100], "ms": us * 1e-3,
+                                   "count": c}
+                                  for n, (us, c) in top]}
+        with open(os.path.join(self.dir, "window.json"), "w") as f:
+            json.dump(window, f)
+        return window
+
+
+# ---------------------------------------------------------------------------
+# epoch passes
+# ---------------------------------------------------------------------------
+
+def epoch_batches(config, epoch: int) -> list:
+    """The row indices of each of ``epoch``'s training batches: the JAX
+    training loop's shuffle (``np.random.default_rng(seed + epoch)`` over
+    the rows, ``train.py:94-107``), the remainder dropped."""
+    order = np.arange(config.train_size)
+    np.random.default_rng(config.seed + epoch).shuffle(order)
+    bs = config.batch_size
+    return [order[i * bs:(i + 1) * bs]
+            for i in range(config.train_size // bs)]
+
+
+def train_epoch(config, source, algo, state, summary: Summary, epoch: int,
+                device: torch.device) -> Dict[str, float]:
+    """One pass over the training set (reference ``main.py:33-75``)."""
+    batches = epoch_batches(config, epoch)
+    all_logs = []
+    window = None
+    start = time()
+    for batch_count, idx in enumerate(_progress(batches, "Train",
+                                                len(batches),
+                                                config.verbose)):
+        if config.profile and epoch == 1 and batch_count == 2:
+            window = _ProfileWindow(summary.profiler_dir, device)
+        real = source.batch(idx)
+        draws = Draws(config.seed, config.global_step, device)
+        all_logs.append(algo.train_step(state, real, draws))
+        config.global_step += 1
+        if window is not None:
+            window.steps += 1
+            if batch_count == 6:
+                window.stop()
+                window = None
+    if window is not None:  # the window reaches past a short epoch
+        window.stop()
+    _synchronize(device)
+    elapse = time() - start
+
+    logs = _mean_logs(all_logs)
+    summary.log(logs, elapse=elapse, state=state, step=epoch, training=True)
+    return logs
+
+
+def _validation_batches(source, n: int, bs: int, steps: int):
+    """(batch, real row count) pairs of one validation pass; the tail batch
+    pads by repeating the last real row."""
+    for i in range(steps):
+        lo = i * bs
+        hi = min(n, lo + bs)
+        idx = np.concatenate([np.arange(lo, hi),
+                              np.full(bs - (hi - lo), hi - 1, np.int64)])
+        yield source.batch(idx), hi - lo
+
+
+def _row_mask(bs: int, real_count: int, device) -> torch.Tensor:
+    mask = torch.zeros(bs, dtype=torch.float32)
+    mask[:real_count] = 1.0
+    return mask.to(device)
+
+
+def validate_epoch(config, source, algo, state, summary: Summary, epoch: int,
+                   device: torch.device) -> Dict[str, float]:
+    """One validation pass (reference ``main.py:78-122``), means weighted
+    by real rows."""
+    bs = config.batch_size
+    steps = -(-config.validation_size // bs)
+    all_logs, weights = [], []
+    start = time()
+    batches = _validation_batches(source, config.validation_size, bs, steps)
+    for i, (real, real_count) in enumerate(
+            _progress(batches, "Validate", steps, config.verbose)):
+        draws = Draws(config.seed, _VALIDATION_COUNTER + epoch * steps + i,
+                      device)
+        _, logs = algo.eval_step(state, real, draws,
+                                 _row_mask(bs, real_count, device))
+        weights.append(logs.pop("batch/real_rows"))
+        all_logs.append(logs)
+    _synchronize(device)
+    elapse = time() - start
+
+    logs = _mean_logs(all_logs, weights=weights)
+    summary.log(logs, elapse=elapse, step=epoch, training=False)
+    return logs
+
+
+def _traces(config, signals: torch.Tensor) -> torch.Tensor:
+    """One sample's ``(time, neuron)`` signals as ``(neuron, time)``."""
+    if tuple(signals.shape) != (config.sequence_length, config.num_neurons):
+        raise ValueError(f"sample of shape {tuple(signals.shape)}, expected "
+                         f"({config.sequence_length}, {config.num_neurons})")
+    return signals.transpose(0, 1).contiguous()
+
+
+def sample_and_plot(config, algo, state, summary: Summary, epoch: int,
+                    test_noise: torch.Tensor):
+    """Generate from the fixed test noise, deconvolve its traces where they
+    lie (the OASIS kernel on the card) and plot them (reference
+    ``main.py:141-156``). Returns the ``(neuron, time)`` signals and
+    spikes as host arrays."""
+    fake = pipeline.reverse_preprocessing(config,
+                                          algo.sample(state, test_noise))
+    signals = _traces(config, fake[0])
+    spikes = deconvolve_traces(signals).astype(np.float32)
+    signals = signals.cpu().numpy()
+    summary.plot_traces("fake_traces", signals, spikes,
+                        indexes=focus_neurons(config), step=epoch,
+                        training=False)
+    return signals, spikes
+
+
+def plot_real_signals(config, summary: Summary, dataset) -> None:
+    """First validation batch's traces at step 0
+    (reference ``dataset_helper.py:33-51``)."""
+    signal, spike = next(dataset.batches(config.batch_size))
+    signal = pipeline.reverse_preprocessing(
+        config, torch.from_numpy(np.ascontiguousarray(signal)))
+    summary.plot_traces("real_traces", _traces(config, signal[0]).numpy(),
+                        np.asarray(spike[0]).T, indexes=focus_neurons(config),
+                        step=0, training=False)
+
+
+def make_batch_sources(config, train_ds, validation_ds,
+                       device: torch.device):
+    """The train and validation signals on the device (``--device_store``)
+    or streamed per batch from the host."""
+    total = train_ds.signals.nbytes + validation_ds.signals.nbytes
+    if pipeline.device_store_enabled(config, total, device):
+        if config.verbose:
+            print(f"device store: {total / 2**20:.0f} MB of signals on "
+                  f"{device} (batches gather there)")
+        return (pipeline.DeviceStore(train_ds.signals, device),
+                pipeline.DeviceStore(validation_ds.signals, device))
+    return (pipeline.HostBatches(train_ds.signals, device),
+            pipeline.HostBatches(validation_ds.signals, device))
+
+
+def train_and_validate(config, train_ds, validation_ds, algo, state,
+                       summary: Summary, device: torch.device):
+    """Epoch loop (reference ``main.py:125-165``). Returns the validation
+    batch source."""
+    train_src, val_src = make_batch_sources(config, train_ds, validation_ds,
+                                            device)
+    test_noise = Draws(config.seed, _TEST_NOISE_COUNTER, device).noise(
+        1, config.noise_dim)
+
+    for epoch in range(config.start_epoch, config.epochs):
+        if config.verbose:
+            print(f"Epoch {epoch:03d}/{config.epochs:03d}")
+        start = time()
+        train_logs = train_epoch(config, train_src, algo, state, summary,
+                                 epoch, device)
+        val_logs = validate_epoch(config, val_src, algo, state, summary,
+                                  epoch, device)
+
+        every = max(1, config.checkpoint_every)
+        if epoch % every == 0 or epoch == config.epochs - 1:
+            sample_and_plot(config, algo, state, summary, epoch, test_noise)
+            if not config.skip_checkpoints:
+                checkpoint.save(config.ckpt_dir, epoch, state, config=config,
+                                verbose=config.verbose)
+
+        if config.verbose:
+            print("Train: generator loss {:.04f} discriminator loss {:.04f}\n"
+                  "Eval: generator loss {:.04f} discriminator loss {:.04f}\n"
+                  "Elapse: {:.02f} mins\n".format(
+                      train_logs.get("loss/generator", float("nan")),
+                      train_logs.get("loss/discriminator", float("nan")),
+                      val_logs.get("loss/generator", float("nan")),
+                      val_logs.get("loss/discriminator", float("nan")),
+                      (time() - start) / 60))
+    return val_src
+
+
+def test(config, validation_ds, algo, state, device: torch.device,
+         source=None) -> Dict[str, float]:
+    """Final metrics over the validation set (reference
+    ``main.py:168-181``)."""
+    source = source or pipeline.HostBatches(validation_ds.signals, device)
+    bs = config.batch_size
+    steps = -(-config.validation_size // bs)
+    all_logs, weights = [], []
+    for i, (real, real_count) in enumerate(_validation_batches(
+            source, config.validation_size, bs, steps)):
+        _, logs = algo.eval_step(state, real,
+                                 Draws(config.seed + 777, i, device),
+                                 _row_mask(bs, real_count, device))
+        weights.append(logs.pop("batch/real_rows"))
+        all_logs.append(logs)
+    return _mean_logs(all_logs, weights=weights)
+
+
+def generate_surrogate_dataset(config, algo, state, device: torch.device,
+                               num_samples: int = 2 * 10**6) -> str:
+    """A denormalised sample set in ``generated.pkl`` (reference
+    ``utils.py:191-207``), generated 1000 at a time."""
+    batch_size = 1000
+    num_samples = -(-num_samples // batch_size) * batch_size
+    generated = np.zeros((num_samples,) + tuple(config.signal_shape),
+                         np.float32)
+    for step, i in enumerate(_progress(
+            range(0, num_samples, batch_size), "Surrogate",
+            num_samples // batch_size, config.verbose)):
+        noise = Draws(config.seed + 999, i, device).noise(batch_size,
+                                                          config.noise_dim)
+        rows = pipeline.denormalize(config, algo.sample(state, noise))
+        generated[step * batch_size:(step + 1) * batch_size] = \
+            rows.cpu().numpy()
+    filename = os.path.join(config.output_dir, "generated.pkl")
+    with open(filename, "wb") as f:
+        pickle.dump({"signals": generated}, f)
+    if config.verbose:
+        print(f"save {num_samples} samples to {filename}")
+    return filename
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+def main(config, return_metrics: bool = False,
+         device="cuda") -> Optional[Dict[str, float]]:
+    """End-to-end wiring (reference ``main.py:184-224``) on ``device``."""
+    device = resolve_device(device)
+    if int(getattr(config, "time_parallelism", 1) or 1) > 1:
+        raise NotImplementedError(
+            "--time_parallelism is not ported: the port trains on one device")
+    if config.save_generated:
+        raise NotImplementedError(
+            "--save_generated is not ported to calciumgan_tpu_torch yet")
+    if config.clear_output_dir and os.path.exists(config.output_dir):
+        rmtree(config.output_dir)
+    os.makedirs(config.output_dir, exist_ok=True)
+
+    summary = Summary(config)
+    train_ds, validation_ds = pipeline.get_datasets(config)
+    config.validate_model_shapes()
+
+    generator, discriminator = get_models(
+        config, rng=torch.Generator().manual_seed(int(config.seed)),
+        device=device)
+    algo = get_algorithm(config, generator, discriminator)
+    state = algo.init_state()
+    if config.verbose:
+        print(f"device: {device}")
+        print(f"generator parameters: {count_params(generator):,}")
+        print(f"discriminator parameters: {count_params(discriminator):,}")
+    summary.scalar("model/trainable_parameters/generator",
+                   count_params(generator))
+    summary.scalar("model/trainable_parameters/discriminator",
+                   count_params(discriminator))
+
+    config.save()
+    config.ckpt_dir = config.ckpt_dir or os.path.join(config.output_dir,
+                                                      "checkpoints")
+    state = checkpoint.resume(config, state)
+    plot_real_signals(config, summary, validation_ds)
+
+    start = time()
+    val_src = train_and_validate(config, train_ds, validation_ds, algo, state,
+                                 summary, device)
+    summary.scalar("elapse/total", time() - start)
+    summary.flush()
+
+    if config.surrogate_ds:
+        generate_surrogate_dataset(config, algo, state, device)
+    metrics = (test(config, validation_ds, algo, state, device, val_src)
+               if return_metrics else None)
+    summary.close()
+    return metrics

@@ -1,2 +1,3 @@
-"""Utilities (counterpart of :mod:`calciumgan_tpu.utils`): the JAX
-checkpoint importer and the h5 writer of the serving CLI."""
+"""Utilities (counterpart of :mod:`calciumgan_tpu.utils`): checkpoints
+(the port's own and the JAX importer), the h5 writer of the serving CLI,
+the TensorBoard event writer, training summaries and the trace figure."""

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path and whole-recording spike
-inference once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving path, whole-recording spike
+inference and training once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs five phases, printing one line of findings per phase.
+``nvcc`` and runs six phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
@@ -41,11 +41,26 @@ every (machine, storage) pair the plan can choose is compared:
    ``python -m calciumgan_tpu_torch.dataset.spike_train_inference
    --device cuda`` in-process on four 102 x 20,000 pickles, with its
    launch counts, against the dispatch and the golden; the timings, beside
-   the card's name and power limit.
+   the card's name and power limit;
+6. training: a flagship-shaped TFRecord dataset (512 + 128 rows of 2048 x
+   102 seeded synthetic calcium, written by the port's writer) trained by
+   ``python -m calciumgan_tpu_torch.main`` in-process at the flagship
+   recipe (wgan-gp, batch 128, units 64, kernel 24, m 10, layer_norm,
+   bf16, n_critic 5) for 2 epochs with ``--profile``, then resumed to 3:
+   the epochs, ``global_step``, checkpoints, finite losses, the dataset on
+   the card, the sampling epochs' OASIS launches (``oasis_ar1/shared``
+   only, no plain calls) and their spikes against the float64 golden, the
+   newest checkpoint served through ``generate.generate``; one full-width
+   WGAN-GP step (batch 8, n_critic 2) on the card against the CPU from one
+   state and the same draws, in float32 and bfloat16; the step's time at
+   batch 128 by CUDA events (critic and generator steps), its FLOPs by
+   ``FlopCounterMode`` against the bf16 peak, steps/s over an epoch, the
+   profile window's device-busy share, ``sample_and_plot`` and a checkpoint
+   save, beside the card's name and power limit.
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
-path by ring storage) and, as
+paths, by ring storage and by path) and, as
 the last line, ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that line; so does a machine without a CUDA device or a
 directory without the port beside this script. JAX is never imported.
@@ -53,6 +68,7 @@ directory without the port beside this script. JAX is never imported.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -77,6 +93,24 @@ GEN_F32_TOL = 1e-4          # generator on the card vs the CPU, float32
 # each layer's output to bfloat16, so one-ulp flips propagate; 4.5e-3 was
 # measured on an H100 (NVIDIA H100 80GB HBM3, 700 W)
 GEN_BF16_TOL = 1e-2
+# phase 6: the flagship training set (512 + 128 rows of 2048 x 102, 1.07 GB
+# of records) and the card-vs-CPU bounds of one full-width WGAN-GP step at
+# learning rate 0, each about 3x the largest error measured on an H100
+# (NVIDIA H100 80GB HBM3, 700 W): float32 with TF32 off, losses 4.8e-6
+# absolute (discriminator; 2.4e-5 relative on a generator loss of 6.5e-3)
+# and gradients 1.1e-3 of the net's largest (cuDNN's algorithms sum and
+# transform in other orders than the CPU's); bfloat16, losses 9.2e-4
+# absolute on 5.97 and gradients 0.036 of the net's largest. float32 vs
+# bfloat16 on the CPU differ by 5.3e-3 in the critic loss (outside the
+# bf16 loss bound) and by 0.068 in the gradients (inside the bf16
+# gradient bound: the CPU tests' 1e-4 bound holds the rounding points)
+TRAIN_ROWS, VAL_ROWS = 512, 128
+STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL = 1e-5, 1e-6
+STEP_F32_GRAD_TOL = 3e-3      # of the net's largest gradient moment
+STEP_BF16_LOSS_RTOL, STEP_BF16_LOSS_ATOL = 5e-4, 2e-4
+STEP_BF16_GRAD_TOL = 0.1      # of the net's largest gradient moment
+# the H100 SXM data sheet's dense bfloat16 tensor-core rate
+BF16_FLOPS_PER_S = 989e12
 # the bound of a kernel row: the bytes the function must move at the card's
 # memory rate (each frame reads 4 B of trace and writes 8 B of c and s;
 # each trace writes a 4 B redo word), and its float32 operations at the
@@ -700,6 +734,383 @@ def phase_recordings(smi):
                   device_ring_ms=device_ms))
 
 
+class FixedDraws:
+    """The methods of ``algorithms.gan.Draws`` returning preset draws (host
+    numpy arrays, moved to ``device``), so a step runs on the same numbers
+    on the card and on the CPU."""
+
+    def __init__(self, noise, alpha, shifts, device):
+        self.noise_q, self.alpha_q = list(noise), list(alpha)
+        self.shift_q, self.device = list(shifts), device
+
+    def noise(self, n, noise_dim):
+        import torch
+        return torch.from_numpy(self.noise_q.pop(0)).to(self.device)
+
+    def alpha(self, n):
+        import torch
+        return torch.from_numpy(self.alpha_q.pop(0)).to(self.device)
+
+    def shifts(self, m, count):
+        return [self.shift_q.pop(0) for _ in range(count)]
+
+
+def write_training_set(root):
+    """A flagship-shaped TFRecord dataset written by the port's writer:
+    ``TRAIN_ROWS`` + ``VAL_ROWS`` rows of T x 102 seeded synthetic calcium
+    (``golden.synth_ar1_traces``), min-max normalised, with float32 OASIS
+    spikes by the port's C++ float64 kernel, and its ``info.pkl``."""
+    import pickle
+
+    import numpy as np
+    from calciumgan_tpu_torch.data import tfrecord
+    from calciumgan_tpu_torch.ops import golden
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    rows, C = TRAIN_ROWS + VAL_ROWS, 102
+    traces = golden.synth_ar1_traces(np.random.default_rng(SEED + 11),
+                                     rows * C, T)
+    spikes = dispatch._exact_spikes_host(traces, G, S_MIN, THRESHOLD)
+    lo, hi = float(traces.min()), float(traces.max())
+    signals = np.ascontiguousarray(
+        ((traces - lo) / (hi - lo)).reshape(rows, C, T).transpose(0, 2, 1))
+    spikes = np.ascontiguousarray(spikes.reshape(rows, C, T).transpose(
+        0, 2, 1).astype(np.float32))
+    os.makedirs(root, exist_ok=True)
+    shards = {"train": np.array_split(np.arange(TRAIN_ROWS), 4),
+              "validation": [np.arange(TRAIN_ROWS, rows)]}
+    for split, parts in shards.items():
+        for i, idx in enumerate(parts):
+            tfrecord.write_signal_records(os.path.join(
+                root, f"{split}-{i + 1:03d}-of-{len(parts):03d}.record"),
+                signals, spikes, idx)
+    info = {"train_size": TRAIN_ROWS, "validation_size": VAL_ROWS,
+            "signal_shape": (T, C), "spike_shape": (T, C),
+            "sequence_length": T, "num_neurons": C, "num_channels": C,
+            "num_train_shards": 4, "num_validation_shards": 1,
+            "buffer_size": TRAIN_ROWS // 4, "normalize": True, "stride": T,
+            "fft": False, "conv2d": False, "fft_norm": "global",
+            "signals_min": lo, "signals_max": hi}
+    with open(os.path.join(root, "info.pkl"), "wb") as f:
+        pickle.dump(info, f)
+    return signals
+
+
+def train_flags(records, run, epochs, *extra):
+    """The flagship recipe's flags for ``calciumgan_tpu_torch.main``."""
+    return ["--input_dir", records, "--output_dir", run,
+            "--batch_size", "128", "--num_units", "64", "--kernel_size", "24",
+            "--strides", "2", "--m", "10", "--layer_norm",
+            "--mixed_precision", "--n_critic", "5", "--noise_dim", "32",
+            "--algorithm", "wgan-gp", "--epochs", str(epochs),
+            "--checkpoint_every", "1", "--seed", str(SEED),
+            "--device", "cuda", "--verbose", "0", *extra]
+
+
+class Spy:
+    """Wraps functions of a module for the length of a ``with``: records
+    each call's first arguments, result and host seconds."""
+
+    def __init__(self, module, *names):
+        self.module, self.names = module, names
+        self.calls = {n: [] for n in names}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n in self.names:
+            setattr(self.module, n, self._wrap(n, self.saved[n]))
+        return self
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kwargs):
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.calls[name].append(dict(args=args, out=out,
+                                         s=time.perf_counter() - start))
+            return out
+        return wrapped
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def _moment_errors(a_state, b_state) -> dict:
+    """Largest difference of Adam's first moments (the step's gradients:
+    ``0.1 g``, or ``0.09 g1 + 0.1 g2`` after the critic's two steps)
+    between two states, over the net's largest moment."""
+    errs = {}
+    for name in ("generator", "discriminator"):
+        a_net, b_net = getattr(a_state, name), getattr(b_state, name)
+        pairs = [(a_net.optimizer.state[pa]["exp_avg"].cpu(),
+                  b_net.optimizer.state[pb]["exp_avg"].cpu())
+                 for pa, pb in zip(a_net.module.parameters(),
+                                   b_net.module.parameters())]
+        scale = max(float(b.abs().max()) for _, b in pairs)
+        errs[name] = max(float((a - b).abs().max()) for a, b in pairs) / scale
+    return errs
+
+
+def step_card_vs_cpu(signals) -> dict:
+    """One WGAN-GP step at full width (batch 8, n_critic 2) from one state
+    and the same injected noise, alpha and shifts on the card and on the
+    CPU, in float32 (TF32 off) and bfloat16: losses, GP and gradients.
+    The learning rate is 0, so every gradient is taken at the parameters
+    both devices share: Adam's first step, ``lr * g / (|g| + eps)``, would
+    move a parameter by up to ``lr`` where ``|g|`` is near ``eps`` and the
+    devices' roundings differ, and the later gradients with it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.algorithms import get_algorithm
+    from calciumgan_tpu_torch.models import get_models
+    B, n_critic = 8, 2
+    rng = np.random.default_rng(SEED + 21)
+    noise = [rng.standard_normal((B, 32)).astype(np.float32)
+             for _ in range(n_critic + 1)]
+    alpha = [rng.random(B).astype(np.float32) for _ in range(n_critic)]
+    shifts = rng.integers(-10, 11, 4 * (2 * n_critic + 1)).tolist()
+    real = np.ascontiguousarray(signals[:B])
+    found, cpu_runs = {}, {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        cfg = dataclasses.replace(flagship_config(), mixed_precision=bf16,
+                                  n_critic=n_critic, batch_size=B,
+                                  learning_rate=0.0)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            algo = get_algorithm(cfg, *get_models(
+                cfg, rng=torch.Generator().manual_seed(SEED), device=dev))
+            state = algo.init_state()
+            logs = algo.train_step(
+                state, torch.from_numpy(real).to(dev),
+                FixedDraws(noise, alpha, shifts, dev))
+            runs[dev] = (state, {k: float(v) for k, v in logs.items()})
+        (gpu, gpu_logs), (cpu, cpu_logs) = runs["cuda"], runs["cpu"]
+        cpu_runs[name] = runs["cpu"]
+        check(all(np.isfinite(v) for v in gpu_logs.values()),
+              f"{name} step: non-finite logs {gpu_logs}")
+        found[name] = dict(
+            logs_card=gpu_logs,
+            loss_rel_err={k: abs(gpu_logs[k] - cpu_logs[k]) /
+                          max(abs(cpu_logs[k]), 1e-30) for k in gpu_logs},
+            loss_abs_err={k: abs(gpu_logs[k] - cpu_logs[k])
+                          for k in gpu_logs},
+            grad_err=_moment_errors(gpu, cpu))
+    # what the bf16 bounds are set against: float32 vs bfloat16 on the CPU
+    (a, a_logs), (b, b_logs) = cpu_runs["bf16"], cpu_runs["f32"]
+    found["cpu_f32_vs_bf16"] = dict(
+        loss_abs_err={k: abs(a_logs[k] - b_logs[k]) for k in a_logs},
+        grad_err=_moment_errors(a, b))
+    f32, bf16 = found["f32"], found["bf16"]
+    for k in ("loss/generator", "loss/discriminator",
+              "loss/gradient_penalty"):
+        check(f32["loss_abs_err"][k] <= STEP_F32_LOSS_RTOL * abs(
+            f32["logs_card"][k]) + STEP_F32_LOSS_ATOL,
+              f"f32 step {k}: card vs CPU {f32['loss_abs_err'][k]}")
+        check(bf16["loss_abs_err"][k] <= STEP_BF16_LOSS_RTOL * abs(
+            bf16["logs_card"][k]) + STEP_BF16_LOSS_ATOL,
+              f"bf16 step {k}: card vs CPU {bf16['loss_abs_err'][k]}")
+    check(max(f32["grad_err"].values()) <= STEP_F32_GRAD_TOL,
+          f"f32 step gradients: card vs CPU {f32['grad_err']}")
+    check(max(bf16["grad_err"].values()) <= STEP_BF16_GRAD_TOL,
+          f"bf16 step gradients: card vs CPU {bf16['grad_err']}")
+    return found
+
+
+class _NoModuleTracker:
+    """Stands in for ``FlopCounterMode``'s module tracker: every count goes
+    to the global total."""
+    parents = {"Global"}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+def time_train_step(signals, smi) -> dict:
+    """The flagship step at batch 128 by CUDA events (10 steps after 2
+    warm-ups), split into critic and generator steps by timing the same
+    state at n_critic 5 and 1; its FLOPs by ``FlopCounterMode``; a
+    checkpoint save by host clock."""
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from calciumgan_tpu_torch.algorithms import get_algorithm
+    from calciumgan_tpu_torch.algorithms.gan import Draws
+    from calciumgan_tpu_torch.data.pipeline import DeviceStore
+    from calciumgan_tpu_torch.models import get_models
+    from calciumgan_tpu_torch.utils import checkpoint
+    cfg = flagship_config()
+    cfg.batch_size = 128
+    dev = torch.device("cuda")
+    algo = get_algorithm(cfg, *get_models(
+        cfg, rng=torch.Generator().manual_seed(SEED), device=dev))
+    state = algo.init_state()
+    real = DeviceStore(signals[:128], dev).batch(list(range(128)))
+    counter = iter(range(10**6))
+
+    def step():
+        algo.train_step(state, real, Draws(SEED, next(counter), dev))
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = {}
+    for n_critic in (5, 1):
+        algo.n_critic = n_critic
+        step()
+        ms[n_critic] = cuda_ms(step, reps=10)  # after 2 warm-up steps
+    algo.n_critic = 5
+    critic_ms = (ms[5] - ms[1]) / 4
+    counted = FlopCounterMode(display=False)
+    # count by operator only: the per-module tracker's backward hooks
+    # refuse the gradient penalty's autograd.grad on its input
+    counted.mod_tracker = _NoModuleTracker()
+    with counted:
+        step()
+    flops = counted.get_total_flops()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        checkpoint.save(tmp, 0, state, config=cfg, verbose=0)
+        save_s = time.perf_counter() - start
+        size_mb = os.path.getsize(checkpoint.port_checkpoint_path(tmp, 0)) \
+            / 1e6
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return dict(card=smi, step_ms=ms[5], step_ms_n_critic_1=ms[1],
+                critic_step_ms=critic_ms,
+                generator_step_ms=ms[1] - critic_ms,
+                flops_per_step=flops, bound_ms=bound_ms,
+                bf16_peak_share=bound_ms / ms[5], peak_memory_gb=peak_gb,
+                checkpoint_save_s=save_s, checkpoint_mb=size_mb)
+
+
+def phase_training(smi):
+    """The training slice: ``python -m calciumgan_tpu_torch.main`` at the
+    flagship recipe on a written dataset, resumed, its sampling epochs'
+    OASIS launches and spikes, its checkpoint served; one step on the card
+    against the CPU; the step's times and FLOPs."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import generate as generate_mod
+    from calciumgan_tpu_torch import main as train_main
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.config import Config
+    from calciumgan_tpu_torch.data.pipeline import DeviceStore
+    from calciumgan_tpu_torch.models import get_models
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        records, run = os.path.join(tmp, "records"), os.path.join(tmp, "run")
+        start = time.perf_counter()
+        signals = write_training_set(records)
+        write_s = time.perf_counter() - start
+
+        oasis_cuda.launches.clear()
+        oasis_torch.calls = 0
+        spy = Spy(train, "train_epoch", "validate_epoch", "sample_and_plot",
+                  "make_batch_sources")
+        meta, wall = [], []
+        with spy:
+            for epochs, extra in ((2, ("--profile",)), (3, ())):
+                start = time.perf_counter()
+                train_main.cli(train_flags(records, run, epochs, *extra))
+                wall.append(time.perf_counter() - start)
+                with open(os.path.join(run, "checkpoints",
+                                       "latest.json")) as f:
+                    meta.append(json.load(f))
+        launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+
+        epochs = [c["args"][5] for c in spy.calls["train_epoch"]]
+        check(epochs == [0, 1, 2], f"trained epochs {epochs}")
+        check(meta == [{"epoch": 1, "global_step": 8},
+                       {"epoch": 2, "global_step": 12}],
+              f"latest.json {meta}")
+        ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+        check(ckpts == ["epoch-000.pt", "epoch-001.pt", "epoch-002.pt",
+                        "latest.json"], f"checkpoints {ckpts}")
+        logs = [c["out"] for c in spy.calls["train_epoch"] +
+                spy.calls["validate_epoch"]]
+        check(all(np.isfinite(v) for d in logs for v in d.values()),
+              f"non-finite losses {logs}")
+        sources = [c["out"] for c in spy.calls["make_batch_sources"]]
+        check(all(isinstance(s, DeviceStore) and s.signals.is_cuda
+                  for pair in sources for s in pair),
+              f"dataset not on the card: {sources}")
+        check(set(launches) == {"oasis_ar1/shared"}
+              and launches["oasis_ar1/shared"] >= 3 and calls == 0,
+              f"sampling epochs launched {launches}, plain calls {calls}")
+        samples = spy.calls["sample_and_plot"]
+        check(len(samples) == 3, f"{len(samples)} sampling epochs")
+        mismatches = 0
+        for c in samples:
+            traces, spikes = c["out"]
+            check(traces.shape == (102, T) and np.isfinite(traces).all(),
+                  f"sampled traces {traces.shape}")
+            mismatches += int((spikes != golden_spikes(traces)).sum())
+        check(mismatches == 0,
+              f"sampled spikes: {mismatches} mismatches vs float64")
+
+        # the parameters moved: the last checkpoint against the seeded init
+        cfg = Config(output_dir=run, verbose=0).load()
+        init_g, _ = get_models(cfg, rng=torch.Generator().manual_seed(SEED))
+        stored = torch.load(checkpoint.port_checkpoint_path(
+            os.path.join(run, "checkpoints"), 2), map_location="cpu",
+            weights_only=True)
+        moved = max(float((stored["generator"]["params"][k] - v).abs().max())
+                    for k, v in init_g.state_dict().items())
+        check(moved > 0, "generator parameters did not move")
+
+        # the newest checkpoint served as the generate CLI restores it
+        params, epoch = checkpoint.restore_generator_params(
+            os.path.join(run, "checkpoints"), ema=False)
+        check(epoch == 2, f"served epoch {epoch}")
+        oasis_cuda.launches.clear()
+        served = list(generate_mod.generate(cfg, params, 256, 128,
+                                            with_spikes=True, seed=SEED,
+                                            device="cuda"))
+        serve_launches = dict(oasis_cuda.launches)
+        check(len(served) == 2 and all(
+            p["signals"].shape == (128, T, 102)
+            and np.isfinite(p["signals"]).all()
+            and set(np.unique(p["spikes"]).tolist()) <= {0, 1}
+            for p in served), "serving the trained checkpoint")
+        with open(os.path.join(run, "profiler", "window.json")) as f:
+            window = json.load(f)
+        train_store = sources[-1][0]
+        epoch_s = spy.calls["train_epoch"][-1]["s"]
+        sample_s = [round(c["s"], 4) for c in samples]
+
+    # step on the card vs the CPU, and the step's times
+    torch.cuda.synchronize()
+    versus = step_card_vs_cpu(signals)
+    timing = time_train_step(signals, smi)
+    steps = TRAIN_ROWS // 128
+    report("phase 6 training", card=smi,
+           dataset=dict(train=TRAIN_ROWS, validation=VAL_ROWS,
+                        shape=[T, 102], write_s=write_s,
+                        device_store_mb=train_store.nbytes / 2**20),
+           runs=dict(epochs=epochs, latest=meta, wall_s=wall,
+                     checkpoints=ckpts, train_logs=logs[:3],
+                     sampling_launches=launches, plain_calls=calls,
+                     sampled_traces=3 * 102, golden="oasis_ref",
+                     mismatches=mismatches, generator_moved=moved,
+                     served=dict(epoch=epoch, samples=256,
+                                 launches=serve_launches)),
+           card_vs_cpu=versus,
+           step=dict(timing, steps_per_s_host=steps / epoch_s,
+                     epoch_host_s=epoch_s, steps_per_epoch=steps,
+                     sample_and_plot_s=sample_s,
+                     profile_window=window))
+    return dict(launches=launches, timing=timing, window=window)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -720,11 +1131,12 @@ def main() -> int:
     smi = phase_device(root)
     max_err = phase_kernel()
     config = flagship_config()
-    weights = get_models(config, rng=torch.Generator().manual_seed(SEED))
+    weights, _ = get_models(config, rng=torch.Generator().manual_seed(SEED))
     params = convert.flax_generator_params(weights.state_dict())
     serving_launches = phase_slice(config, params)
     serving = phase_timings(config, params, smi)
     recordings = phase_recordings(smi)
+    training = phase_training(smi)
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
@@ -734,8 +1146,14 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "oasis_ar1", "route": "cuda", "source": source,
          "replaces": "calciumgan_tpu/ops/oasis_pallas.py:603",
-         **path_launches("oasis_ar1", serving_launches),
-         "path": "generate --spikes", "library_ms": None,
+         **path_launches("oasis_ar1", collections.Counter(serving_launches)
+                         + collections.Counter(training["launches"])),
+         "launches_by_path": {
+             "generate --spikes": launched("oasis_ar1", serving_launches),
+             "main (sampling epochs)": launched("oasis_ar1",
+                                                training["launches"])},
+         "path": "generate --spikes; main (sampling epochs)",
+         "library_ms": None,
          **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"]))},
         {"name": "oasis_ar1_precise", "route": "cuda", "source": source,
          "replaces": "calciumgan_tpu/ops/oasis_pallas.py:603",

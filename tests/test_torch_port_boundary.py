@@ -1,12 +1,14 @@
 """The port imports nothing of the JAX package, and its copies of the JAX
-package's JAX-free modules equal the originals.
+package's modules equal the originals.
 
 Every ``.py`` file of ``calciumgan_tpu_torch/`` and ``chip_smoke.py`` is
 walked as an AST (imports inside functions included) for imports of
 ``calciumgan_tpu``, ``jax``, ``flax`` or ``optax`` and for paths into
 ``calciumgan_tpu/``. The copies (``Config``, ``Registry``, ``ifft_signals``,
-the float64 golden and ``synth_ar1_traces``, the h5 writer and the C++
-float64 redo) are held against the JAX package's modules on seeded inputs.
+the float64 golden and ``synth_ar1_traces``, the h5 writer, the C++
+float64 redo and crc32c, the TFRecord codec, the event writer, the signal
+metrics and the phase shuffle) are held against the JAX package's modules
+on seeded inputs.
 """
 
 import argparse
@@ -21,17 +23,30 @@ import sys
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+import torch
+
 from calciumgan_tpu import config as jax_config
+from calciumgan_tpu import native
 from calciumgan_tpu import registry as jax_registry
 from calciumgan_tpu.data import segments
+from calciumgan_tpu.data import tfrecord as jax_tfrecord
 from calciumgan_tpu.ops import oasis_ref
+from calciumgan_tpu.ops import phase_shuffle as jax_shuffle
+from calciumgan_tpu.ops import signal_metrics as jax_metrics
 from calciumgan_tpu.utils import h5 as jax_h5
+from calciumgan_tpu.utils import tb as jax_tb
+from calciumgan_tpu.utils.tb_reader import read_scalars
 from calciumgan_tpu_torch import config as port_config
 from calciumgan_tpu_torch.data import pipeline as port_pipeline
+from calciumgan_tpu_torch.data import tfrecord as port_tfrecord
 from calciumgan_tpu_torch.models import registry as port_registry
 from calciumgan_tpu_torch.ops import golden
 from calciumgan_tpu_torch.ops import oasis as port_oasis
+from calciumgan_tpu_torch.ops import phase_shuffle as port_shuffle
+from calciumgan_tpu_torch.ops import signal_metrics as port_metrics
 from calciumgan_tpu_torch.utils import h5 as port_h5
+from calciumgan_tpu_torch.utils import tb as port_tb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "calciumgan_tpu_torch")
@@ -113,6 +128,7 @@ def test_port_loads_no_jax_package_module():
         "import calciumgan_tpu_torch.config, calciumgan_tpu_torch.generate\n"
         "import calciumgan_tpu_torch.ops.oasis\n"
         "import calciumgan_tpu_torch.dataset.spike_train_inference\n"
+        "import calciumgan_tpu_torch.main, calciumgan_tpu_torch.train\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('calciumgan_tpu', 'jax', 'jaxlib', 'flax', 'optax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -250,3 +266,66 @@ def test_cxx_redo_copy_equals_jax_golden(T):
 def test_cxx_redo_source_lives_in_the_port():
     # a file of csrc/ (the kernel build hashes every entry of it)
     assert os.path.isfile(os.path.join(PORT, "csrc", "oasis_host.cc"))
+
+
+# ---- the training slice's copies --------------------------------------------
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 1000, 835_587])
+def test_crc32c_copy_equals_jax_native(n):
+    data = np.random.default_rng(n).integers(0, 256, n, np.uint8).tobytes()
+    assert port_tfrecord.crc32c(data) == native.crc32c(data)
+    assert port_tfrecord.masked_crc32c(data) == jax_tfrecord.masked_crc32c(
+        data)
+    built = port_tfrecord.crc_library()
+    assert os.path.basename(built.path).startswith("libcrc32c-")
+    assert os.path.isfile(os.path.join(PORT, "csrc", "crc32c.cc"))
+
+
+def test_example_codec_equals_jax():
+    feats = {"signal": b"\x00\x01" * 300, "spike": b"", "x": b"\xff" * 200}
+    encoded = port_tfrecord.encode_example(feats)
+    assert encoded == jax_tfrecord.encode_example(feats)
+    assert port_tfrecord.decode_example(encoded) == \
+        jax_tfrecord.decode_example(encoded)
+
+
+def test_event_writer_equals_jax(tmp_path):
+    values = np.random.default_rng(2).standard_normal(500)
+    assert port_tb.histogram_proto(values) == jax_tb.histogram_proto(values)
+    assert port_tb._event(b"abc", 7, 1.5) == jax_tb._event(b"abc", 7, 1.5)
+    writer = port_tb.EventWriter(str(tmp_path))
+    writer.scalar("loss/x", 0.25, step=3)
+    writer.histogram("w", values, step=3)
+    writer.image("fig/image/0", b"\x89PNG", height=2, width=3, step=3)
+    writer.close()
+    assert read_scalars(str(tmp_path)) == {"loss/x": {3: 0.25}}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_signal_metrics_copy_equals_jax(masked):
+    rng = np.random.default_rng(9)
+    real, fake = (rng.random((4, 16, 5)).astype(np.float32)
+                  for _ in range(2))
+    mask = np.array([1, 0, 1, 1], np.float32) if masked else None
+    ours = port_metrics.all_signal_metrics(
+        torch.from_numpy(real), torch.from_numpy(fake),
+        None if mask is None else torch.from_numpy(mask))
+    theirs = jax_metrics.all_signal_metrics(
+        jnp.asarray(real), jnp.asarray(fake),
+        None if mask is None else jnp.asarray(mask))
+    assert set(ours) == set(theirs)
+    for k in ours:
+        np.testing.assert_allclose(float(ours[k]), float(theirs[k]),
+                                   rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_phase_shuffle_copy_equals_jax(m):
+    x = np.random.default_rng(m).standard_normal((2, 6, 3)).astype(
+        np.float32)
+    for shift in range(-m, m + 1):
+        np.testing.assert_array_equal(
+            port_shuffle.phase_shuffle(torch.from_numpy(x), shift, m,
+                                       axis=1).numpy(),
+            np.asarray(jax_shuffle._shift_axis(jnp.asarray(x),
+                                               jnp.asarray(shift), m, 1)))

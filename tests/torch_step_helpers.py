@@ -1,0 +1,127 @@
+"""Shared by the port's step parity tests: the tiny configuration, the
+shared weights, and the capture and replay of the JAX package's random
+draws (see ``test_torch_train_step.py``)."""
+
+import collections
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from calciumgan_tpu.algorithms import get_algorithm as jax_get_algorithm
+from calciumgan_tpu.algorithms.state import GANState, make_net_state
+from calciumgan_tpu.config import Config as JaxConfig
+from calciumgan_tpu.models import calciumgan as jax_calciumgan
+from calciumgan_tpu.models import get_models as jax_get_models
+from calciumgan_tpu.ops.phase_shuffle import _shift_axis as jax_shift_axis
+from calciumgan_tpu_torch import convert
+from calciumgan_tpu_torch.algorithms import get_algorithm
+from calciumgan_tpu_torch.config import Config
+from calciumgan_tpu_torch.models import get_models
+
+
+def tiny(**kw):
+    d = dict(model="calciumgan", algorithm="wgan-gp", sequence_length=64,
+             num_neurons=6, num_channels=6, signal_shape=(64, 6),
+             noise_dim=8, num_units=4, kernel_size=4, strides=2, m=2,
+             epochs=1, batch_size=8, n_critic=2, normalize=True,
+             layer_norm=True, signals_min=0.0, signals_max=1.0,
+             learning_rate=1e-5)
+    d.update(kw)
+    return d
+
+
+class Recorder:
+    """The JAX step's draws, by kind, in execution order."""
+
+    def __init__(self):
+        self.draws = collections.defaultdict(list)
+
+    def __call__(self, kind):
+        return lambda v: self.draws[kind].append(np.array(v))
+
+    def take(self):
+        jax.effects_barrier()
+        draws, self.draws = dict(self.draws), collections.defaultdict(list)
+        return draws
+
+
+class Replay:
+    """The methods of ``Draws``, returning recorded JAX draws."""
+
+    def __init__(self, draws):
+        self.queue = {k: list(v) for k, v in draws.items()}
+
+    def noise(self, n, noise_dim):
+        z = self.queue["noise"].pop(0)
+        assert z.shape == (n, noise_dim)
+        return torch.from_numpy(z)
+
+    def alpha(self, n):
+        return torch.from_numpy(self.queue["alpha"].pop(0).reshape(n))
+
+    def shifts(self, m, count):
+        return [int(self.queue["shift"].pop(0)) for _ in range(count)]
+
+    def left(self):
+        return {k: len(v) for k, v in self.queue.items() if v}
+
+
+def make_pair(rec, **kw):
+    """The port's algorithm and state, and the JAX algorithm (its noise and
+    alpha draws recorded) with a state holding the same weights; the
+    weights are the port's glorot draws, so no Flax ``init`` is compiled."""
+    cfg = Config(**tiny(**kw))
+    algo = get_algorithm(cfg, *get_models(
+        cfg, rng=torch.Generator().manual_seed(0)))
+    jcfg = JaxConfig(**tiny(**kw))
+    jalgo = jax_get_algorithm(jcfg, *jax_get_models(jcfg))
+    gen = convert.flax_generator_params(algo.generator.state_dict())
+    dis = convert.flax_discriminator_params(
+        algo.discriminator.state_dict())
+    jstate = GANState(generator=make_net_state({"params": gen},
+                                               jalgo.tx_gen),
+                      discriminator=make_net_state({"params": dis},
+                                                   jalgo.tx_dis))
+    get_noise = jalgo.get_noise
+
+    def noise(key, n):
+        z = get_noise(key, n)
+        jax.debug.callback(rec("noise"), z, ordered=True)
+        return z
+
+    def interpolate(key, real, fake):  # as WGAN_GP.interpolate draws
+        shape = (real.shape[0],) + (1,) * (real.ndim - 1)
+        alpha = jax.random.uniform(key, shape, jnp.float32)
+        jax.debug.callback(rec("alpha"), alpha, ordered=True)
+        return alpha * real + (1.0 - alpha) * fake
+
+    jalgo.get_noise = noise
+    jalgo.interpolate = interpolate
+    return algo, algo.init_state(), jalgo, jstate
+
+
+@contextlib.contextmanager
+def recording():
+    """A :class:`Recorder` of the JAX discriminator's phase shifts, drawn
+    exactly as ``calciumgan_tpu.ops.phase_shuffle.phase_shuffle`` draws
+    them, while the context lasts."""
+    rec = Recorder()
+
+    def phase_shuffle(x, key, m, axis=1):
+        if m == 0:
+            return x
+        shift = jax.random.randint(key, (), -m, m + 1)
+        jax.debug.callback(rec("shift"), shift, ordered=True)
+        return jax_shift_axis(x, shift, m, axis)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_calciumgan, "phase_shuffle", phase_shuffle)
+        yield rec
+
+
+def real_batch(n=8, seed=0):
+    return np.random.default_rng(seed).random((n, 64, 6)).astype(np.float32)
