@@ -27,6 +27,7 @@ import torch
 
 from calciumgan_tpu_torch.algorithms.gan import denormalize
 from calciumgan_tpu_torch.data import tfrecord
+from calciumgan_tpu_torch.utils import h5
 
 
 class ArrayDataset:
@@ -95,10 +96,17 @@ def apply_dataset_info(config, info: dict) -> None:
             config.signals_min = float(info["signals_min"])
             config.signals_max = float(info["signals_max"])
     if config.save_generated:
-        config.generated_dir = os.path.join(config.output_dir, "generated")
-        os.makedirs(config.generated_dir, exist_ok=True)
-        config.validation_cache = os.path.join(config.generated_dir,
-                                               "validation.h5")
+        set_generated_paths(config)
+
+
+def set_generated_paths(config) -> None:
+    """``--save_generated``: the run's ``generated`` directory and the name
+    of its validation cache, in the container this installation writes."""
+    config.generated_dir = os.path.join(config.output_dir, "generated")
+    os.makedirs(config.generated_dir, exist_ok=True)
+    config.validation_cache = os.path.join(
+        config.generated_dir,
+        "validation" + h5.default_suffix(config.verbose))
 
 
 def _read_shards(pattern: str, signal_shape, spike_shape) -> ArrayDataset:
@@ -183,10 +191,7 @@ def load_surrogate_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
     config.fft = False
     config.conv2d = False
     if config.save_generated:
-        config.generated_dir = os.path.join(config.output_dir, "generated")
-        os.makedirs(config.generated_dir, exist_ok=True)
-        config.validation_cache = os.path.join(config.generated_dir,
-                                               "validation.h5")
+        set_generated_paths(config)
     return train, validation
 
 

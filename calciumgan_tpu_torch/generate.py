@@ -9,7 +9,9 @@ checkpoint under ``<output_dir>/checkpoints``: the port's own
 ``epoch-NNN.pt`` or the JAX package's ``epoch-NNN.msgpack``
 (:func:`~calciumgan_tpu_torch.utils.checkpoint.restore_generator_params`),
 generates on ``--device`` (default ``cuda``) and writes denormalised NWC
-float32 signals to the h5 dataset ``signals``, with OASIS spikes as int8
+float32 signals to the dataset ``signals`` of ``--out`` (HDF5, or a
+``.npys`` directory of ``.npy`` arrays where the name ends so:
+:mod:`calciumgan_tpu_torch.utils.h5`), with OASIS spikes as int8
 ``spikes`` under ``--spikes``. One device, eager; the JAX package's
 sharded multi-host generation has no counterpart yet.
 """
@@ -71,7 +73,7 @@ def generate(config, params, num_samples: int, batch_size: int = 1024,
 def main(config, num_samples: int, out: str, batch_size: int = 1024,
          with_spikes: bool = False, epoch=None, seed: int = 0,
          device="cuda") -> str:
-    from calciumgan_tpu_torch.utils import h5  # h5py only for the CLI
+    from calciumgan_tpu_torch.utils import h5  # h5py only for a .h5 name
 
     # float32 layers in full float32, not TF32, on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -84,8 +86,7 @@ def main(config, num_samples: int, out: str, batch_size: int = 1024,
         ckpt_dir, epoch=epoch, ema=float(config.ema or 0.0) > 0.0)
     if config.verbose:
         print(f"Restored checkpoint epoch {restored_epoch} from {ckpt_dir}")
-    if os.path.exists(out):
-        os.remove(out)
+    h5.remove(out)
     written = 0
     for payload in generate(config, params, num_samples, batch_size,
                             with_spikes, seed, device):
@@ -106,7 +107,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--num_samples", default=10000, type=int)
     parser.add_argument("--batch_size", default=1024, type=int)
     parser.add_argument("--out", default="", type=str,
-                        help="output h5 (default <output_dir>/samples.h5)")
+                        help="output file (default <output_dir>/samples.h5); "
+                             "a name ending in .npys is written as a "
+                             "directory of .npy arrays, without h5py")
     parser.add_argument("--spikes", action="store_true",
                         help="also deconvolve spikes (OASIS)")
     parser.add_argument("--epoch", default=None, type=int,

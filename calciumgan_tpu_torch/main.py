@@ -11,7 +11,10 @@ host; ``cuda`` without a card raises). Checkpoints are the port's own
 by ``python -m calciumgan_tpu_torch.generate``. The mesh flags
 (``--data_parallelism``, ``--model_parallelism``, ``--dcn_slices``) are
 accepted for ``hparams.json`` parity and ignored: the port trains on one
-device; ``--time_parallelism`` above 1 and ``--save_generated`` raise.
+device; ``--time_parallelism`` above 1 raises. ``--save_generated all|last``
+writes the validation cache, the epoch files and ``info.pkl`` under
+``<output_dir>/generated``, which ``python -m
+calciumgan_tpu_torch.compute_metrics`` evaluates.
 """
 
 import argparse

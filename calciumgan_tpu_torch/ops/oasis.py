@@ -21,9 +21,11 @@ Not ported yet: the in-graph ``deconvolve_signals`` and its XLA
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 from concurrent.futures import ThreadPoolExecutor
+from time import perf_counter
 
 import numpy as np
 import torch
@@ -88,7 +90,9 @@ def _long_ladder(T: int) -> tuple:
 
 def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
                             threshold: float = 0.5,
-                            depth: int | None = None) -> np.ndarray:
+                            depth: int | None = None,
+                            stats: collections.Counter | None = None
+                            ) -> np.ndarray:
     """Binary spikes of ``(..., T)`` traces as a host ``np.int8`` array of
     the same shape, equal to the float64 golden model's.
 
@@ -97,7 +101,14 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     ``depth=None`` walks ``_DEPTH_LADDER``, or ``_long_ladder(T)`` for
     traces longer than ``_PALLAS_MAX_T``; an explicit ``depth`` pins one
     dispatch. Long traces on the CPU go straight to the exact host kernel,
-    as the JAX package's do off the TPU (JAX ``ops/oasis.py:322-327``)."""
+    as the JAX package's do off the TPU (JAX ``ops/oasis.py:322-327``).
+
+    A caller that reports where the time went passes a ``stats`` counter;
+    the kernel route adds to it the host-clock seconds of ``kernel``
+    (launch until the flags are on the host), ``spikes_to_host`` and
+    ``redo``, ``kernel_device`` seconds by CUDA events, and the counts of
+    ``traces`` dispatched, ``flagged``, and flagged by ``bit0`` (depth),
+    ``bit1`` (merge budget) and ``bit2`` (borderline)."""
     if isinstance(signals, np.ndarray):
         signals = torch.from_numpy(np.ascontiguousarray(signals, np.float32))
     signals = signals.float().contiguous()
@@ -116,33 +127,59 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     # long traces: the long kernel with the precise machine and its band
     # (JAX ops/oasis.py:369-398)
     entry = oasis_cuda.oasis_ar1_long if long else oasis_cuda.oasis_ar1
-    spikes = _ladder_spikes(flat, ladder, entry, long, g, s_min, threshold)
+    spikes = _ladder_spikes(flat, ladder, entry, long, g, s_min, threshold,
+                            stats)
     return spikes.reshape(signals.shape)
 
 
 def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
-                   g: float, s_min: float, threshold: float) -> np.ndarray:
+                   g: float, s_min: float, threshold: float,
+                   stats: collections.Counter | None = None) -> np.ndarray:
     """Host ``np.int8`` spikes of ``(N, T)`` traces: the kernel ``entry``
     (``oasis_cuda.oasis_ar1`` or ``oasis_ar1_long``) with the production
     merge budget and the band of the ``precise`` or classic machine, on
     each rung of ``ladder`` while more than ``_ESCALATE_FRAC`` of the
     traces overflow, then every flagged trace recomputed in float64 on the
-    host (JAX ``ops/oasis.py:343-366``)."""
+    host (JAX ``ops/oasis.py:343-366``). ``stats`` takes the seconds and
+    counts that :func:`deconvolve_signals_host` documents."""
+    stats = collections.Counter() if stats is None else stats
+    clock = perf_counter()
+
+    def lap(stage: str) -> None:
+        nonlocal clock
+        now = perf_counter()
+        stats[stage] += now - clock
+        clock = now
+
     for i, d in enumerate(ladder):
+        if flat.is_cuda:
+            begin, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            begin.record()
         _, s, redo = entry(flat, g=g, lam=0.0, s_min=s_min, depth=d,
                            merge_attempts=_MERGE_BUDGET, precise=precise,
                            flag_tol=_flag_tol(s_min, threshold, precise))
-        flags = redo.reshape(-1).cpu().numpy()
+        if flat.is_cuda:
+            end.record()
+        flags = redo.reshape(-1).cpu().numpy()  # waits for the kernel
+        lap("kernel")
+        if flat.is_cuda:
+            stats["kernel_device"] += begin.elapsed_time(end) * 1e-3
         # escalate only on DEPTH flags (bit 0): a deeper stack cannot help
         # an exhausted merge budget (bit 1) or a borderline decision (bit 2)
         depth_frac = float(((flags & 1) != 0).mean()) if flags.size else 0.0
         if depth_frac <= _ESCALATE_FRAC or i == len(ladder) - 1:
             break
     spikes = (s > threshold).to(torch.int8).cpu().numpy()
+    lap("spikes_to_host")
+    stats.update(traces=flags.size, flagged=int((flags != 0).sum()),
+                 **{f"bit{b}": int(((flags >> b) & 1).sum())
+                    for b in range(3)})
     if flags.any():
         idx = np.nonzero(flags)[0]
         rows = flat[torch.from_numpy(idx).to(flat.device)].cpu().numpy()
         spikes[idx] = _exact_spikes_host(rows, g, s_min, threshold)
+        lap("redo")
     return spikes
 
 

@@ -17,7 +17,15 @@ device tensors, which are read once per epoch.
 
 Not ported: meshes and ``--time_parallelism`` (one device; values above 1
 raise), the background ``DevicePrefetcher`` thread, the persistent compile
-cache, the backend probe, and ``--save_generated`` (raises).
+cache and the backend probe.
+
+``--save_generated`` keeps the validation pass's generated batches under the
+JAX package's policy (``calciumgan_tpu/train.py:165-209``): ``all`` on every
+``--checkpoint_every``-th and on the last epoch, ``last`` on the last epoch
+only. Each batch is copied to the host and written as it comes
+(:func:`calciumgan_tpu_torch.utils.io.save_fake_signals`), so the copy and
+the write belong to the validation pass's ``elapse``; their own seconds are
+the validation scalar ``elapse/save_generated``.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from calciumgan_tpu_torch.algorithms.gan import Draws
 from calciumgan_tpu_torch.data import pipeline
 from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
 from calciumgan_tpu_torch.models import get_models
-from calciumgan_tpu_torch.utils import checkpoint
+from calciumgan_tpu_torch.utils import checkpoint, io
 from calciumgan_tpu_torch.utils.summary import Summary
 
 # draw counters outside the train steps' global_step range
@@ -210,27 +218,51 @@ def _row_mask(bs: int, real_count: int, device) -> torch.Tensor:
     return mask.to(device)
 
 
+def saves_generated(config, epoch: int) -> bool:
+    """Whether ``epoch``'s validation pass keeps its generated signals: the
+    cadence of sampling and checkpointing (``--checkpoint_every``; the
+    reference hard-codes 10 for both, ``main.py:103,141``)."""
+    every = max(1, config.checkpoint_every)
+    last = epoch == config.epochs - 1
+    return ((config.save_generated == "all" and (epoch % every == 0 or last))
+            or (config.save_generated == "last" and last))
+
+
 def validate_epoch(config, source, algo, state, summary: Summary, epoch: int,
                    device: torch.device) -> Dict[str, float]:
     """One validation pass (reference ``main.py:78-122``), means weighted
-    by real rows."""
+    by real rows; saves the generated signals per ``--save_generated``."""
     bs = config.batch_size
     steps = -(-config.validation_size // bs)
+    save_generated = saves_generated(config, epoch)
     all_logs, weights = [], []
+    save_s = 0.0
     start = time()
     batches = _validation_batches(source, config.validation_size, bs, steps)
     for i, (real, real_count) in enumerate(
             _progress(batches, "Validate", steps, config.verbose)):
         draws = Draws(config.seed, _VALIDATION_COUNTER + epoch * steps + i,
                       device)
-        _, logs = algo.eval_step(state, real, draws,
-                                 _row_mask(bs, real_count, device))
+        fake, logs = algo.eval_step(state, real, draws,
+                                    _row_mask(bs, real_count, device))
         weights.append(logs.pop("batch/real_rows"))
         all_logs.append(logs)
+        if save_generated:
+            # the first batch replaces any file left by a run of the same
+            # epoch that was killed (writes append); the filler rows of the
+            # tail batch are dropped
+            _synchronize(device)
+            saving = perf_counter()
+            io.save_fake_signals(config, epoch, fake[:real_count],
+                                 append=i > 0)
+            save_s += perf_counter() - saving
     _synchronize(device)
     elapse = time() - start
 
     logs = _mean_logs(all_logs, weights=weights)
+    if save_generated:
+        summary.scalar("elapse/save_generated", save_s, step=epoch,
+                       training=False)
     summary.log(logs, elapse=elapse, step=epoch, training=False)
     return logs
 
@@ -376,9 +408,6 @@ def main(config, return_metrics: bool = False,
     if int(getattr(config, "time_parallelism", 1) or 1) > 1:
         raise NotImplementedError(
             "--time_parallelism is not ported: the port trains on one device")
-    if config.save_generated:
-        raise NotImplementedError(
-            "--save_generated is not ported to calciumgan_tpu_torch yet")
     if config.clear_output_dir and os.path.exists(config.output_dir):
         rmtree(config.output_dir)
     os.makedirs(config.output_dir, exist_ok=True)
@@ -406,6 +435,8 @@ def main(config, return_metrics: bool = False,
                                                       "checkpoints")
     state = checkpoint.resume(config, state)
     plot_real_signals(config, summary, validation_ds)
+    if config.save_generated:
+        io.cache_validation_set(config, validation_ds)
 
     start = time()
     val_src = train_and_validate(config, train_ds, validation_ds, algo, state,

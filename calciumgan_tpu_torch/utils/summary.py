@@ -1,17 +1,25 @@
-"""Training summaries to TensorBoard event files (counterpart of the
-training half of ``calciumgan_tpu/utils/summary.py``).
+"""Summaries to TensorBoard event files plus the reference's composite
+figures (counterpart of ``calciumgan_tpu/utils/summary.py``).
 
-Two writers, as the JAX package's: train to ``output_dir``, validation to
-``output_dir/validation``. ``log`` writes an epoch half's scalars (and the
-weight statistics under ``--plot_weights``); ``plot_traces`` renders the
-trace figure inline, saves its PNG under ``<logdir>/plots`` and writes it
-as an image summary. Without matplotlib the figures are skipped, with one
-line saying so; the scalars are written all the same.
+Three writer modes, as the JAX package's: train to ``output_dir``,
+validation to ``output_dir/validation``, and, with ``spike_metrics=True``,
+the spike metrics to ``output_dir/metrics`` with a vector-plot directory
+``metrics/plots``. ``log`` writes an epoch half's scalars (and the weight
+statistics under ``--plot_weights``); every ``plot_*`` method renders its
+figure inline, saves its PNG under ``<logdir>/plots`` (and, in metrics mode,
+its vector copy) and writes it as an image summary.
+
+``no_plots`` is true when the caller asks for it or when matplotlib is not
+installed (one line says so): then no figure is rendered and callers skip
+the work that only feeds figures; the scalars are written all the same.
+The JAX package's render pool (``workers``, ``drain``) is not ported.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -22,17 +30,41 @@ from calciumgan_tpu_torch.utils.tb import EventWriter
 
 class Summary:
 
-    def __init__(self, config):
+    def __init__(self, config, spike_metrics: bool = False,
+                 no_plots: bool = False):
         self._config = config
+        self.spike_metrics = spike_metrics
         self.dpi = getattr(config, "dpi", 120)
         self._plot_weights = getattr(config, "plot_weights", False)
-        self._figures = True  # until matplotlib turns out to be missing
-        self.profiler_dir = os.path.join(config.output_dir, "profiler")
-        self.train_writer = EventWriter(config.output_dir)
-        self.val_writer = EventWriter(
-            os.path.join(config.output_dir, "validation"))
+        if not no_plots and importlib.util.find_spec("matplotlib") is None:
+            print("matplotlib is not installed: figures are skipped")
+            no_plots = True
+        self.no_plots = no_plots
+
+        if spike_metrics:
+            self._metrics_dir = os.path.join(config.output_dir, "metrics")
+            self.format = getattr(config, "format", "pdf")
+            self._vector_dir = os.path.join(self._metrics_dir, "plots")
+            self.metrics_writer = EventWriter(self._metrics_dir)
+            # a refresh of the KL scalars without figures must not wipe
+            # the figures a previous full run rendered
+            if not self.no_plots:
+                if os.path.exists(self._vector_dir):
+                    shutil.rmtree(self._vector_dir)
+                os.makedirs(self._vector_dir)
+        else:
+            self.profiler_dir = os.path.join(config.output_dir, "profiler")
+            self.train_writer = EventWriter(config.output_dir)
+            self.val_writer = EventWriter(
+                os.path.join(config.output_dir, "validation"))
+
+    def _writers(self):
+        return ([self.metrics_writer] if self.spike_metrics
+                else [self.train_writer, self.val_writer])
 
     def _writer(self, training: bool) -> EventWriter:
+        if self.spike_metrics:
+            return self.metrics_writer
         return self.train_writer if training else self.val_writer
 
     def scalar(self, tag, value, step=0, training=True):
@@ -42,12 +74,37 @@ class Summary:
         self._writer(training).histogram(tag, np.asarray(values), step)
 
     def flush(self):
-        self.train_writer.flush()
-        self.val_writer.flush()
+        for writer in self._writers():
+            writer.flush()
 
     def close(self):
-        self.train_writer.close()
-        self.val_writer.close()
+        for writer in self._writers():
+            writer.close()
+
+    # ------------------------------------------------------------------
+    # figures
+    # ------------------------------------------------------------------
+    def _meta(self, tag, step, training):
+        logdir = (self._metrics_dir if self.spike_metrics else
+                  (self._config.output_dir if training else
+                   os.path.join(self._config.output_dir, "validation")))
+        safe = tag.replace("/", "_")
+        meta = {"dpi": self.dpi,
+                "png_path": os.path.join(logdir, "plots",
+                                         f"{safe}_step{step:06d}.png")}
+        if self.spike_metrics:
+            meta["vector_path"] = os.path.join(self._vector_dir,
+                                               f"{safe}.{self.format}")
+            meta["vector_format"] = self.format
+        return meta
+
+    def _figure(self, kind, payload, tag, step, training):
+        if self.no_plots:
+            return
+        png, w, h = plots.render_and_save(kind, payload,
+                                          self._meta(tag, step, training))
+        self._writer(training).image(f"{tag}/image/0", png, height=h,
+                                     width=w, step=step)
 
     def plot_traces(self, tag, signals, spikes, indexes, ylims=None,
                     xlabel="Time (s)", ylabel=r"$\Delta F/F$", step=0,
@@ -55,30 +112,57 @@ class Summary:
                     spike_label="spike", plots_per_row=3):
         """Signal traces + spike rasters per neuron of ``(neuron, time)``
         arrays (reference ``summary_helper.py:121-206``)."""
-        if not self._figures:
-            return
         signals, spikes = np.asarray(signals), np.asarray(spikes)
         if signals.ndim != 2 or spikes.shape != signals.shape:
             raise ValueError(f"traces {signals.shape} and spikes "
                              f"{spikes.shape} must be (neuron, time)")
-        logdir = (self._config.output_dir if training else
-                  os.path.join(self._config.output_dir, "validation"))
-        meta = {"dpi": self.dpi,
-                "png_path": os.path.join(
-                    logdir, "plots",
-                    f"{tag.replace('/', '_')}_step{step:06d}.png")}
-        payload = dict(signals=signals, spikes=spikes, indexes=list(indexes),
-                       ylims=ylims, xlabel=xlabel, ylabel=ylabel,
-                       is_real=is_real, signal_label=signal_label,
-                       spike_label=spike_label, plots_per_row=plots_per_row)
-        try:
-            png, w, h = plots.render_traces(payload, meta)
-        except ImportError:
-            self._figures = False
-            print("matplotlib is not installed: figures are skipped")
-            return
-        self._writer(training).image(f"{tag}/image/0", png, height=h,
-                                     width=w, step=step)
+        self._figure("traces", dict(
+            signals=signals, spikes=spikes, indexes=list(indexes),
+            ylims=ylims, xlabel=xlabel, ylabel=ylabel, is_real=is_real,
+            signal_label=signal_label, spike_label=spike_label,
+            plots_per_row=plots_per_row), tag, step, training)
+
+    def raster_plot(self, tag, real_spikes, fake_spikes, xlabel="",
+                    ylabel="", legend_labels=None, step=0, training=True):
+        """Joint raster with marginal histograms
+        (reference ``summary_helper.py:208-315``)."""
+        self._figure("raster", dict(
+            real_spikes=np.asarray(real_spikes),
+            fake_spikes=np.asarray(fake_spikes), xlabel=xlabel,
+            ylabel=ylabel, legend_labels=legend_labels), tag, step, training)
+
+    def plot_distribution(self, tag, data, xlabel="", ylabel="", title="",
+                          bins=30, step=0, training=False):
+        self._figure("distribution", dict(
+            data=np.asarray(data), xlabel=xlabel, ylabel=ylabel,
+            title=title, bins=bins), tag, step, training)
+
+    def plot_histogram(self, tag, data, xlabel="", ylabel="", step=0,
+                       training=False, legend_labels=None):
+        """Real-vs-fake overlaid histogram over the joint range."""
+        assert isinstance(data, tuple)
+        self._figure("histogram", dict(
+            data=tuple(np.asarray(d) for d in data), xlabel=xlabel,
+            ylabel=ylabel, legend_labels=legend_labels), tag, step, training)
+
+    def plot_histograms_grid(self, tag, data, xlabel="", ylabel="",
+                             titles=None, step=0, training=False,
+                             legend_labels=None, plots_per_row=3):
+        assert isinstance(data, list) and isinstance(data[0], tuple)
+        self._figure("histograms_grid", dict(
+            data=[tuple(np.asarray(x) for x in pair) for pair in data],
+            xlabel=xlabel, ylabel=ylabel, titles=titles,
+            legend_labels=legend_labels, plots_per_row=plots_per_row),
+            tag, step, training)
+
+    def plot_heatmaps_grid(self, tag, matrix, xlabel="", ylabel="",
+                           xticklabels=None, yticklabels=None, titles=None,
+                           step=0, training=False, plots_per_row=3):
+        assert isinstance(matrix, list)
+        self._figure("heatmaps_grid", dict(
+            matrix=[np.asarray(m) for m in matrix], xlabel=xlabel,
+            ylabel=ylabel, xticklabels=xticklabels, yticklabels=yticklabels,
+            titles=titles, plots_per_row=plots_per_row), tag, step, training)
 
     def variable_summary(self, variable, name, step=0, training=True):
         v = np.asarray(variable)

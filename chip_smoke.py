@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, whole-recording spike
-inference and training once on one NVIDIA GPU.
+inference, dataset preparation, training and evaluation once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs six phases, printing one line of findings per phase.
+``nvcc`` and runs eight phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
@@ -44,19 +45,41 @@ every (machine, storage) pair the plan can choose is compared:
    the card's name and power limit;
 6. training: a flagship-shaped TFRecord dataset (512 + 128 rows of 2048 x
    102 seeded synthetic calcium, written by the port's writer) trained by
-   ``python -m calciumgan_tpu_torch.main`` in-process at the flagship
-   recipe (wgan-gp, batch 128, units 64, kernel 24, m 10, layer_norm,
-   bf16, n_critic 5) for 2 epochs with ``--profile``, then resumed to 3:
-   the epochs, ``global_step``, checkpoints, finite losses, the dataset on
-   the card, the sampling epochs' OASIS launches (``oasis_ar1/shared``
-   only, no plain calls) and their spikes against the float64 golden, the
+   ``python -m calciumgan_tpu_torch.main --save_generated all`` in-process
+   at the flagship recipe (wgan-gp, batch 128, units 64, kernel 24, m 10,
+   layer_norm, bf16, n_critic 5) for 2 epochs with ``--profile``, then
+   resumed to 3: the epochs, ``global_step``, checkpoints, finite losses,
+   the dataset on the card, the validation cache and the three epoch files
+   (128 rows each) with the seconds saving adds to a validation pass, the
+   sampling epochs' OASIS launches (``oasis_ar1/shared`` only, no plain
+   calls) and their spikes against the float64 golden, the
    newest checkpoint served through ``generate.generate``; one full-width
    WGAN-GP step (batch 8, n_critic 2) on the card against the CPU from one
    state and the same draws, in float32 and bfloat16; the step's time at
    batch 128 by CUDA events (critic and generator steps), its FLOPs by
    ``FlopCounterMode`` against the bf16 peak, steps/s over an epoch, the
    profile window's device-busy share, ``sample_and_plot`` and a checkpoint
-   save, beside the card's name and power limit.
+   save, beside the card's name and power limit;
+7. dataset preparation: one of phase 5's 102 x 20,000 pickles, with the
+   ``oasis`` key the spike-inference CLI wrote, through ``python -m
+   calciumgan_tpu_torch.dataset.generate_tfrecords`` in-process
+   (``--sequence_length 2048 --stride 28 --normalize --validation_size
+   128``), loaded back by the port's ``get_datasets``: the counts, the
+   shapes, and windows against the recording; the seconds;
+8. evaluation at the paper's size: a run directory of 1000 trials x 2048 x
+   102 (recorded side: seeded synthetic traces with spikes by the C++
+   float64 kernel; generated side: ``generate.generate`` on phase 6's
+   newest checkpoint) written through ``io.cache_validation_set`` and
+   ``io.save_fake_signals`` and evaluated by ``python -m
+   calciumgan_tpu_torch.compute_metrics --device cuda`` in-process: finite
+   KLs in ``metrics.json``, the epoch file's spikes against the float64
+   golden (2048 traces) and the C++ float64 kernel (all 102,000), the OASIS
+   launches of that run (``oasis_ar1/shared`` only, no plain calls), the
+   statistics on the card against the CPU on 32 trials, the seconds per
+   epoch file by stage and statistic, Victor-Purpura on 16 trials, and
+   ``compute_metrics --all_epochs`` on phase 6's own run. Every KL printed
+   is of seeded synthetic data and a generator of three epochs: it says
+   nothing of real recordings.
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
@@ -73,6 +96,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -80,7 +104,7 @@ T = 2048
 G, S_MIN, THRESHOLD = 0.95, 0.55, 0.5
 KERNEL_TRACES = 4096        # phase 2 batch (B >= 4096)
 BATCH, BATCHES = 1024, 2    # phase 3 generation
-GOLDEN_TRACES = 8192        # generated traces checked against float64
+GOLDEN_TRACES = 4096        # generated traces checked against float64
 # phase 5: whole recordings (tools/check_long_kernel_tpu.py's size)
 REC_TRACES, REC_T = 2048, 20000
 REC_GOLDEN_TRACES = 256     # of them checked against the numpy golden
@@ -105,6 +129,25 @@ GEN_BF16_TOL = 1e-2
 # bf16 loss bound) and by 0.068 in the gradients (inside the bf16
 # gradient bound: the CPU tests' 1e-4 bound holds the rounding points)
 TRAIN_ROWS, VAL_ROWS = 512, 128
+# phase 7: the windows generate_tfrecords cuts from a 20,000-frame recording
+PREP_STRIDE = 28
+# phase 8: the paper's validation set (dataset/generate_tfrecords.py's
+# default --validation_size) at the flagship width
+EVAL_TRIALS, EVAL_NEURONS = 1000, 102
+EVAL_GOLDEN_TRACES = 2048   # of its traces checked against the numpy golden
+EVAL_CPU_TRIALS = 32        # statistics on the card against the CPU
+EVAL_VP_TRIALS = 16         # Victor-Purpura runs on these only
+# the statistics on the card against the same functions on the CPU: firing
+# rates are sums of 0/1 over one duration (exact); correlations are float32
+# products of 170 bin counts (the CPU tests' bound, NaN masks equal); a van
+# Rossum d**2 is a difference of float32 sums over 2048 frames that reach
+# thousands on a noisy generator's dense trains, summed in another order on
+# the card, so its bound is relative to the largest d**2; a trial's KL may
+# move by a bin count where a value sits within rounding of a bin edge, so
+# the bound is on the mean KL over the trials
+STAT_CORR_TOL = 1e-5
+STAT_VR_RTOL = 1e-5
+STAT_KL_TOL = 1e-3
 STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL = 1e-5, 1e-6
 STEP_F32_GRAD_TOL = 3e-3      # of the net's largest gradient moment
 STEP_BF16_LOSS_RTOL, STEP_BF16_LOSS_ATOL = 5e-4, 2e-4
@@ -673,6 +716,8 @@ def phase_recordings(smi):
                 CLI_NEURONS, CLI_GOLDEN_ROWS, replace=False))
             cli_golden += int((out[rows] != golden_spikes(sig[rows])).sum())
         check(cli_golden == 0, f"CLI: {cli_golden} mismatches vs oasis_ref")
+        with open(os.path.join(tmp, "rec0.pkl"), "rb") as f:
+            recording = pickle.load(f)  # with its oasis key, for phase 7
         one = torch.from_numpy(recordings[0]).to(dev)  # one recording
         cli_kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(one, **prod),
                                 reps=3)
@@ -716,6 +761,7 @@ def phase_recordings(smi):
     precise_err = max(precise_main["max_abs_err"],
                       band["resolved"]["max_abs_err"])
     return dict(
+        recording=recording,
         precise=dict(**path_launches("oasis_ar1_precise", precise_launches),
                      path=f"oasis_cuda.oasis_ar1(precise=True), "
                           f"{KERNEL_TRACES} x {T}",
@@ -987,13 +1033,15 @@ def time_train_step(signals, smi) -> dict:
                 checkpoint_save_s=save_s, checkpoint_mb=size_mb)
 
 
-def phase_training(smi):
-    """The training slice: ``python -m calciumgan_tpu_torch.main`` at the
-    flagship recipe on a written dataset, resumed, its sampling epochs'
-    OASIS launches and spikes, its checkpoint served; one step on the card
-    against the CPU; the step's times and FLOPs."""
+def phase_training(smi, work):
+    """The training slice: ``python -m calciumgan_tpu_torch.main
+    --save_generated all`` at the flagship recipe on a written dataset,
+    resumed, its generated files, its sampling epochs' OASIS launches and
+    spikes, its checkpoint served; one step on the card against the CPU;
+    the step's times and FLOPs. The run stays under ``work`` (``run``) for
+    phase 8; the records are deleted."""
     import json
-    import tempfile
+    import shutil
 
     import numpy as np
     import torch
@@ -1004,88 +1052,117 @@ def phase_training(smi):
     from calciumgan_tpu_torch.data.pipeline import DeviceStore
     from calciumgan_tpu_torch.models import get_models
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
-    from calciumgan_tpu_torch.utils import checkpoint
+    from calciumgan_tpu_torch.utils import checkpoint, h5, io
 
-    with tempfile.TemporaryDirectory() as tmp:
-        records, run = os.path.join(tmp, "records"), os.path.join(tmp, "run")
-        start = time.perf_counter()
-        signals = write_training_set(records)
-        write_s = time.perf_counter() - start
+    records, run = os.path.join(work, "records"), os.path.join(work, "run")
+    start = time.perf_counter()
+    signals = write_training_set(records)
+    write_s = time.perf_counter() - start
 
-        oasis_cuda.launches.clear()
-        oasis_torch.calls = 0
-        spy = Spy(train, "train_epoch", "validate_epoch", "sample_and_plot",
-                  "make_batch_sources")
-        meta, wall = [], []
-        with spy:
-            for epochs, extra in ((2, ("--profile",)), (3, ())):
-                start = time.perf_counter()
-                train_main.cli(train_flags(records, run, epochs, *extra))
-                wall.append(time.perf_counter() - start)
-                with open(os.path.join(run, "checkpoints",
-                                       "latest.json")) as f:
-                    meta.append(json.load(f))
-        launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    spy = Spy(train, "train_epoch", "validate_epoch", "sample_and_plot",
+              "make_batch_sources")
+    saves = Spy(io, "save_fake_signals")
+    meta, wall = [], []
+    with spy, saves:
+        for epochs, extra in ((2, ("--profile",)), (3, ())):
+            start = time.perf_counter()
+            train_main.cli(train_flags(records, run, epochs,
+                                       "--save_generated", "all", *extra))
+            wall.append(time.perf_counter() - start)
+            with open(os.path.join(run, "checkpoints",
+                                   "latest.json")) as f:
+                meta.append(json.load(f))
+    launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
 
-        epochs = [c["args"][5] for c in spy.calls["train_epoch"]]
-        check(epochs == [0, 1, 2], f"trained epochs {epochs}")
-        check(meta == [{"epoch": 1, "global_step": 8},
-                       {"epoch": 2, "global_step": 12}],
-              f"latest.json {meta}")
-        ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
-        check(ckpts == ["epoch-000.pt", "epoch-001.pt", "epoch-002.pt",
-                        "latest.json"], f"checkpoints {ckpts}")
-        logs = [c["out"] for c in spy.calls["train_epoch"] +
-                spy.calls["validate_epoch"]]
-        check(all(np.isfinite(v) for d in logs for v in d.values()),
-              f"non-finite losses {logs}")
-        sources = [c["out"] for c in spy.calls["make_batch_sources"]]
-        check(all(isinstance(s, DeviceStore) and s.signals.is_cuda
-                  for pair in sources for s in pair),
-              f"dataset not on the card: {sources}")
-        check(set(launches) == {"oasis_ar1/shared"}
-              and launches["oasis_ar1/shared"] >= 3 and calls == 0,
-              f"sampling epochs launched {launches}, plain calls {calls}")
-        samples = spy.calls["sample_and_plot"]
-        check(len(samples) == 3, f"{len(samples)} sampling epochs")
-        mismatches = 0
-        for c in samples:
-            traces, spikes = c["out"]
-            check(traces.shape == (102, T) and np.isfinite(traces).all(),
-                  f"sampled traces {traces.shape}")
-            mismatches += int((spikes != golden_spikes(traces)).sum())
-        check(mismatches == 0,
-              f"sampled spikes: {mismatches} mismatches vs float64")
+    epochs = [c["args"][5] for c in spy.calls["train_epoch"]]
+    check(epochs == [0, 1, 2], f"trained epochs {epochs}")
+    check(meta == [{"epoch": 1, "global_step": 8},
+                   {"epoch": 2, "global_step": 12}],
+          f"latest.json {meta}")
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+    check(ckpts == ["epoch-000.pt", "epoch-001.pt", "epoch-002.pt",
+                    "latest.json"], f"checkpoints {ckpts}")
+    logs = [c["out"] for c in spy.calls["train_epoch"] +
+            spy.calls["validate_epoch"]]
+    check(all(np.isfinite(v) for d in logs for v in d.values()),
+          f"non-finite losses {logs}")
+    sources = [c["out"] for c in spy.calls["make_batch_sources"]]
+    check(all(isinstance(s, DeviceStore) and s.signals.is_cuda
+              for pair in sources for s in pair),
+          f"dataset not on the card: {sources}")
+    check(set(launches) == {"oasis_ar1/shared"}
+          and launches["oasis_ar1/shared"] >= 3 and calls == 0,
+          f"sampling epochs launched {launches}, plain calls {calls}")
+    samples = spy.calls["sample_and_plot"]
+    check(len(samples) == 3, f"{len(samples)} sampling epochs")
+    mismatches = 0
+    for c in samples:
+        traces, spikes = c["out"]
+        check(traces.shape == (102, T) and np.isfinite(traces).all(),
+              f"sampled traces {traces.shape}")
+        mismatches += int((spikes != golden_spikes(traces)).sum())
+    check(mismatches == 0,
+          f"sampled spikes: {mismatches} mismatches vs float64")
 
-        # the parameters moved: the last checkpoint against the seeded init
-        cfg = Config(output_dir=run, verbose=0).load()
-        init_g, _ = get_models(cfg, rng=torch.Generator().manual_seed(SEED))
-        stored = torch.load(checkpoint.port_checkpoint_path(
-            os.path.join(run, "checkpoints"), 2), map_location="cpu",
-            weights_only=True)
-        moved = max(float((stored["generator"]["params"][k] - v).abs().max())
-                    for k, v in init_g.state_dict().items())
-        check(moved > 0, "generator parameters did not move")
+    # --save_generated all: the validation cache and one file an epoch,
+    # VAL_ROWS rows each, in the container this installation writes
+    cfg = Config(output_dir=run, verbose=0).load()
+    suffix = h5.default_suffix(verbose=False)
+    generated = sorted(os.listdir(os.path.join(run, "generated")))
+    check(generated == [f"epoch{e:03d}_signals{suffix}" for e in range(3)]
+          + ["info.pkl", "validation" + suffix],
+          f"generated files {generated}")
+    info = io.load_generated_info(cfg)
+    check([info[e]["global_step"] for e in range(3)] == [4, 8, 12],
+          f"info.pkl {info}")
+    for name in [info[e]["filename"] for e in range(3)] + [
+            cfg.validation_cache]:
+        check(h5.get_shape(name, "signals") == (VAL_ROWS, T, 102),
+              f"{name}: signals {h5.get_shape(name, 'signals')}")
+    cached = h5.get(cfg.validation_cache, "signals")
+    lo, hi = cfg.signals_min, cfg.signals_max
+    cache_err = float(np.abs(cached - (signals[TRAIN_ROWS:] * (hi - lo)
+                                       + lo)).max())
+    check(cache_err <= 1e-5 * (hi - lo),
+          f"validation cache differs from the dataset by {cache_err}")
+    fake = h5.get(info[2]["filename"], "signals")
+    check(bool(np.isfinite(fake).all()) and lo <= fake.min()
+          and fake.max() <= hi, "epoch file outside the data's range")
+    save_s = [c["s"] for c in saves.calls["save_fake_signals"]]
+    check(len(save_s) == 3, f"{len(save_s)} saved batches")
+    validate_s = [c["s"] for c in spy.calls["validate_epoch"]]
 
-        # the newest checkpoint served as the generate CLI restores it
-        params, epoch = checkpoint.restore_generator_params(
-            os.path.join(run, "checkpoints"), ema=False)
-        check(epoch == 2, f"served epoch {epoch}")
-        oasis_cuda.launches.clear()
-        served = list(generate_mod.generate(cfg, params, 256, 128,
-                                            with_spikes=True, seed=SEED,
-                                            device="cuda"))
-        serve_launches = dict(oasis_cuda.launches)
-        check(len(served) == 2 and all(
-            p["signals"].shape == (128, T, 102)
-            and np.isfinite(p["signals"]).all()
-            and set(np.unique(p["spikes"]).tolist()) <= {0, 1}
-            for p in served), "serving the trained checkpoint")
-        with open(os.path.join(run, "profiler", "window.json")) as f:
-            window = json.load(f)
-        train_store = sources[-1][0]
-        epoch_s = spy.calls["train_epoch"][-1]["s"]
-        sample_s = [round(c["s"], 4) for c in samples]
+    # the parameters moved: the last checkpoint against the seeded init
+    init_g, _ = get_models(cfg, rng=torch.Generator().manual_seed(SEED))
+    stored = torch.load(checkpoint.port_checkpoint_path(
+        os.path.join(run, "checkpoints"), 2), map_location="cpu",
+        weights_only=True)
+    moved = max(float((stored["generator"]["params"][k] - v).abs().max())
+                for k, v in init_g.state_dict().items())
+    check(moved > 0, "generator parameters did not move")
+
+    # the newest checkpoint served as the generate CLI restores it
+    params, epoch = checkpoint.restore_generator_params(
+        os.path.join(run, "checkpoints"), ema=False)
+    check(epoch == 2, f"served epoch {epoch}")
+    oasis_cuda.launches.clear()
+    served = list(generate_mod.generate(cfg, params, 256, 128,
+                                        with_spikes=True, seed=SEED,
+                                        device="cuda"))
+    serve_launches = dict(oasis_cuda.launches)
+    check(len(served) == 2 and all(
+        p["signals"].shape == (128, T, 102)
+        and np.isfinite(p["signals"]).all()
+        and set(np.unique(p["spikes"]).tolist()) <= {0, 1}
+        for p in served), "serving the trained checkpoint")
+    with open(os.path.join(run, "profiler", "window.json")) as f:
+        window = json.load(f)
+    train_store = sources[-1][0]
+    epoch_s = spy.calls["train_epoch"][-1]["s"]
+    sample_s = [round(c["s"], 4) for c in samples]
+    shutil.rmtree(records)
 
     # step on the card vs the CPU, and the step's times
     torch.cuda.synchronize()
@@ -1103,12 +1180,381 @@ def phase_training(smi):
                      mismatches=mismatches, generator_moved=moved,
                      served=dict(epoch=epoch, samples=256,
                                  launches=serve_launches)),
+           save_generated=dict(files=generated, rows=VAL_ROWS,
+                               container=suffix,
+                               validation_cache_max_abs_err=cache_err,
+                               validate_epoch_s=validate_s,
+                               of_which_saving_s=save_s,
+                               mb_per_epoch=fake.nbytes / 2**20),
            card_vs_cpu=versus,
            step=dict(timing, steps_per_s_host=steps / epoch_s,
                      epoch_host_s=epoch_s, steps_per_epoch=steps,
                      sample_and_plot_s=sample_s,
                      profile_window=window))
-    return dict(launches=launches, timing=timing, window=window)
+    return dict(launches=launches, timing=timing, window=window, run=run)
+
+
+def phase_prepare(smi, work, recording):
+    """Dataset preparation: ``recording`` (a pickle's dict with ``signals``
+    and the ``oasis`` key the spike-inference CLI wrote, 102 x 20,000)
+    through ``python -m calciumgan_tpu_torch.dataset.generate_tfrecords`` and
+    back through the port's ``get_datasets``."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    from calciumgan_tpu_torch.config import Config
+    from calciumgan_tpu_torch.data import pipeline, segments
+    from calciumgan_tpu_torch.dataset import generate_tfrecords
+
+    pkl, out = os.path.join(work, "rec0.pkl"), os.path.join(work, "prepared")
+    with open(pkl, "wb") as f:
+        pickle.dump(recording, f)
+    start = time.perf_counter()
+    generate_tfrecords.cli([
+        "--input", pkl, "--output_dir", out, "--sequence_length", str(T),
+        "--stride", str(PREP_STRIDE), "--normalize", "--validation_size",
+        str(VAL_ROWS), "--verbose", "0"])
+    write_s = time.perf_counter() - start
+    start = time.perf_counter()
+    cfg = Config(input_dir=out, batch_size=128)
+    train_ds, val_ds = pipeline.get_datasets(cfg)
+    load_s = time.perf_counter() - start
+
+    # recorded data drops its first two rows; a window ending at the last
+    # frame is excluded (the reference's strict bound)
+    raw = np.asarray(recording["signals"], np.float32)[2:]
+    oasis = np.asarray(recording["oasis"], np.float32)[2:]
+    C = raw.shape[0]
+    starts = segments.window_starts(REC_T, T, PREP_STRIDE)
+    windows = len(starts)
+    check(windows == -(-(REC_T - T) // PREP_STRIDE), f"{windows} windows")
+    check((len(train_ds), len(val_ds)) == (windows - VAL_ROWS, VAL_ROWS)
+          and (cfg.train_size, cfg.validation_size) == (
+              windows - VAL_ROWS, VAL_ROWS),
+          f"{len(train_ds)} + {len(val_ds)} rows of {windows} windows")
+    check(cfg.signal_shape == (T, C) and cfg.spike_shape == (T, C)
+          and train_ds.signals.shape == (windows - VAL_ROWS, T, C)
+          and val_ds.spikes.shape == (VAL_ROWS, T, C)
+          and cfg.num_neurons == C and cfg.normalize,
+          f"shapes {train_ds.signals.shape} {val_ds.spikes.shape}")
+    lo, hi = cfg.signals_min, cfg.signals_max
+    check(float(train_ds.signals.min()) >= 0.0
+          and float(train_ds.signals.max()) <= 1.0,
+          "normalised signals outside [0, 1]")
+    # row j of the train split is window order[j]: the shuffle of
+    # write_dataset (RandomState(1234)) over the shards in order
+    order = np.arange(windows)
+    np.random.RandomState(1234).shuffle(order)
+    worst = 0.0
+    for ds, rows in ((train_ds, (0, 1, len(train_ds) - 1)),
+                     (val_ds, (0, VAL_ROWS - 1))):
+        offset = 0 if ds is train_ds else windows - VAL_ROWS
+        for j in rows:
+            a = int(starts[order[offset + j]])
+            check(np.array_equal(ds.spikes[j], oasis[:, a:a + T].T),
+                  f"window {order[offset + j]}: spikes differ")
+            worst = max(worst, float(np.abs(
+                np.asarray(ds.signals[j]) * (hi - lo) + lo
+                - raw[:, a:a + T].T).max()))
+    check(worst <= 1e-5 * (hi - lo),
+          f"a window differs from the recording by {worst}")
+    records_mb = sum(os.path.getsize(os.path.join(out, n))
+                     for n in os.listdir(out) if n.endswith(".record")) / 2**20
+    report("phase 7 dataset preparation", card=smi,
+           recording=[int(raw.shape[0]) + 2, REC_T], windows=windows,
+           stride=PREP_STRIDE, train=len(train_ds), validation=len(val_ds),
+           signal_shape=list(cfg.signal_shape),
+           shards=[cfg.num_train_shards, cfg.num_validation_shards],
+           records_mb=records_mb, windows_checked=5,
+           window_max_abs_err=worst, generate_tfrecords_s=write_s,
+           get_datasets_s=load_s)
+    shutil.rmtree(out)
+
+
+def write_eval_run(root, train_run):
+    """A run directory of ``EVAL_TRIALS`` x T x ``EVAL_NEURONS`` for
+    ``compute_metrics``: the recorded side is seeded synthetic calcium with
+    spikes by the port's C++ float64 kernel, written by
+    ``io.cache_validation_set``; the generated side comes from
+    ``generate.generate`` on ``train_run``'s newest checkpoint, written by
+    ``io.save_fake_signals``. The data are in recording units
+    (``normalize`` off). Returns its config, the epoch and the seconds."""
+    import numpy as np
+    from calciumgan_tpu_torch import generate as generate_mod
+    from calciumgan_tpu_torch.config import Config
+    from calciumgan_tpu_torch.data import pipeline
+    from calciumgan_tpu_torch.ops import golden
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.utils import checkpoint, io
+    N, C = EVAL_TRIALS, EVAL_NEURONS
+    seconds, clock = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal clock
+        now = time.perf_counter()
+        seconds[name], clock = now - clock, now
+
+    cfg = Config(output_dir=root, save_generated="all", batch_size=125,
+                 sequence_length=T, num_neurons=C, num_channels=C,
+                 signal_shape=(T, C), spike_shape=(T, C), validation_size=N,
+                 normalize=False, seed=SEED, verbose=0)
+    pipeline.set_generated_paths(cfg)
+    traces = golden.synth_ar1_traces(np.random.default_rng(SEED + 31),
+                                     N * C, T)
+    lap("synthesise")
+    spikes = dispatch._exact_spikes_host(traces, G, S_MIN, THRESHOLD)
+    lap("cxx_spikes")
+    nwc = [np.ascontiguousarray(x.reshape(N, C, T).transpose(0, 2, 1))
+           for x in (traces, spikes.astype(np.float32))]
+    io.cache_validation_set(cfg, pipeline.ArrayDataset(*nwc))
+    lap("cache_validation_set")
+
+    train_cfg = Config(output_dir=train_run, verbose=0).load()
+    params, epoch = checkpoint.restore_generator_params(
+        os.path.join(train_run, "checkpoints"), ema=False)
+    cfg.global_step = 12
+    for i, payload in enumerate(generate_mod.generate(
+            train_cfg, params, N, cfg.batch_size, with_spikes=False,
+            seed=SEED + 5, device="cuda")):
+        io.save_fake_signals(cfg, epoch, payload["signals"], append=i > 0)
+    lap("generate_and_save")
+    cfg.save()
+    return cfg, epoch, seconds
+
+
+def stats_card_vs_cpu(real, fake):
+    """The statistics of ``EVAL_CPU_TRIALS`` trials of NWC spikes (tensors
+    on the card) against the same functions on the CPU."""
+    import numpy as np
+    from calciumgan_tpu_torch.eval import spike_eval
+    from calciumgan_tpu_torch.ops import spike_metrics as sm
+    n = EVAL_CPU_TRIALS
+    found = {}
+    for name, fn in (("firing_rate", spike_eval._firing_rates_nwc),
+                     ("correlation", spike_eval._per_trial_upper_corr),
+                     ("van_rossum", spike_eval._per_trial_upper_van_rossum)):
+        sides = {}
+        for side, spikes in (("real", real[:n]), ("fake", fake[:n])):
+            sides[side] = (fn(spikes).cpu().numpy(),
+                           fn(spikes.cpu()).numpy())
+        errs, kls = [], {"card": [], "cpu": []}
+        for card, cpu in sides.values():
+            check(np.array_equal(np.isnan(card), np.isnan(cpu)),
+                  f"{name}: NaN masks differ between the card and the CPU")
+            if name == "van_rossum":  # on d**2, over its largest
+                errs.append(float(np.nanmax(np.abs(card ** 2 - cpu ** 2))
+                                  / np.nanmax(cpu ** 2)))
+            else:
+                errs.append(float(np.nanmax(np.abs(card - cpu)))
+                            if np.isfinite(cpu).any() else 0.0)
+        for k, where in (("card", 0), ("cpu", 1)):
+            r, f = sides["real"][where], sides["fake"][where]
+            if name == "firing_rate":  # per neuron, over the trials
+                pairs = [(r[:, c], f[:, c]) for c in range(r.shape[1])]
+            else:                      # per trial, NaN pairs dropped
+                pairs = [(r[i][~np.isnan(r[i])], f[i][~np.isnan(f[i])])
+                         for i in range(n)]
+            kls[k] = sm.pairs_kl_divergence(
+                pairs, device="cuda" if k == "card" else "cpu")
+        check(np.array_equal(np.isnan(kls["card"]), np.isnan(kls["cpu"])),
+              f"{name}: the KLs' NaN masks differ")
+        diff = np.abs(kls["card"] - kls["cpu"])
+        found[name] = dict(
+            max_err=max(errs),
+            kl_mean_card=float(np.nanmean(kls["card"])),
+            kl_mean_cpu=float(np.nanmean(kls["cpu"])),
+            kl_max_diff=float(np.nanmax(diff)) if np.isfinite(
+                diff).any() else 0.0,
+            kls_moved=int(np.nansum(diff > 1e-4)))
+    check(found["firing_rate"]["max_err"] == 0.0,
+          f"firing rates: card vs CPU {found['firing_rate']['max_err']}")
+    check(found["correlation"]["max_err"] <= STAT_CORR_TOL,
+          f"correlation: card vs CPU {found['correlation']['max_err']}")
+    check(found["van_rossum"]["max_err"] <= STAT_VR_RTOL,
+          f"van Rossum d**2: card vs CPU {found['van_rossum']['max_err']} "
+          f"of the largest")
+    for name, f in found.items():
+        check(abs(f["kl_mean_card"] - f["kl_mean_cpu"]) <= STAT_KL_TOL
+              or not np.isfinite(f["kl_mean_cpu"]),
+              f"{name}: mean KL {f['kl_mean_card']} on the card, "
+              f"{f['kl_mean_cpu']} on the CPU")
+    return found
+
+
+def phase_evaluation(smi, work, train_run):
+    """Evaluation at the paper's size through ``python -m
+    calciumgan_tpu_torch.compute_metrics --device cuda``, then the same CLI
+    with ``--all_epochs`` on the training phase's own run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import compute_metrics
+    from calciumgan_tpu_torch.eval import spike_eval
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.ops import spike_metrics as sm
+    from calciumgan_tpu_torch.utils import h5, io
+    from calciumgan_tpu_torch.utils.summary import Summary
+    N, C = EVAL_TRIALS, EVAL_NEURONS
+    run = os.path.join(work, "eval_run")
+    cfg, epoch, setup_s = write_eval_run(run, train_run)
+    filename = io.load_generated_info(cfg)[epoch]["filename"]
+    check(h5.get_shape(filename, "signals") == (N, T, C) and h5.get_shape(
+        cfg.validation_cache, "spikes") == (N, T, C),
+        f"run directory: {h5.get_shape(filename, 'signals')}")
+
+    def metrics_cli(output_dir, *extra):
+        """The CLI in-process: its results, config, launches, seconds."""
+        oasis_cuda.launches.clear()
+        oasis_torch.calls = 0
+        config, options = compute_metrics.parse_args(
+            ["--output_dir", output_dir, "--device", "cuda", "--verbose",
+             "0", "--seed", str(SEED), *extra])
+        stages = {}
+        start = time.perf_counter()
+        results = compute_metrics.main(config, seconds=stages, **options)
+        torch.cuda.synchronize()
+        return dict(results=results, config=config,
+                    seconds=time.perf_counter() - start,
+                    launches=dict(oasis_cuda.launches),
+                    plain_calls=oasis_torch.calls, stages=stages)
+
+    # 1. the main path: one epoch file of 1000 x 2048 x 102
+    main_run = metrics_cli(run)
+    launches = main_run["launches"]
+    results = main_run["results"][epoch]
+    with open(os.path.join(run, "metrics", "metrics.json")) as f:
+        saved = json.load(f)
+    check(list(main_run["results"]) == [epoch] and saved["epochs"][
+        str(epoch)] == results, f"metrics.json {saved}")
+    for key in ("firing_rate_kl", "correlation_kl", "van_rossum_kl"):
+        check(np.isfinite(results[key]), f"{key} of synthetic data: "
+                                         f"{results[key]}")
+        check(saved["best_epoch"][key] == epoch, f"best_epoch {saved}")
+    check(main_run["config"].num_samples == N,
+          f"num_samples {main_run['config'].num_samples}")
+    # every rung of the short ladder keeps its ring in shared memory, so
+    # no launch of this path takes the device ring
+    check(set(launches) == {"oasis_ar1/shared"}
+          and main_run["plain_calls"] == 0,
+          f"compute_metrics launched {launches}, plain calls "
+          f"{main_run['plain_calls']}")
+    chunks = -(-N // (spike_eval._CHUNK_TRACES_CUDA // C))
+    per_file = launches.get("oasis_ar1/shared", 0)
+    check(chunks <= per_file <= 3 * chunks,  # one to three rungs a chunk
+          f"{launches} launches for {chunks} chunks")
+
+    # 2. the epoch file's spikes against the float64 references
+    signals = h5.get(filename, "signals")
+    spikes = h5.get(filename, "spikes")
+    check(spikes.shape == (N, T, C) and spikes.dtype == np.int8
+          and set(np.unique(spikes).tolist()) <= {0, 1},
+          f"spikes {spikes.shape} {spikes.dtype}")
+    traces = np.ascontiguousarray(signals.transpose(0, 2, 1)).reshape(-1, T)
+    ours = np.ascontiguousarray(spikes.transpose(0, 2, 1)).reshape(-1, T)
+    start = time.perf_counter()
+    exact = dispatch._exact_spikes_host(traces, G, S_MIN, THRESHOLD)
+    cxx_s = time.perf_counter() - start
+    vs_cxx = int((ours != exact).sum())
+    check(vs_cxx == 0, f"{vs_cxx} spike mismatches vs the C++ float64 kernel")
+    pick = np.sort(np.random.default_rng(SEED).choice(
+        len(traces), EVAL_GOLDEN_TRACES, replace=False))
+    start = time.perf_counter()
+    golden = golden_spikes(traces[pick])
+    golden_s = time.perf_counter() - start
+    vs_golden = int((ours[pick] != golden).sum())
+    check(vs_golden == 0, f"{vs_golden} spike mismatches vs float64")
+    stages = main_run["stages"][epoch]
+    dispatched = stages.get("deconvolve/traces", 0)
+    flag_share = {k: stages.get(f"deconvolve/{k}", 0) / max(1, dispatched)
+                  for k in ("flagged", "bit0", "bit1", "bit2")}
+
+    # 3. the statistics on the card against the CPU
+    dev = torch.device("cuda")
+    real = spike_eval._load_spikes(cfg, cfg.validation_cache,
+                                   EVAL_CPU_TRIALS, dev)
+    fake = spike_eval._load_spikes(cfg, filename, EVAL_CPU_TRIALS, dev)
+    versus = stats_card_vs_cpu(real, fake)
+
+    # where a per-trial statistic's seconds go: its tensor program over
+    # all the generated trials, and the histogram KL of as many pairs
+    every = spike_eval._load_spikes(cfg, filename, N, dev)
+    split = {}
+    for name, fn in (("correlation", spike_eval._per_trial_upper_corr),
+                     ("van_rossum", spike_eval._per_trial_upper_van_rossum)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        values = spike_eval.chunked(fn, every)
+        program_s = time.perf_counter() - start
+        pairs = [(row[~np.isnan(row)],) * 2 for row in values]
+        start = time.perf_counter()
+        sm.pairs_kl_divergence(pairs, device=dev)
+        split[name] = dict(tensor_program_s=program_s, trials=N,
+                           pairs_kl_s=time.perf_counter() - start, pairs=N)
+    del every
+
+    # 4. Victor-Purpura, on EVAL_VP_TRIALS trials only
+    vp_cfg = dataclasses.replace(main_run["config"], trials=[0, 1],
+                                 num_samples=EVAL_VP_TRIALS)
+    summary = Summary(vp_cfg, spike_metrics=True, no_plots=True)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    vp_kl = spike_eval.victor_purpura_metrics(
+        vp_cfg, summary, real[:EVAL_VP_TRIALS], fake[:EVAL_VP_TRIALS], epoch)
+    torch.cuda.synchronize()
+    vp_s = time.perf_counter() - start
+    summary.close()
+    check(len(vp_kl) == EVAL_VP_TRIALS and bool(np.isfinite(vp_kl).any()),
+          f"Victor-Purpura KLs {vp_kl}")
+    spikes_per_train = dict(
+        real=float(real.sum() / (EVAL_CPU_TRIALS * C)),
+        fake=float(fake.sum() / (EVAL_CPU_TRIALS * C)))
+
+    # 5. the unbroken chain: the training phase's own run, every epoch
+    chain = metrics_cli(train_run, "--all_epochs")
+    check(sorted(chain["results"]) == [0, 1, 2]
+          and chain["config"].num_samples == VAL_ROWS
+          and chain["plain_calls"] == 0
+          and set(chain["launches"]) == {"oasis_ar1/shared"},
+          f"chain: epochs {sorted(chain['results'])}, {chain['launches']}")
+    for e, r in chain["results"].items():
+        check(np.isfinite(r["firing_rate_kl"]),
+              f"chain epoch {e}: firing-rate KL {r['firing_rate_kl']}")
+        name = io.load_generated_info(chain["config"])[e]["filename"]
+        check(h5.get_shape(name, "spikes") == (VAL_ROWS, T, 102),
+              f"chain epoch {e}: spikes {h5.get_shape(name, 'spikes')}")
+
+    torch.cuda.synchronize()
+    report("phase 8 evaluation", card=smi,
+           run=dict(trials=N, shape=[T, C], container=os.path.splitext(
+               filename)[1], setup_s=setup_s,
+               epoch_file_mb=signals.nbytes / 2**20),
+           kls_of_seeded_synthetic_data=results,
+           best_epoch=saved["best_epoch"],
+           seconds_per_epoch_file=main_run["seconds"],
+           stages_s=stages,
+           launches=launches, launches_per_file=per_file,
+           chunks=chunks, plain_calls=main_run["plain_calls"],
+           flag_share=flag_share, traces_dispatched=dispatched,
+           spikes=dict(generated=int(spikes.sum()),
+                       mean_per_train=spikes_per_train,
+                       golden="oasis_ref", golden_traces=EVAL_GOLDEN_TRACES,
+                       golden_s=golden_s, mismatches_vs_golden=vs_golden,
+                       cxx_traces=len(traces), cxx_s=cxx_s,
+                       mismatches_vs_cxx=vs_cxx),
+           card_vs_cpu=dict(trials=EVAL_CPU_TRIALS, **versus),
+           statistic_split=split,
+           victor_purpura=dict(trials=EVAL_VP_TRIALS, seconds=vp_s,
+                               s_per_trial=vp_s / EVAL_VP_TRIALS,
+                               kl_mean_of_synthetic_data=float(
+                                   np.nanmean(vp_kl))),
+           chain=dict(run="phase 6's", epochs=sorted(chain["results"]),
+                      rows=VAL_ROWS, seconds=chain["seconds"],
+                      launches=chain["launches"],
+                      kls_of_seeded_synthetic_data=chain["results"]))
+    return dict(launches=launches, chain_launches=chain["launches"])
 
 
 def main() -> int:
@@ -1136,7 +1582,10 @@ def main() -> int:
     serving_launches = phase_slice(config, params)
     serving = phase_timings(config, params, smi)
     recordings = phase_recordings(smi)
-    training = phase_training(smi)
+    with tempfile.TemporaryDirectory() as work:
+        training = phase_training(smi, work)
+        phase_prepare(smi, work, recordings.pop("recording"))
+        evaluation = phase_evaluation(smi, work, training["run"])
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
@@ -1147,12 +1596,16 @@ def main() -> int:
         {"name": "oasis_ar1", "route": "cuda", "source": source,
          "replaces": "calciumgan_tpu/ops/oasis_pallas.py:603",
          **path_launches("oasis_ar1", collections.Counter(serving_launches)
-                         + collections.Counter(training["launches"])),
+                         + collections.Counter(training["launches"])
+                         + collections.Counter(evaluation["launches"])),
          "launches_by_path": {
              "generate --spikes": launched("oasis_ar1", serving_launches),
              "main (sampling epochs)": launched("oasis_ar1",
-                                                training["launches"])},
-         "path": "generate --spikes; main (sampling epochs)",
+                                                training["launches"]),
+             "compute_metrics": launched("oasis_ar1",
+                                         evaluation["launches"])},
+         "path": "generate --spikes; main (sampling epochs); "
+                 "compute_metrics (one epoch file of 1000 x 2048 x 102)",
          "library_ms": None,
          **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"]))},
         {"name": "oasis_ar1_precise", "route": "cuda", "source": source,

@@ -5,7 +5,8 @@ Every ``.py`` file of ``calciumgan_tpu_torch/`` and ``chip_smoke.py`` is
 walked as an AST (imports inside functions included) for imports of
 ``calciumgan_tpu``, ``jax``, ``flax`` or ``optax`` and for paths into
 ``calciumgan_tpu/``. The copies (``Config``, ``Registry``, ``ifft_signals``,
-the float64 golden and ``synth_ar1_traces``, the h5 writer, the C++
+the float64 golden and ``synth_ar1_traces``, the h5 functions, the array
+layouts, ``segments``, ``io``'s info file, the figure renderers, the C++
 float64 redo and crc32c, the TFRecord codec, the event writer, the signal
 metrics and the phase shuffle) are held against the JAX package's modules
 on seeded inputs.
@@ -34,7 +35,10 @@ from calciumgan_tpu.data import tfrecord as jax_tfrecord
 from calciumgan_tpu.ops import oasis_ref
 from calciumgan_tpu.ops import phase_shuffle as jax_shuffle
 from calciumgan_tpu.ops import signal_metrics as jax_metrics
+from calciumgan_tpu.utils import arrays as jax_arrays
 from calciumgan_tpu.utils import h5 as jax_h5
+from calciumgan_tpu.utils import io as jax_io
+from calciumgan_tpu.utils import plots as jax_plots
 from calciumgan_tpu.utils import tb as jax_tb
 from calciumgan_tpu.utils.tb_reader import read_scalars
 from calciumgan_tpu_torch import config as port_config
@@ -45,7 +49,11 @@ from calciumgan_tpu_torch.ops import golden
 from calciumgan_tpu_torch.ops import oasis as port_oasis
 from calciumgan_tpu_torch.ops import phase_shuffle as port_shuffle
 from calciumgan_tpu_torch.ops import signal_metrics as port_metrics
+from calciumgan_tpu_torch.data import segments as port_segments
+from calciumgan_tpu_torch.utils import arrays as port_arrays
 from calciumgan_tpu_torch.utils import h5 as port_h5
+from calciumgan_tpu_torch.utils import io as port_io
+from calciumgan_tpu_torch.utils import plots as port_plots
 from calciumgan_tpu_torch.utils import tb as port_tb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -129,6 +137,14 @@ def test_port_loads_no_jax_package_module():
         "import calciumgan_tpu_torch.ops.oasis\n"
         "import calciumgan_tpu_torch.dataset.spike_train_inference\n"
         "import calciumgan_tpu_torch.main, calciumgan_tpu_torch.train\n"
+        "import calciumgan_tpu_torch.compute_metrics\n"
+        "import calciumgan_tpu_torch.dataset.generate_tfrecords\n"
+        "import calciumgan_tpu_torch.eval.spike_eval\n"
+        "import calciumgan_tpu_torch.ops.spike_metrics\n"
+        "import calciumgan_tpu_torch.utils.io, calciumgan_tpu_torch.utils.h5\n"
+        "import calciumgan_tpu_torch.utils.arrays\n"
+        "import calciumgan_tpu_torch.utils.plots\n"
+        "import calciumgan_tpu_torch.data.segments\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('calciumgan_tpu', 'jax', 'jaxlib', 'flax', 'optax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -329,3 +345,97 @@ def test_phase_shuffle_copy_equals_jax(m):
                                        axis=1).numpy(),
             np.asarray(jax_shuffle._shift_axis(jnp.asarray(x),
                                                jnp.asarray(shift), m, 1)))
+
+
+# ---- the evaluation and dataset-preparation slice's copies ------------------
+
+def _public(module):
+    return sorted(n for n, v in vars(module).items()
+                  if callable(v) and not n.startswith("_")
+                  and getattr(v, "__module__", None) == module.__name__)
+
+
+def test_h5_copy_has_every_function_of_the_original(tmp_path):
+    assert set(_public(jax_h5)) <= set(_public(port_h5))
+    out = str(tmp_path / "x.h5")
+    value = np.arange(24, dtype=np.float32).reshape(4, 3, 2)
+    for module in (port_h5, jax_h5):
+        module.write(out, {"a": value[:2]})
+        module.write(out, {"a": value[2:]})
+        module.truncate(out, "a", 3)
+        module.rename(out, "a", "b")  # the second replaces the first's
+    for module in (port_h5, jax_h5):
+        assert module.keys(out) == ["b"] and module.get_shape(
+            out, "b") == (3, 3, 2)
+        np.testing.assert_array_equal(module.get(out, "b", start=1),
+                                      value[1:3])
+
+
+def test_arrays_copy_equals_the_original():
+    assert _public(port_arrays) == _public(jax_arrays)
+    cfg = port_config.Config(sequence_length=16, num_neurons=3,
+                             validation_size=5)
+    x = np.random.default_rng(1).random((5, 3, 16))
+    for fmt in ("NWC", "WNC"):
+        np.testing.assert_array_equal(
+            port_arrays.set_array_format(x, fmt, cfg),
+            jax_arrays.set_array_format(x, fmt, cfg))
+    assert port_arrays.get_array_format(x.shape, cfg) == "NCW"
+
+
+@pytest.mark.parametrize("kw", [
+    dict(do_normalize=True),
+    dict(apply_fft=True, do_normalize=True, fft_norm="per_channel"),
+    dict(conv2d=True, is_dg_data=True)])
+def test_segments_copy_equals_the_original(kw):
+    assert set(_public(segments)) - {"ifft_signals"} <= set(
+        _public(port_segments))
+    assert port_segments.ifft_signals is port_pipeline.ifft_signals
+    rng = np.random.default_rng(2)
+    data = {"signals": rng.standard_normal((7, 300)).astype(np.float32),
+            "oasis": (rng.random((7, 300)) < 0.1).astype(np.float32)}
+    ours = port_segments.preprocess(data, 32, 5, **kw)
+    theirs = segments.preprocess(data, 32, 5, **kw)
+    for a, b in zip(ours[:2], theirs[:2]):
+        np.testing.assert_array_equal(a, b)
+    assert list(ours[2]) == list(theirs[2])
+    for key, value in ours[2].items():
+        np.testing.assert_array_equal(value, theirs[2][key])
+
+
+def test_io_info_file_equals_the_original(tmp_path):
+    rng = np.random.default_rng(3)
+    batch = rng.random((3, 16, 4)).astype(np.float32)
+    infos = []
+    for mod, cls, name in ((port_io, port_config.Config, "ours"),
+                           (jax_io, jax_config.Config, "theirs")):
+        cfg = cls(output_dir=str(tmp_path / name), global_step=11,
+                  verbose=0)
+        cfg.generated_dir = os.path.join(cfg.output_dir, "generated")
+        os.makedirs(cfg.generated_dir)
+        mod.save_fake_signals(cfg, 7, batch, append=False)
+        mod.save_fake_signals(cfg, 7, batch)
+        infos.append(mod.load_generated_info(cfg))
+        assert jax_h5.get_shape(infos[-1][7]["filename"],
+                                "signals") == (6, 16, 4)
+    assert list(infos[0]) == list(infos[1]) == [7]
+    assert infos[0][7]["global_step"] == infos[1][7]["global_step"] == 11
+    assert [os.path.basename(i[7]["filename"]) for i in infos] == [
+        "epoch007_signals.h5"] * 2
+
+
+def test_plot_renderers_copy_equals_the_original():
+    assert sorted(port_plots.RENDERERS) == sorted(jax_plots.RENDERERS)
+    assert (port_plots.REAL_COLOR, port_plots.FAKE_COLOR,
+            port_plots.FRAMERATE) == (jax_plots.REAL_COLOR,
+                                      jax_plots.FAKE_COLOR,
+                                      jax_plots.FRAMERATE)
+    rng = np.random.default_rng(4)
+    payload = dict(data=[(rng.random(20), rng.random(30))] * 2,
+                   xlabel="Hz", ylabel="Count", titles=["a", "b"],
+                   legend_labels=["recorded", "synthetic"], plots_per_row=2)
+    ours = port_plots.render_and_save("histograms_grid", payload,
+                                      {"dpi": 50})
+    theirs = jax_plots.render_and_save("histograms_grid", payload,
+                                       {"dpi": 50})
+    assert ours[1:] == theirs[1:] and ours[0][:8] == b"\x89PNG\r\n\x1a\n"
