@@ -15,11 +15,19 @@ Behaviours kept:
 - the generator EMA is a side-car: updated after each generator step, used
   by evaluation and sampling, never by training (``gan.py:56-64,97-103``).
 
-Randomness comes from a :class:`Draws`, one per step: noise and GP alpha
-from a ``torch.Generator`` on the device, phase shifts from one on the host,
-both seeded from ``(seed, counter)``. JAX's threefry and PyTorch's Philox
-never draw the same numbers, so the parity tests pass an object with the
-same three methods that replays the JAX package's draws instead.
+Randomness comes from a :class:`Draws`, one per step: noise, GP alpha and
+dropout masks from a ``torch.Generator`` on the device, phase shifts from
+one on the host, both seeded from ``(seed, counter)``. JAX's threefry and
+PyTorch's Philox never draw the same numbers, so the parity tests pass an
+object with the same four methods that replays the JAX package's draws
+instead.
+
+A model's random inputs (the calciumgan critic's phase shifts, the mlp
+nets' dropout masks) are drawn per pass by the module's ``draw_inputs``;
+every step says whether the pass is a training pass (:meth:`GAN.gen`,
+:meth:`GAN.dis`), so no module keeps a ``train()``/``eval()`` state. The
+vanilla GAN's one forward serves both gradients, so both see the same
+masks; evaluation, sampling and generation run without dropout.
 """
 
 from __future__ import annotations
@@ -46,8 +54,9 @@ def get_noise(gen: torch.Generator, n: int, noise_dim: int,
 
 
 class Draws:
-    """The random numbers of one step: standard-normal noise and uniform GP
-    alpha drawn on ``device``, phase shifts on the host. ``(seed, counter)``
+    """The random numbers of one step: standard-normal noise, uniform GP
+    alpha and dropout keep masks drawn on ``device``, phase shifts on the
+    host. ``(seed, counter)``
     seeds both generators, so a resumed run that replays a step's counter
     replays its draws (the JAX package folds ``global_step`` into its run
     key, ``train.py:123``)."""
@@ -70,6 +79,12 @@ class Draws:
 
     def shifts(self, m: int, count: int):
         return draw_shifts(self._host_gen, m, count)
+
+    def dropout(self, shape, rate: float) -> torch.Tensor:
+        """A boolean keep mask, each element kept with ``1 - rate``."""
+        return torch.rand(tuple(shape), generator=self._device_gen,
+                          device=self.device,
+                          dtype=torch.float32) < (1.0 - rate)
 
 
 def eval_gen_params(state: Mapping):
@@ -97,9 +112,8 @@ def denormalize(config, x):
 
 def generate(generator: torch.nn.Module, noise: torch.Tensor) -> torch.Tensor:
     """Generator output for ``noise`` without autograd (normalised; see
-    :func:`calciumgan_tpu_torch.data.pipeline.reverse_preprocessing`). The
-    ported generator has no layer that behaves differently in training, so
-    there is no mode to set."""
+    :func:`calciumgan_tpu_torch.data.pipeline.reverse_preprocessing`): an
+    evaluation pass, so a generator with dropout gets no masks."""
     with torch.no_grad():
         return generator(noise)
 
@@ -160,8 +174,8 @@ class GAN:
                             alpha=1.0 - self.ema)
 
     def sample(self, state: GANState, noise: torch.Tensor) -> torch.Tensor:
-        """Generator output for evaluation and sampling: the EMA params when
-        the state has them, else the raw ones."""
+        """Generator output for evaluation and sampling (no dropout): the
+        EMA params when the state has them, else the raw ones."""
         with torch.no_grad():
             if state.ema is None:
                 return self.generator(noise)
@@ -172,10 +186,18 @@ class GAN:
             denormalize(self.config, real), denormalize(self.config, fake),
             mask)
 
-    def dis(self, x: torch.Tensor, draws) -> torch.Tensor:
-        """One discriminator pass with this pass's phase shifts."""
+    def gen(self, noise: torch.Tensor, draws, *,
+            training: bool) -> torch.Tensor:
+        """One generator pass with this pass's draws (dropout masks in a
+        training pass of a model that has dropout)."""
+        g = self.generator
+        return g(noise, *g.draw_inputs(draws, noise.shape[0], training))
+
+    def dis(self, x: torch.Tensor, draws, *, training: bool) -> torch.Tensor:
+        """One discriminator pass with this pass's draws (phase shifts;
+        dropout masks in a training pass)."""
         d = self.discriminator
-        return d(x, draws.shifts(d.m, d.num_shifts))
+        return d(x, *d.draw_inputs(draws, x.shape[0], training))
 
     # ---- losses -------------------------------------------------------
     def generator_loss(self, fake_output, mask=None):
@@ -189,8 +211,9 @@ class GAN:
     def train_step(self, state: GANState, real: torch.Tensor,
                    draws) -> dict:
         B = real.shape[0]
-        fake = self.generator(draws.noise(B, self.noise_dim))
-        out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws)
+        fake = self.gen(draws.noise(B, self.noise_dim), draws, training=True)
+        out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws,
+                       training=True)
         gen_loss = self.generator_loss(out[B:])
         dis_loss = self.discriminator_loss(out[:B], out[B:])
         g_grads = torch.autograd.grad(
@@ -213,7 +236,8 @@ class GAN:
         B = real.shape[0]
         fake = self.sample(state, draws.noise(B, self.noise_dim))
         with torch.no_grad():
-            out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws)
+            out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws,
+                           training=False)
             logs = {"loss/generator": self.generator_loss(out[B:], mask),
                     "loss/discriminator": self.discriminator_loss(
                         out[:B], out[B:], mask)}

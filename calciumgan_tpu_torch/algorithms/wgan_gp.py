@@ -14,7 +14,11 @@ The paper's semantics, as the JAX package keeps them:
   the norm is per sample, float32, with ``+1e-12`` inside the square root
   (``:68-84``);
 - the generator step runs the UPDATED critic with a third shift draw and
-  differentiates w.r.t. the generator's parameters only (``:141-155``).
+  differentiates w.r.t. the generator's parameters only (``:141-155``);
+- a model with dropout (``mlp``) draws fresh masks for every pass of a
+  train step: the generator's, the critic's over ``concat(real, fake)``,
+  the penalty's (dropout is active inside the penalty, ``:74-77``) and the
+  generator step's two; ``eval_step`` runs every pass without dropout.
 
 ``--unroll_critic`` (XLA cost accounting) and the sharding pins (a
 partitioner workaround) have no counterpart here.
@@ -54,13 +58,14 @@ class WGAN_GP(GAN):
                                                      mask))
 
     def gradient_penalty(self, draws, real, fake, mask=None,
-                         create_graph: bool = True) -> torch.Tensor:
+                         create_graph: bool = True, *,
+                         training: bool) -> torch.Tensor:
         B = real.shape[0]
         alpha = draws.alpha(B).reshape((B,) + (1,) * (real.ndim - 1))
         with torch.enable_grad():
             x_hat = (alpha * real + (1.0 - alpha) *
                      fake.detach().to(real.dtype)).requires_grad_(True)
-            out = self.dis(x_hat, draws)
+            out = self.dis(x_hat, draws, training=training)
             grad, = torch.autograd.grad(out.float().sum(), x_hat,
                                         create_graph=create_graph)
         norm = torch.sqrt(grad.float().reshape(B, -1).square().sum(1)
@@ -75,9 +80,11 @@ class WGAN_GP(GAN):
         dis_losses, gps = [], []
         for _ in range(self.n_critic):
             with torch.no_grad():
-                fake = self.generator(draws.noise(B, self.noise_dim))
-            out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws)
-            gp = self.gradient_penalty(draws, real, fake)
+                fake = self.gen(draws.noise(B, self.noise_dim), draws,
+                                training=True)
+            out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws,
+                           training=True)
+            gp = self.gradient_penalty(draws, real, fake, training=True)
             loss = self.wasserstein_dis_loss(out[:B], out[B:]) \
                 + self.penalty * gp
             apply_updates(state.discriminator,
@@ -85,8 +92,8 @@ class WGAN_GP(GAN):
             dis_losses.append(loss.detach())
             gps.append(gp.detach())
 
-        fake = self.generator(draws.noise(B, self.noise_dim))
-        gen_loss = self.generator_loss(self.dis(fake, draws))
+        fake = self.gen(draws.noise(B, self.noise_dim), draws, training=True)
+        gen_loss = self.generator_loss(self.dis(fake, draws, training=True))
         apply_updates(state.generator, torch.autograd.grad(
             gen_loss, list(self.generator.parameters())))
         self.update_ema(state)
@@ -104,10 +111,10 @@ class WGAN_GP(GAN):
         Returns ``(fake, logs)``."""
         fake = self.sample(state, draws.noise(real.shape[0], self.noise_dim))
         with torch.no_grad():
-            real_out = self.dis(real, draws)
-            fake_out = self.dis(fake, draws)
+            real_out = self.dis(real, draws, training=False)
+            fake_out = self.dis(fake, draws, training=False)
         gp = self.gradient_penalty(draws, real, fake, mask,
-                                   create_graph=False)
+                                   create_graph=False, training=False)
         with torch.no_grad():
             logs = {
                 "loss/generator": self.generator_loss(fake_out, mask),

@@ -23,11 +23,11 @@ import os
 from time import time
 
 import numpy as np
-import torch
 
 from calciumgan_tpu_torch.config import Config
 from calciumgan_tpu_torch.eval import spike_eval
 from calciumgan_tpu_torch.utils import h5, io
+from calciumgan_tpu_torch.utils.device import resolve_device
 from calciumgan_tpu_torch.utils.summary import Summary
 
 
@@ -38,10 +38,7 @@ def main(config, with_covariance: bool = False,
     -> mean KL per statistic. A ``seconds`` dict, when given, gets epoch ->
     the seconds of that epoch file's stages
     (:func:`spike_eval.compute_epoch_spike_metrics`)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (use --device cpu "
-                           "to run on the host)")
+    device = resolve_device(device)
     if not os.path.exists(config.output_dir):
         print(f"{config.output_dir} not found")
         raise SystemExit(1)

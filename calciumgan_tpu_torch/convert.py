@@ -19,6 +19,11 @@ and ``dense``. Layouts:
   ``F.conv1d`` is a correlation, as ``lax.conv`` is;
 - LayerNorm ``scale``/``bias`` unchanged. A size-1 channel axis has no
   LayerNorm (``calciumgan_tpu/models/base.py:45-70``), so no entry.
+
+The ``mlp`` model's two nets are ``Dense_0..4`` each, the port's
+``dense_0..4`` (:mod:`calciumgan_tpu_torch.models.mlp`), kernels transposed;
+its discriminator flattens time-major in both packages. Each function takes
+the run's ``config.model`` and applies that model's rules.
 """
 
 from __future__ import annotations
@@ -39,8 +44,39 @@ def _tensor(array) -> torch.Tensor:
     return torch.from_numpy(np.array(array, np.float32, order="C"))
 
 
-def generator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax generator params (nested dict of arrays) -> ``state_dict``."""
+def _mlp_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Either net of the ``mlp`` model: ``Dense_i`` -> ``dense_i``."""
+    out = {}
+    for key, sub in params.items():
+        if not (m := _DENSE.match(key)):
+            raise KeyError(f"unexpected mlp parameter group {key!r}")
+        out[f"dense_{m[1]}.weight"] = _tensor(np.asarray(sub["kernel"]).T)
+        out[f"dense_{m[1]}.bias"] = _tensor(sub["bias"])
+    return out
+
+
+def _flax_mlp_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`_mlp_state_dict`."""
+    params: dict = {}
+    for name, tensor in state_dict.items():
+        a = tensor.detach().cpu().float().numpy()
+        module, field = name.rsplit(".", 1)
+        if not module.startswith("dense_"):
+            raise KeyError(f"unexpected state_dict entry {name!r}")
+        group = params.setdefault(f"Dense_{module[len('dense_'):]}", {})
+        if field == "weight":
+            group["kernel"] = np.ascontiguousarray(a.T)
+        else:
+            group[field] = a
+    return params
+
+
+def generator_state_dict(params: Mapping, model: str = "calciumgan"
+                         ) -> Dict[str, torch.Tensor]:
+    """Flax generator params (nested dict of arrays) of a ``model`` net ->
+    ``state_dict``."""
+    if model == "mlp":
+        return _mlp_state_dict(params)
     out = {}
 
     def put(name, array):
@@ -66,8 +102,11 @@ def generator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def flax_generator_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+def flax_generator_params(state_dict: Mapping[str, torch.Tensor],
+                          model: str = "calciumgan") -> dict:
     """Inverse of :func:`generator_state_dict`."""
+    if model == "mlp":
+        return _flax_mlp_params(state_dict)
     params: dict = {}
     for name, tensor in state_dict.items():
         a = tensor.detach().cpu().float().numpy()
@@ -93,8 +132,11 @@ def flax_generator_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return params
 
 
-def discriminator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax discriminator params -> ``state_dict``."""
+def discriminator_state_dict(params: Mapping, model: str = "calciumgan"
+                             ) -> Dict[str, torch.Tensor]:
+    """Flax discriminator params of a ``model`` net -> ``state_dict``."""
+    if model == "mlp":
+        return _mlp_state_dict(params)
     out = {}
     for key, sub in params.items():
         if m := _CONV.match(key):
@@ -110,9 +152,11 @@ def discriminator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def flax_discriminator_params(state_dict: Mapping[str, torch.Tensor]
-                              ) -> dict:
+def flax_discriminator_params(state_dict: Mapping[str, torch.Tensor],
+                              model: str = "calciumgan") -> dict:
     """Inverse of :func:`discriminator_state_dict`."""
+    if model == "mlp":
+        return _flax_mlp_params(state_dict)
     params: dict = {}
     for name, tensor in state_dict.items():
         a = tensor.detach().cpu().float().numpy()

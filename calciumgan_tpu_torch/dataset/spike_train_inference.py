@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
+from calciumgan_tpu_torch.utils.device import resolve_device
 
 
 def generate_spike_train(filename: str, device: torch.device,
@@ -67,10 +68,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (use --device cpu "
-                           "to run on the host)")
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     for filename in sorted(glob(os.path.join(args.input_dir, "*.pkl"))):
         if args.clean:
             remove_oasis(filename)

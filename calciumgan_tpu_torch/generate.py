@@ -37,7 +37,8 @@ from calciumgan_tpu_torch.utils.checkpoint import restore_generator_params
 def build_generator(config, params, device) -> torch.nn.Module:
     """The configured generator on ``device`` with Flax ``params``."""
     generator, _ = get_models(config, device=device)
-    generator.load_state_dict(convert.generator_state_dict(params))
+    generator.load_state_dict(
+        convert.generator_state_dict(params, config.model))
     return generator
 
 
@@ -83,7 +84,8 @@ def main(config, num_samples: int, out: str, batch_size: int = 1024,
     ckpt_dir = config.ckpt_dir or os.path.join(config.output_dir,
                                                "checkpoints")
     params, restored_epoch = restore_generator_params(
-        ckpt_dir, epoch=epoch, ema=float(config.ema or 0.0) > 0.0)
+        ckpt_dir, epoch=epoch, ema=float(config.ema or 0.0) > 0.0,
+        model=config.model)
     if config.verbose:
         print(f"Restored checkpoint epoch {restored_epoch} from {ckpt_dir}")
     h5.remove(out)

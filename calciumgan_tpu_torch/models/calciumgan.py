@@ -63,6 +63,11 @@ class Generator(nn.Module):
         self.dense_1 = base.Dense(num_channels, num_channels, dtype, rng,
                                   device)
 
+    def draw_inputs(self, draws, batch: int, training: bool) -> tuple:
+        """What ``forward`` takes besides the noise: nothing, in training
+        and evaluation alike."""
+        return ()
+
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = self.act(self.dense_0(z))
         x = x.reshape(x.shape[0], self.w0, self.noise_dim).transpose(1, 2)
@@ -99,6 +104,11 @@ class Discriminator(nn.Module):
         # Flax infers Dense_0's input (last map's frames x channels) from
         # the data; here it follows from the sequence length
         self.dense = base.Dense(width * c_in, 1, dtype, rng, device)
+
+    def draw_inputs(self, draws, batch: int, training: bool) -> tuple:
+        """What ``forward`` takes besides the signals: ``(shifts,)``, drawn
+        in training and evaluation alike."""
+        return (draws.shifts(self.m, self.num_shifts),)
 
     def forward(self, x: torch.Tensor,
                 shifts: Sequence[int] = ()) -> torch.Tensor:

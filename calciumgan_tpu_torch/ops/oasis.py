@@ -15,6 +15,10 @@ the JAX package's, with the reasons given there: they were measured for the
 algorithm and its float32 arithmetic, which the port keeps. Throughput
 figures in the JAX comments were taken on a TPU and say nothing of the GPU.
 
+:func:`ar1_filter` is the forward model, spikes -> calcium, of the DG data
+generators (counterpart of ``calciumgan_tpu/ops/oasis.py:451-491``): plain
+PyTorch operations, as it is XLA and no kernel in the JAX package.
+
 Not ported yet: the in-graph ``deconvolve_signals`` and its XLA
 ``while_loop`` machine ``oasis_ar1_jax``.
 """
@@ -32,8 +36,9 @@ import torch
 
 from calciumgan_tpu_torch.kernels import build
 from calciumgan_tpu_torch.ops import oasis_cuda
+from calciumgan_tpu_torch.ops.spike_metrics import first_order_recurrence
 
-__all__ = ["deconvolve_signals_host"]
+__all__ = ["ar1_filter", "deconvolve_signals_host"]
 
 # first rung covers spiky-calcium sl2048 traces; escalate the whole batch
 # one rung deeper while more than _ESCALATE_FRAC of its traces overflow
@@ -219,3 +224,41 @@ def _exact_spikes_host(traces: np.ndarray, g: float, s_min: float,
     with ThreadPoolExecutor(workers) as pool:
         list(pool.map(rows, bounds[:-1], bounds[1:]))
     return out.astype(np.int8)
+
+
+def ar1_filter(spikes, g=(0.95,), axis: int = -1) -> torch.Tensor:
+    """Spikes -> calcium via the AR recurrence, where ``spikes`` lies (a
+    tensor, or an array taken as a CPU tensor).
+
+    AR(1): ``c[t] = s[t] + g*c[t-1]`` for ``t >= 2`` with ``c[0] = s[0]``,
+    ``c[1] = s[1]``: the DG generators start the recurrence at t = 2, so the
+    ``g*c[0]`` term is absent at t = 1, which is reproduced by subtracting
+    ``g*s[0]`` from ``s[1]`` before the full recurrence runs as a log-depth
+    scan (:func:`~calciumgan_tpu_torch.ops.spike_metrics.
+    first_order_recurrence`). The JAX package's ``lax.associative_scan``
+    combines in another tree, so the two agree to float32 rounding, not bit
+    for bit. AR(2), ``g = (g1, g2)``, is a sequential loop that passes the
+    first two samples through unchanged."""
+    spikes = torch.as_tensor(spikes)
+    if not spikes.is_floating_point():
+        # int/bool spike trains (e.g. the int8 `spikes` datasets) would
+        # truncate g to 0 in the affine maps and silently skip the decay
+        spikes = spikes.to(torch.float32)
+    g = tuple(float(x) for x in (g if hasattr(g, "__len__") else (g,)))
+    x = torch.movedim(spikes, axis, -1)
+
+    if len(g) == 1:
+        if x.shape[-1] >= 2:
+            x = torch.cat([x[..., :1],
+                           (x[..., 1] + (-g[0]) * x[..., 0])[..., None],
+                           x[..., 2:]], dim=-1)
+        _, c = first_order_recurrence(torch.full_like(x, g[0]), x, axis=-1)
+    else:
+        g1, g2 = g
+        # reference semantics: the first two samples pass through unchanged
+        frames = list(x[..., :2].unbind(-1))
+        for s_t in x[..., 2:].unbind(-1):
+            frames.append(s_t + g1 * frames[-1] + g2 * frames[-2])
+        c = torch.stack(frames, dim=-1)
+
+    return torch.movedim(c, -1, axis)

@@ -46,7 +46,8 @@ from calciumgan_tpu_torch.algorithms.gan import Draws
 from calciumgan_tpu_torch.data import pipeline
 from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
 from calciumgan_tpu_torch.models import get_models
-from calciumgan_tpu_torch.utils import checkpoint, io
+from calciumgan_tpu_torch.utils import arrays, checkpoint, io
+from calciumgan_tpu_torch.utils.device import resolve_device
 from calciumgan_tpu_torch.utils.summary import Summary
 
 # draw counters outside the train steps' global_step range
@@ -66,16 +67,6 @@ def _progress(iterable, desc, total, verbose):
 
 def count_params(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without a card
-    raises (no fallback to the host)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (use --device cpu "
-                           "to run on the host)")
-    return device
 
 
 def _synchronize(device: torch.device) -> None:
@@ -298,9 +289,12 @@ def plot_real_signals(config, summary: Summary, dataset) -> None:
     signal, spike = next(dataset.batches(config.batch_size))
     signal = pipeline.reverse_preprocessing(
         config, torch.from_numpy(np.ascontiguousarray(signal)))
+    # the surrogate pickle stores its spikes (neuron, time) already: the
+    # layout is read off the shape, as the JAX package does
     summary.plot_traces("real_traces", _traces(config, signal[0]).numpy(),
-                        np.asarray(spike[0]).T, indexes=focus_neurons(config),
-                        step=0, training=False)
+                        arrays.set_array_format(np.asarray(spike[0]), "CW",
+                                                config),
+                        indexes=focus_neurons(config), step=0, training=False)
 
 
 def make_batch_sources(config, train_ds, validation_ds,

@@ -215,8 +215,10 @@ def import_jax_checkpoint(ckpt_dir: str, epoch: Optional[int] = None,
 
 
 def restore_generator_params(ckpt_dir: str, epoch: Optional[int] = None,
-                             ema: bool = True) -> Tuple[dict, int]:
-    """Generator params (Flax layout, as ``generate`` takes them) of the
+                             ema: bool = True,
+                             model: str = "calciumgan") -> Tuple[dict, int]:
+    """Generator params (Flax layout, as ``generate`` takes them) of a
+    ``model`` (the run's ``config.model``) from the
     port's ``epoch-NNN.pt`` when it exists for ``epoch`` (default
     :func:`latest_epoch`), else of JAX's ``epoch-NNN.msgpack`` through
     :func:`import_jax_checkpoint`. With ``ema`` the stored EMA is taken when
@@ -231,4 +233,4 @@ def restore_generator_params(ckpt_dir: str, epoch: Optional[int] = None,
     stored = torch.load(path, map_location="cpu", weights_only=True)
     params = stored["ema"] if ema and stored["ema"] is not None else \
         stored["generator"]["params"]
-    return convert.flax_generator_params(params), epoch
+    return convert.flax_generator_params(params, model), epoch

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, whole-recording spike
-inference, dataset preparation, training and evaluation once on one NVIDIA
-GPU.
+inference, dataset preparation, training, evaluation and the DG experiments
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs eight phases, printing one line of findings per phase.
+``nvcc`` and runs nine phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
@@ -73,13 +73,47 @@ every (machine, storage) pair the plan can choose is compared:
    ``io.save_fake_signals`` and evaluated by ``python -m
    calciumgan_tpu_torch.compute_metrics --device cuda`` in-process: finite
    KLs in ``metrics.json``, the epoch file's spikes against the float64
-   golden (2048 traces) and the C++ float64 kernel (all 102,000), the OASIS
+   golden (1024 traces) and the C++ float64 kernel (all 102,000), the OASIS
    launches of that run (``oasis_ar1/shared`` only, no plain calls), the
    statistics on the card against the CPU on 32 trials, the seconds per
    epoch file by stage and statistic, Victor-Purpura on 16 trials, and
    ``compute_metrics --all_epochs`` on phase 6's own run. Every KL printed
    is of seeded synthetic data and a generator of three epochs: it says
-   nothing of real recordings.
+   nothing of real recordings;
+9. the DG experiments: ``python -m
+   calciumgan_tpu_torch.dataset.generate_dg_data --device cuda`` in-process
+   on one of phase 5's pickles (100 x 20,000 out; its 0.02 spikes a frame
+   leave the DG no spike, since the CLI hands the sampler the data's
+   covariance where it takes a correlation matrix, as the JAX package and
+   the reference do) and on a dense seeded recording with correlated
+   neurons (spikes by the spike-inference CLI): spikes binary, each
+   neuron's firing probability against ``Phi(mu / sigma)``, ``ar1_filter``
+   on the card against the CPU and a float64 loop, the seconds by stage;
+   the full fit the CLI never calls (4,950 pairs, timebins 1 and 64
+   timebins x 200 trials) on the card against the CPU to 1e-9 (the
+   time-varying one on the first 32 neurons' 496 pairs), and the
+   moments of 10**6 draws from a sampler built on the fitted matrix;
+   ``generate_tfrecords --is_dg_data`` (561 windows of 2048 x 100), ``main``
+   at the flagship recipe with ``--ema 0.999 --device_store off
+   --save_generated last`` for 2 epochs (the EMA side-car differs from the
+   raw generator and is what the epoch file holds and ``generate`` serves;
+   batches come from the host; the sampling epochs' spikes against the
+   float64 golden), ``compute_dg_metrics --device cuda`` (finite MAE, RMSE
+   and MAPE, ``oasis_ar1/shared`` launches only; the epoch file's spikes
+   against the float64 golden on 128 traces and the C++ float64 kernel on
+   all 6,400; the statistics on the card against the CPU; the whole CLI
+   against ``--device cpu`` on a copy of the run's first 5 trials without
+   spikes, which the CPU deconvolves for itself: equal spikes, the
+   dictionary within 1e-5); ``generate_surrogate_data --device cuda`` at
+   its defaults (2 x 10**6 sequences of 6 x 2), ``main --model mlp
+   --algorithm gan`` for 3 epochs with its sampled spikes against the
+   golden and its ``generated.pkl``, and one vanilla-GAN step of the mlp
+   model on the card against the CPU. The kernel is held to its plain
+   version bit for bit at each of the three shapes these paths give it:
+   100 x 2048 (a DG sampling epoch), 6,400 x 2048 at every rung the CLI
+   climbed, and 2 x 6 (an mlp sampling epoch: fewer frames than a ring is
+   deep). Every error printed is of seeded synthetic data and generators
+   of a few epochs.
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
@@ -134,7 +168,7 @@ PREP_STRIDE = 28
 # phase 8: the paper's validation set (dataset/generate_tfrecords.py's
 # default --validation_size) at the flagship width
 EVAL_TRIALS, EVAL_NEURONS = 1000, 102
-EVAL_GOLDEN_TRACES = 2048   # of its traces checked against the numpy golden
+EVAL_GOLDEN_TRACES = 1024   # of its traces checked against the numpy golden
 EVAL_CPU_TRIALS = 32        # statistics on the card against the CPU
 EVAL_VP_TRIALS = 16         # Victor-Purpura runs on these only
 # the statistics on the card against the same functions on the CPU: firing
@@ -148,6 +182,31 @@ EVAL_VP_TRIALS = 16         # Victor-Purpura runs on these only
 STAT_CORR_TOL = 1e-5
 STAT_VR_RTOL = 1e-5
 STAT_KL_TOL = 1e-3
+# phase 9: the DG experiments. The dense recording (0.3 spikes a frame, a
+# shared source of weight 0.7 in every neuron) is what leaves the DG data
+# CLI spikes to sample; 561 windows of 2048 at stride 32, of which 64
+# validate; the surrogate set at its CLI's defaults
+DG_DENSE_RATE, DG_SHARED = 0.3, 0.7
+DG_STRIDE, DG_VAL_ROWS = 32, 64
+DG_TIMEBINS, DG_TRIALS = 64, 200   # the time-varying fit's layout
+DG_CPU_NEURONS = 32                # of it fitted on the CPU too (496 pairs)
+DG_FIT_SAMPLES = 10**6             # drawn from the fitted sampler
+DG_GOLDEN_TRACES = 128             # of the epoch file, against the golden
+DG_CPU_TRIALS = 5                  # compute_dg_metrics' --num_trials
+SURROGATE_SAMPLES, MLP_EPOCHS = 2 * 10**6, 3
+# a neuron's sampled firing probability against Phi(mu / sigma), in
+# binomial standard deviations of its 20,000 frames
+DG_RATE_SIGMAS = 6
+# ar1_filter on the card against the CPU and a float64 loop: the CPU tests'
+# bound against the JAX package (calcium of at most ~20)
+AR_FILTER_TOL = 1e-5
+# the fitted correlation matrix on the card against the CPU: the float64
+# exp differs by an ulp, 60 bisection trips leave a bracket of 2e-18
+DG_FIT_TOL = 1e-9
+# moments of 10**6 draws from the fitted sampler against the data's: 4.5
+# standard deviations of the largest entry's estimate (0.5 / 1000) over
+# 5050 entries, twice
+DG_MOMENT_TOL = 5e-3
 STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL = 1e-5, 1e-6
 STEP_F32_GRAD_TOL = 3e-3      # of the net's largest gradient moment
 STEP_BF16_LOSS_RTOL, STEP_BF16_LOSS_ATOL = 5e-4, 2e-4
@@ -175,7 +234,12 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
+_STARTED = time.perf_counter()
+
+
 def report(phase: str, **fields) -> None:
+    """One line of findings, ending with the script's seconds so far."""
+    fields["script_s"] = round(time.perf_counter() - _STARTED, 1)
     print(f"{phase}: {json.dumps(fields)}", flush=True)
 
 
@@ -785,9 +849,10 @@ class FixedDraws:
     numpy arrays, moved to ``device``), so a step runs on the same numbers
     on the card and on the CPU."""
 
-    def __init__(self, noise, alpha, shifts, device):
+    def __init__(self, noise, alpha, shifts, device, dropout=()):
         self.noise_q, self.alpha_q = list(noise), list(alpha)
         self.shift_q, self.device = list(shifts), device
+        self.dropout_q = list(dropout)
 
     def noise(self, n, noise_dim):
         import torch
@@ -799,6 +864,12 @@ class FixedDraws:
 
     def shifts(self, m, count):
         return [self.shift_q.pop(0) for _ in range(count)]
+
+    def dropout(self, shape, rate):
+        import torch
+        keep = self.dropout_q.pop(0)
+        check(keep.shape == tuple(shape), f"mask {keep.shape} for {shape}")
+        return torch.from_numpy(keep).to(self.device)
 
 
 def write_training_set(root):
@@ -1557,6 +1628,621 @@ def phase_evaluation(smi, work, train_run):
     return dict(launches=launches, chain_launches=chain["launches"])
 
 
+def _rate_check(spikes, mean, covariance, what: str) -> dict:
+    """DG spikes ``(neurons, frames)`` against the probability the sampler
+    gives each neuron from the parameters the CLI passes it: ``Phi(mu /
+    sigma)`` with ``sigma**2`` the data's variance, since the CLI hands the
+    sampler the data's covariance where it takes a correlation matrix (as
+    the JAX package and the reference do)."""
+    import numpy as np
+    import torch
+    frames = spikes.shape[1]
+    sigma = np.sqrt(np.diag(covariance))
+    expected = torch.special.ndtr(torch.from_numpy(mean[0] / sigma)).numpy()
+    got = spikes.mean(1, dtype=np.float64)
+    bound = DG_RATE_SIGMAS * np.sqrt(expected * (1 - expected) / frames) \
+        + 1e-4
+    worst = float(np.max(np.abs(got - expected) / bound))
+    check(worst <= 1.0, f"{what}: a neuron's firing probability is "
+                        f"{worst:.2f} bounds from Phi(mu / sigma)")
+    return dict(expected_mean=float(expected.mean()),
+                sampled_mean=float(got.mean()),
+                worst_over_bound=worst, sigmas=DG_RATE_SIGMAS)
+
+
+def dg_data_cli(pkl, out) -> dict:
+    """``python -m calciumgan_tpu_torch.dataset.generate_dg_data --device
+    cuda`` in-process on the recording pickle ``pkl``: the written
+    dictionary checked, the seconds by stage, the rates."""
+    import pickle
+
+    import numpy as np
+    from calciumgan_tpu_torch.dataset import generate_dg_data
+    with open(pkl, "rb") as f:
+        recorded = np.asarray(pickle.load(f)["oasis"], np.float64)[2:]
+    stages = {}
+    found = generate_dg_data.run(generate_dg_data.parse_args(
+        ["--input", pkl, "--output", out, "--seed", str(SEED), "--device",
+         "cuda"]), seconds=stages)
+    with open(out, "rb") as f:
+        data = pickle.load(f)
+    C, frames = recorded.shape
+    check(set(data) == {"signals", "oasis", "mean", "covariance"}
+          and data["signals"].shape == data["oasis"].shape == (C, frames)
+          and data["signals"].dtype == data["oasis"].dtype == np.float32
+          and data["mean"].shape == (1, C)
+          and data["covariance"].shape == (C, C),
+          f"DG pickle: { {k: v.shape for k, v in data.items()} }")
+    check(set(np.unique(data["oasis"]).tolist()) <= {0.0, 1.0}
+          and bool(np.isfinite(data["signals"]).all()),
+          "DG spikes not binary or signals not finite")
+    rates = _rate_check(data["oasis"], data["mean"], data["covariance"], pkl)
+    return dict(data=data, report=dict(
+        shape=[C, frames], seconds=stages,
+        took_higham_branch=found["projected"],
+        recorded_rate_per_frame=float(recorded.mean()),
+        dg_rate_per_frame=float(data["oasis"].mean()),
+        dg_spikes=int(data["oasis"].sum()), rate_vs_phi_mu_over_sigma=rates))
+
+
+def ar1_filter_check(spikes) -> dict:
+    """``ar1_filter`` on the card against the CPU on all of ``spikes``
+    (neurons, frames) and against a float64 sequential loop on 8 rows."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.ops.oasis import ar1_filter
+    x = torch.from_numpy(spikes)
+    card = ar1_filter(x.cuda()).cpu().numpy()
+    cpu = ar1_filter(x).numpy()
+    loop = spikes[:8].astype(np.float64)
+    for t in range(2, loop.shape[1]):
+        loop[:, t] = spikes[:8, t] + G * loop[:, t - 1]
+    errs = dict(card_vs_cpu=float(np.abs(card - cpu).max()),
+                card_vs_float64_loop=float(np.abs(card[:8] - loop).max()),
+                calcium_max=float(card.max()))
+    check(max(errs["card_vs_cpu"], errs["card_vs_float64_loop"])
+          <= AR_FILTER_TOL, f"ar1_filter on the card: {errs}")
+    ms = cuda_ms(lambda: ar1_filter(x.cuda()), reps=5)
+    return dict(errs, tol=AR_FILTER_TOL, ms_with_upload=ms)
+
+
+def dg_full_fit(spikes) -> dict:
+    """The fit the CLI never calls: every pair's latent correlation on the
+    card against the CPU, for fixed rates (timebins 1) and for a
+    time-varying layout, then a sampler built from the fitted matrix and
+    its sampled moments against the data's. ``spikes``: (neurons, frames)
+    binary."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.ops.dg import DGOptimise, DichotGauss
+    C, frames = spikes.shape
+    layouts = {
+        "timebins_1": np.transpose(spikes)[None],        # (1, frames, C)
+        f"timebins_{DG_TIMEBINS}": np.ascontiguousarray(np.transpose(
+            spikes[:, :DG_TIMEBINS * DG_TRIALS]).reshape(
+                DG_TRIALS, DG_TIMEBINS, C).transpose(1, 0, 2))}
+    found, fits = {}, {}
+    for name, data in layouts.items():
+        # pairs are fitted independently, so the CPU's fit of the first
+        # neurons is held against that block of the card's whole matrix
+        # (all of it for fixed rates; the time-varying CPU fit costs 9 ms
+        # a pair)
+        n_cpu = C if data.shape[0] == 1 else DG_CPU_NEURONS
+        opt, opt_cpu = DGOptimise(data), DGOptimise(data[..., :n_cpu])
+        opt.get_gauss_correlation(device="cuda")  # warm-up of the card's
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        card = fits[name] = opt.get_gauss_correlation(device="cuda")
+        seconds = {"cuda": time.perf_counter() - start}
+        start = time.perf_counter()
+        cpu = opt_cpu.get_gauss_correlation(device="cpu")
+        seconds["cpu"] = time.perf_counter() - start
+        err = float(np.abs(card[:n_cpu, :n_cpu] - cpu).max())
+        check(card.dtype == np.float64 and err <= DG_FIT_TOL,
+              f"DG fit {name}: card vs CPU {err}")
+        check(bool(np.isfinite(card).all())
+              and np.array_equal(np.diag(card), np.ones(C)),
+              f"DG fit {name}: not a correlation matrix")
+        found[name] = dict(shape=list(data.shape), pairs=C * (C - 1) // 2,
+                           pairs_on_cpu=n_cpu * (n_cpu - 1) // 2,
+                           card_vs_cpu=err, seconds=seconds,
+                           largest_offdiagonal=float(np.abs(
+                               card - np.eye(C)).max()))
+
+    # a sampler from the fixed-rate fit: its moments against the data's
+    opt = DGOptimise(layouts["timebins_1"])
+    sampler = DichotGauss(C, mean=opt.gauss_mean,
+                          corr=fits["timebins_1"], make_pd=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    sampled = sampler.sample(gen, repeats=DG_FIT_SAMPLES)[0]  # (repeats, C)
+    centred = sampled.double() - sampled.double().mean(0)
+    cov = (centred.T @ centred / DG_FIT_SAMPLES).cpu().numpy()
+    rate = sampled.double().mean(0).cpu().numpy()
+    sample_s = time.perf_counter() - start
+    target = opt.data_tfix_covariance
+    cov_err = float(np.abs(cov - target).max())
+    rate_err = float(np.abs(rate - layouts["timebins_1"].mean((0, 1))).max())
+    check(cov_err <= DG_MOMENT_TOL and rate_err <= DG_MOMENT_TOL,
+          f"sampler from the fitted matrix: covariance {cov_err}, rate "
+          f"{rate_err} from the data's")
+    found["sampler_from_fit"] = dict(
+        samples=DG_FIT_SAMPLES, covariance_max_abs_err=cov_err,
+        rate_max_abs_err=rate_err, tol=DG_MOMENT_TOL, seconds=sample_s,
+        took_higham_branch=sampler.projected)
+    # ndtri at the clamped ends, float64, card against the CPU
+    p = torch.tensor([1e-4, 1 - 1e-4, 0.5, 0.02], dtype=torch.float64)
+    ndtri_err = float((torch.special.ndtri(p.cuda()).cpu()
+                       - torch.special.ndtri(p)).abs().max())
+    check(ndtri_err <= 1e-12, f"ndtri on the card vs the CPU: {ndtri_err}")
+    found["ndtri_card_vs_cpu"] = ndtri_err
+    return found
+
+
+def gan_step_card_vs_cpu() -> dict:
+    """One vanilla-GAN step of the mlp model (batch 8, dropout 0.2, float32
+    with TF32 off, learning rate 0) from one state and the same noise and
+    masks on the card and on the CPU: both gradients come from one
+    forward."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.algorithms import get_algorithm
+    from calciumgan_tpu_torch.config import Config
+    from calciumgan_tpu_torch.models import get_models
+    B = 8
+    cfg = Config(model="mlp", algorithm="gan", sequence_length=6,
+                 num_neurons=2, num_channels=2, signal_shape=(6, 2),
+                 normalize=True, signals_min=0.0, signals_max=1.0,
+                 batch_size=B, learning_rate=0.0, seed=SEED)
+    rng = np.random.default_rng(SEED + 51)
+    noise = [rng.standard_normal((B, cfg.noise_dim)).astype(np.float32)]
+    widths = [cfg.num_units * k for k in (1, 2, 3, 4, 3, 2, 1)]
+    masks = [rng.random((B if i < 3 else 2 * B, 6, w)) < 0.8
+             for i, w in enumerate(widths)]
+    real = rng.random((B, 6, 2)).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        algo = get_algorithm(cfg, *get_models(
+            cfg, rng=torch.Generator().manual_seed(SEED), device=dev))
+        state = algo.init_state()
+        draws = FixedDraws(noise, [], [], dev, dropout=masks)
+        logs = algo.train_step(state, torch.from_numpy(real).to(dev), draws)
+        check(not draws.dropout_q, "the step left dropout masks undrawn")
+        runs[dev] = (state, {k: float(v) for k, v in logs.items()})
+    (gpu, gpu_logs), (cpu, cpu_logs) = runs["cuda"], runs["cpu"]
+    check(all(np.isfinite(v) for v in gpu_logs.values()),
+          f"gan step: non-finite logs {gpu_logs}")
+    abs_err = {k: abs(gpu_logs[k] - cpu_logs[k]) for k in gpu_logs}
+    grad_err = _moment_errors(gpu, cpu)
+    for k in ("loss/generator", "loss/discriminator"):
+        check(abs_err[k] <= STEP_F32_LOSS_RTOL * abs(gpu_logs[k])
+              + STEP_F32_LOSS_ATOL, f"gan step {k}: card vs CPU {abs_err[k]}")
+    check(max(grad_err.values()) <= STEP_F32_GRAD_TOL,
+          f"gan step gradients: card vs CPU {grad_err}")
+    return dict(logs_card=gpu_logs, loss_abs_err=abs_err, grad_err=grad_err)
+
+
+def hold_to_twin(traces, rungs: int, what: str) -> dict:
+    """The classic kernel against its plain version, bit for bit, on host
+    ``traces`` (N, T) uploaded as they are, with the dispatch's production
+    arguments at the first ``rungs`` depths of the ladder it walks for that
+    length (``min(T, depth)``). The findings by depth."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    y = torch.from_numpy(np.ascontiguousarray(traces, np.float32)).cuda()
+    ladder = tuple(dict.fromkeys(min(y.shape[-1], d)
+                                 for d in dispatch._DEPTH_LADDER))
+    found = {}
+    for depth in ladder[:rungs]:
+        held = compare_kernel(
+            y, g=G, lam=0.0, s_min=S_MIN, depth=depth,
+            merge_attempts=dispatch._MERGE_BUDGET,
+            flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD))
+        check_equal(held, f"{what}, depth {depth}")
+        check_variant(held, "oasis_ar1/shared", f"{what}, depth {depth}")
+        found[depth] = dict(strip(held), shape=list(y.shape))
+    check(len(found) == rungs, f"{what}: {rungs} launches on a ladder of "
+                               f"{ladder}")
+    return found
+
+
+def sampled_vs_golden(calls, shape, what: str) -> int:
+    """The ``(traces, spikes)`` pairs that ``train.sample_and_plot``
+    returned, each of ``shape``: spike mismatches against the float64
+    golden over all of them, which must be none."""
+    import numpy as np
+    mismatches = 0
+    for call in calls:
+        traces, spikes = call["out"]
+        check(traces.shape == spikes.shape == shape
+              and bool(np.isfinite(traces).all()),
+              f"{what}: sampled traces {traces.shape}")
+        mismatches += int((spikes != golden_spikes(traces)).sum())
+    check(mismatches == 0, f"{what}: {mismatches} sampled spikes differ "
+                           f"from float64")
+    return mismatches
+
+
+def head_of_run_without_spikes(run, copy, trials: int) -> str:
+    """A run directory ``copy`` of the first ``trials`` rows of ``run``'s
+    validation cache and of its newest epoch file, the epoch file without
+    its spikes: all that ``compute_dg_metrics --num_trials trials`` reads of
+    a run, for a device that has to deconvolve for itself. Returns the
+    copy's epoch file."""
+    import pickle
+
+    from calciumgan_tpu_torch.config import Config
+    from calciumgan_tpu_torch.utils import h5, io
+    cfg = Config(output_dir=run, verbose=0).load()
+    info = io.load_generated_info(cfg)
+    epoch = max(info)
+    generated = os.path.join(copy, "generated")
+    os.makedirs(generated)
+    cache = os.path.join(generated, os.path.basename(cfg.validation_cache))
+    h5.write(cache, {name: h5.get(cfg.validation_cache, name, start=0,
+                                  stop=trials)
+                     for name in ("signals", "spikes")})
+    filename = os.path.join(generated,
+                            os.path.basename(info[epoch]["filename"]))
+    h5.write(filename, {"signals": h5.get(info[epoch]["filename"], "signals",
+                                          start=0, stop=trials)})
+    with open(os.path.join(generated, "info.pkl"), "wb") as f:
+        pickle.dump({epoch: dict(info[epoch], filename=filename)}, f)
+    cfg.output_dir, cfg.generated_dir, cfg.validation_cache = (
+        copy, generated, cache)
+    cfg.save()
+    return filename
+
+
+def phase_dg(smi, work, recording):
+    """The DG experiments: ``generate_dg_data`` on ``recording`` (one of
+    phase 5's pickles) and on a dense seeded recording, the full fit on the
+    card, then ``generate_tfrecords --is_dg_data -> main --ema
+    --device_store off --save_generated last -> compute_dg_metrics`` at 100
+    channels x 2048, and ``generate_surrogate_data -> main --model mlp
+    --algorithm gan`` at the surrogate set's defaults."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import compute_dg_metrics
+    from calciumgan_tpu_torch import generate as generate_mod
+    from calciumgan_tpu_torch import main as train_main
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.algorithms import gan
+    from calciumgan_tpu_torch.algorithms.gan import Draws
+    from calciumgan_tpu_torch.config import Config
+    from calciumgan_tpu_torch.data import pipeline
+    from calciumgan_tpu_torch.dataset import (generate_surrogate_data,
+                                              generate_tfrecords,
+                                              spike_train_inference)
+    from calciumgan_tpu_torch.ops import golden
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.utils import checkpoint, h5, io
+    root = os.path.join(work, "dg")
+    os.makedirs(os.path.join(root, "dense"))
+
+    # 1. the DG data CLI: on the sparse recording of phase 5 (0.02 spikes a
+    # frame: Phi(mu / sigma) leaves it no DG spike), then on a dense one
+    # with correlated neurons, whose spikes the spike-inference CLI infers
+    sparse_pkl = os.path.join(root, "rec0.pkl")
+    with open(sparse_pkl, "wb") as f:
+        pickle.dump(recording, f)
+    sparse = dg_data_cli(sparse_pkl, os.path.join(root, "sparse_dg.pkl"))
+    dense_pkl = os.path.join(root, "dense", "rec.pkl")
+    traces = golden.synth_ar1_traces(np.random.default_rng(SEED + 61),
+                                     CLI_NEURONS + 1, REC_T,
+                                     rate=DG_DENSE_RATE)
+    with open(dense_pkl, "wb") as f:  # the last row is a source all share
+        pickle.dump({"signals": traces[:-1] + DG_SHARED * traces[-1]}, f)
+    start = time.perf_counter()
+    spike_train_inference.main(["--input_dir", os.path.dirname(dense_pkl),
+                                "--device", "cuda"])
+    inference_s = time.perf_counter() - start
+    dg_pkl = os.path.join(root, "data.pkl")
+    dense = dg_data_cli(dense_pkl, dg_pkl)
+    check(dense["report"]["dg_spikes"] > 10000,
+          f"the dense recording's DG has {dense['report']['dg_spikes']} "
+          f"spikes")
+    filtered = ar1_filter_check(dense["data"]["oasis"])
+
+    # 2. the full fit on the card
+    with open(dense_pkl, "rb") as f:
+        inferred = np.asarray(pickle.load(f)["oasis"], np.float32)[2:]
+    fit = dg_full_fit(inferred)
+
+    # 3. records, training with the EMA from host batches, DG metrics
+    records, run = os.path.join(root, "records"), os.path.join(root, "run")
+    start = time.perf_counter()
+    generate_tfrecords.cli([
+        "--input", dg_pkl, "--output_dir", records, "--sequence_length",
+        str(T), "--stride", str(DG_STRIDE), "--normalize", "--is_dg_data",
+        "--validation_size", str(DG_VAL_ROWS), "--verbose", "0"])
+    records_s = time.perf_counter() - start
+    info = pipeline.load_info(records)
+    C = CLI_NEURONS - 2
+    check(info["num_neurons"] == C and info["signal_shape"] == (T, C)
+          and info["validation_size"] == DG_VAL_ROWS,
+          f"DG records: {info['signal_shape']}, {info['validation_size']}")
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    spy = Spy(train, "train_epoch", "validate_epoch", "make_batch_sources",
+              "sample_and_plot")
+    start = time.perf_counter()
+    with spy:
+        train_main.cli(train_flags(
+            records, run, 2, "--ema", "0.999", "--device_store", "off",
+            "--save_generated", "last"))
+    train_s = time.perf_counter() - start
+    train_launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    dg_epoch_s = [c["s"] for c in spy.calls["train_epoch"]]
+    check(set(train_launches) == {"oasis_ar1/shared"}
+          and train_launches["oasis_ar1/shared"] >= 2 and calls == 0,
+          f"DG sampling epochs launched {train_launches}, plain calls "
+          f"{calls}")
+    # what those launches wrote, against the float64 golden, and the kernel
+    # against its plain version at a sampling epoch's shape
+    dg_samples = spy.calls["sample_and_plot"]
+    check(len(dg_samples) == 2, f"{len(dg_samples)} DG sampling epochs")
+    dg_sample_diff = sampled_vs_golden(dg_samples, (C, T),
+                                       "DG sampling epochs")
+    dg_sample_twin = hold_to_twin(dg_samples[-1]["out"][0], 1,
+                                  "DG sampling epoch")
+    sources = spy.calls["make_batch_sources"][0]["out"]
+    check(all(isinstance(s, pipeline.HostBatches) for s in sources),
+          f"--device_store off: batches from {sources}")
+    logs = [c["out"] for c in spy.calls["train_epoch"]
+            + spy.calls["validate_epoch"]]
+    check(len(logs) == 4 and all(np.isfinite(v) for d in logs
+                                 for v in d.values()),
+          f"DG training: non-finite losses {logs}")
+    steps = info["train_size"] // 128
+    # the EMA side-car: other weights than the raw generator's, what the
+    # validation pass saved and what generate serves
+    ckpt_dir = os.path.join(run, "checkpoints")
+    stored = torch.load(checkpoint.port_checkpoint_path(ckpt_dir, 1),
+                        map_location="cpu", weights_only=True)
+    ema_gap = max(float((stored["ema"][k] - v).abs().max())
+                  for k, v in stored["generator"]["params"].items())
+    check(ema_gap > 0, "the generator EMA equals the raw generator")
+    cfg = Config(output_dir=run, verbose=0).load()
+    fake_file = io.load_generated_info(cfg)[1]["filename"]
+    check(h5.get_shape(fake_file, "signals") == (DG_VAL_ROWS, T, C),
+          f"DG epoch file {h5.get_shape(fake_file, 'signals')}")
+    saved = h5.get(fake_file, "signals")
+    # the last epoch's one validation batch, generated again from its noise
+    noise = Draws(SEED, train._VALIDATION_COUNTER + 1, "cuda").noise(
+        128, cfg.noise_dim)
+    served, replayed = {}, {}
+    for ema in (True, False):
+        params, epoch = checkpoint.restore_generator_params(
+            ckpt_dir, ema=ema, model=cfg.model)
+        served[ema] = next(generate_mod.generate(
+            cfg, params, 8, 8, seed=SEED, device="cuda"))["signals"]
+        again = pipeline.reverse_preprocessing(cfg, gan.generate(
+            generate_mod.build_generator(cfg, params, "cuda"), noise))
+        replayed[ema] = float(np.abs(
+            again[:DG_VAL_ROWS].float().cpu().numpy() - saved).max())
+    check(epoch == 1 and bool(np.isfinite(served[True]).all())
+          and float(np.abs(served[True] - served[False]).max()) > 0,
+          "generate serves the raw generator where the run kept an EMA")
+    check(replayed[True] < 0.1 * replayed[False],
+          f"--save_generated: the epoch file is {replayed[True]} from the "
+          f"EMA generator's output and {replayed[False]} from the raw one's")
+
+    def dg_metrics(device, output_dir=run):
+        config, _ = compute_dg_metrics.parse_args(
+            ["--output_dir", output_dir, "--device", device])
+        config.verbose = 0
+        stages = {}
+        start = time.perf_counter()
+        results = compute_dg_metrics.main(config, device=device,
+                                          seconds=stages)
+        torch.cuda.synchronize()
+        return results, config, stages, time.perf_counter() - start
+
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    results, metrics_cfg, stages, metrics_s = dg_metrics("cuda")
+    metrics_launches = dict(oasis_cuda.launches)
+    metrics_calls = oasis_torch.calls
+    check(set(metrics_launches) == {"oasis_ar1/shared"}
+          and metrics_calls == 0,
+          f"compute_dg_metrics launched {metrics_launches}, plain calls "
+          f"{metrics_calls}")
+    flat = {f"{a}/{b}": v for a, d in results.items() for b, v in d.items()}
+    check(all(np.isfinite(v) for v in flat.values()),
+          f"DG metrics of synthetic data: {flat}")
+    check(h5.get_shape(fake_file, "spikes") == (DG_VAL_ROWS, T, C)
+          and stages.get("traces") == DG_VAL_ROWS * C,
+          f"DG epoch file's spikes: {stages}")
+    # the spikes that call wrote, against the float64 references, and the
+    # kernel against its plain version at the file's shape on every rung
+    # the call climbed
+    file_spikes = h5.get(fake_file, "spikes")
+    check(file_spikes.dtype == np.int8
+          and set(np.unique(file_spikes).tolist()) <= {0, 1},
+          f"DG epoch file's spikes: {file_spikes.dtype}")
+    traces = np.ascontiguousarray(h5.get(fake_file, "signals").transpose(
+        0, 2, 1)).reshape(-1, T)
+    ours = np.ascontiguousarray(file_spikes.transpose(0, 2, 1)).reshape(
+        -1, T)
+    vs_cxx = int((ours != dispatch._exact_spikes_host(
+        traces, G, S_MIN, THRESHOLD)).sum())
+    check(vs_cxx == 0, f"DG epoch file: {vs_cxx} spike mismatches vs the "
+                       f"C++ float64 kernel")
+    pick = np.sort(np.random.default_rng(SEED).choice(
+        len(traces), DG_GOLDEN_TRACES, replace=False))
+    vs_golden = int((ours[pick] != golden_spikes(traces[pick])).sum())
+    check(vs_golden == 0, f"DG epoch file: {vs_golden} spike mismatches vs "
+                          f"float64")
+    file_twin = hold_to_twin(traces, metrics_launches["oasis_ar1/shared"],
+                             "DG epoch file")
+    # the statistics on the card against the CPU, then the whole CLI with
+    # --device cpu on a copy of the trials it reads, without their spikes:
+    # the CPU deconvolves for itself, by the plain version
+    stat_errs = {}
+    for name, filename in (("dg", metrics_cfg.validation_cache),
+                           ("generated", fake_file)):
+        card = compute_dg_metrics.get_data_statistics(metrics_cfg, filename,
+                                                      "cuda")
+        cpu = compute_dg_metrics.get_data_statistics(metrics_cfg, filename,
+                                                     "cpu")
+        stat_errs[name] = dict(
+            firing_rate=float(np.abs(card[0] - cpu[0]).max()),
+            covariance=float(np.abs(card[1] - cpu[1]).max()))
+        check(stat_errs[name]["firing_rate"] == 0.0
+              and stat_errs[name]["covariance"] <= STAT_CORR_TOL,
+              f"DG statistics of {name}: card vs CPU {stat_errs[name]}")
+    check(metrics_cfg.num_trials == DG_CPU_TRIALS,
+          f"compute_dg_metrics read {metrics_cfg.num_trials} trials")
+    cpu_run = os.path.join(root, "run_cpu")
+    cpu_file = head_of_run_without_spikes(run, cpu_run, DG_CPU_TRIALS)
+    oasis_torch.calls = 0
+    on_cpu, _, cpu_stages, cpu_s = dg_metrics("cpu", cpu_run)
+    cpu_calls = oasis_torch.calls
+    check(cpu_stages.get("traces") == DG_CPU_TRIALS * C and cpu_calls > 0,
+          f"--device cpu did not deconvolve its copy: {cpu_stages}, "
+          f"{cpu_calls} plain calls")
+    cpu_spike_diff = int((h5.get(cpu_file, "spikes")
+                          != file_spikes[:DG_CPU_TRIALS]).sum())
+    check(cpu_spike_diff == 0, f"compute_dg_metrics: {cpu_spike_diff} spikes "
+                               f"differ between --device cuda and cpu")
+    cli_err = max(abs(v - on_cpu[k.split("/")[0]][k.split("/")[1]])
+                  / max(abs(v), 1e-30) for k, v in flat.items())
+    check(cli_err <= 1e-5, f"compute_dg_metrics: --device cuda vs cpu "
+                           f"{cli_err} relative")
+
+    # 4. the surrogate set at its defaults, the mlp model, vanilla GAN
+    surrogate = os.path.join(root, "surrogate")
+    start = time.perf_counter()
+    generate_surrogate_data.main(["--output_dir", surrogate, "--seed",
+                                  str(SEED), "--device", "cuda"])
+    surrogate_s = time.perf_counter() - start
+    for name in ("surrogate", "ground_truth"):
+        with open(os.path.join(surrogate, name + ".pkl"), "rb") as f:
+            spikes = pickle.load(f)["spikes"]
+        check(spikes.shape == (SURROGATE_SAMPLES, 2, 6)
+              and spikes.dtype == np.float32, f"{name}.pkl {spikes.shape}")
+        rate = spikes.mean((0, 2), dtype=np.float64)
+        expected = torch.special.ndtr(torch.tensor(
+            [0.6, 0.8], dtype=torch.float64)).numpy()
+        check(float(np.abs(rate - expected).max()) <= 2e-3,
+              f"{name}.pkl rates {rate}, expected {expected}")
+    del spikes
+    with open(os.path.join(surrogate, "training.pkl"), "rb") as f:
+        training = pickle.load(f)
+    check(training["signals"].shape == training["spikes"].shape
+          == (9192, 2, 6) and bool(np.isfinite(training["signals"]).all()),
+          f"training.pkl {training['signals'].shape}")
+    mlp_run = os.path.join(root, "run_mlp")
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    spy = Spy(train, "train_epoch", "validate_epoch",
+              "generate_surrogate_dataset", "sample_and_plot")
+    start = time.perf_counter()
+    with spy:
+        train_main.cli([
+            "--input_dir", surrogate, "--output_dir", mlp_run, "--model",
+            "mlp", "--algorithm", "gan", "--epochs", str(MLP_EPOCHS),
+            "--checkpoint_every", "1", "--seed", str(SEED), "--device",
+            "cuda", "--verbose", "0"])
+    mlp_s = time.perf_counter() - start
+    mlp_launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    check(set(mlp_launches) == {"oasis_ar1/shared"}
+          and mlp_launches["oasis_ar1/shared"] >= MLP_EPOCHS and calls == 0,
+          f"mlp sampling epochs launched {mlp_launches}, plain calls {calls}")
+    # 2 traces of 6 frames: fewer frames than a ring is deep, part of a warp
+    mlp_samples = spy.calls["sample_and_plot"]
+    check(len(mlp_samples) == MLP_EPOCHS,
+          f"{len(mlp_samples)} mlp sampling epochs")
+    mlp_sample_diff = sampled_vs_golden(mlp_samples, (2, 6),
+                                        "mlp sampling epochs")
+    mlp_sample_twin = hold_to_twin(mlp_samples[-1]["out"][0], 1,
+                                   "mlp sampling epoch")
+    mlp_logs = [c["out"] for c in spy.calls["train_epoch"]
+                + spy.calls["validate_epoch"]]
+    check(len(mlp_logs) == 2 * MLP_EPOCHS
+          and all(np.isfinite(v) for d in mlp_logs for v in d.values())
+          and "loss/gradient_penalty" not in mlp_logs[0],
+          f"mlp training: {mlp_logs}")
+    mlp_cfg = Config(output_dir=mlp_run, verbose=0).load()
+    check(mlp_cfg.model == "mlp" and mlp_cfg.algorithm == "gan"
+          and mlp_cfg.surrogate_ds and mlp_cfg.signal_shape == (6, 2),
+          f"mlp run: {mlp_cfg.model}, {mlp_cfg.signal_shape}")
+    with open(os.path.join(mlp_run, "generated.pkl"), "rb") as f:
+        generated = pickle.load(f)["signals"]
+    check(generated.shape == (SURROGATE_SAMPLES, 6, 2)
+          and generated.dtype == np.float32
+          and bool(np.isfinite(generated).all()),
+          f"generated.pkl {generated.shape}")
+    versus = gan_step_card_vs_cpu()
+
+    torch.cuda.synchronize()
+    report("phase 9 DG experiments", card=smi,
+           dg_data_cli=dict(
+               note="both packages pass the data's covariance where the "
+                    "sampler takes a correlation matrix, as the reference "
+                    "does: a neuron fires with Phi(mu / sigma)",
+               phase5_recording=sparse["report"],
+               dense_recording=dict(dense["report"],
+                                    spikes_per_frame_synthesised=DG_DENSE_RATE,
+                                    shared_source_weight=DG_SHARED,
+                                    spike_inference_cli_s=inference_s)),
+           ar1_filter=filtered, full_fit=fit,
+           dg_run=dict(records=dict(windows=info["train_size"]
+                                    + info["validation_size"],
+                                    stride=DG_STRIDE, shape=[T, C],
+                                    generate_tfrecords_s=records_s),
+                       flags="flagship recipe, --ema 0.999 --device_store "
+                             "off --save_generated last",
+                       epochs=2, steps_per_epoch=steps, seconds=train_s,
+                       train_epoch_s=dg_epoch_s,
+                       batches="HostBatches", ema_vs_raw_max_abs=ema_gap,
+                       epoch_file_vs_ema_generator=replayed[True],
+                       epoch_file_vs_raw_generator=replayed[False],
+                       sampling_launches=train_launches,
+                       sampled_traces=2 * C, golden="oasis_ref",
+                       mismatches_vs_golden=dg_sample_diff,
+                       kernel_vs_plain=dg_sample_twin),
+           compute_dg_metrics=dict(
+               of_seeded_synthetic_data=results, seconds=metrics_s,
+               stages_s=stages, launches=metrics_launches,
+               plain_calls=metrics_calls,
+               spikes=dict(generated=int(file_spikes.sum()),
+                           golden="oasis_ref", golden_traces=DG_GOLDEN_TRACES,
+                           mismatches_vs_golden=vs_golden,
+                           cxx_traces=len(traces), mismatches_vs_cxx=vs_cxx),
+               kernel_vs_plain=file_twin,
+               trials=metrics_cfg.num_trials, card_vs_cpu=stat_errs,
+               cli_cpu=dict(run="the first trials, without spikes",
+                            trials=DG_CPU_TRIALS, seconds=cpu_s,
+                            stages_s=cpu_stages, plain_calls=cpu_calls,
+                            spikes_differ=cpu_spike_diff),
+               cli_cuda_vs_cpu_rel=cli_err),
+           surrogate=dict(samples=SURROGATE_SAMPLES, shape=[6, 2],
+                          generate_surrogate_data_s=surrogate_s,
+                          training_rows=9192),
+           mlp_run=dict(flags="--model mlp --algorithm gan", epochs=MLP_EPOCHS,
+                        steps_per_epoch=8192 // 64, seconds=mlp_s,
+                        train_epoch_s=[c["s"] for c in
+                                       spy.calls["train_epoch"]],
+                        generated_pkl_s=spy.calls[
+                            "generate_surrogate_dataset"][0]["s"],
+                        generated=list(generated.shape),
+                        sampling_launches=mlp_launches,
+                        sampled_traces=MLP_EPOCHS * 2, golden="oasis_ref",
+                        mismatches_vs_golden=mlp_sample_diff,
+                        kernel_vs_plain=mlp_sample_twin,
+                        last_logs=mlp_logs[MLP_EPOCHS - 1]),
+           gan_step_card_vs_cpu=versus)
+    return dict(train_launches=train_launches,
+                metrics_launches=metrics_launches, mlp_launches=mlp_launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1584,8 +2270,10 @@ def main() -> int:
     recordings = phase_recordings(smi)
     with tempfile.TemporaryDirectory() as work:
         training = phase_training(smi, work)
-        phase_prepare(smi, work, recordings.pop("recording"))
+        recording = recordings.pop("recording")
+        phase_prepare(smi, work, recording)
         evaluation = phase_evaluation(smi, work, training["run"])
+        dg = phase_dg(smi, work, recording)
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
@@ -1597,15 +2285,26 @@ def main() -> int:
          "replaces": "calciumgan_tpu/ops/oasis_pallas.py:603",
          **path_launches("oasis_ar1", collections.Counter(serving_launches)
                          + collections.Counter(training["launches"])
-                         + collections.Counter(evaluation["launches"])),
+                         + collections.Counter(evaluation["launches"])
+                         + collections.Counter(dg["train_launches"])
+                         + collections.Counter(dg["metrics_launches"])
+                         + collections.Counter(dg["mlp_launches"])),
          "launches_by_path": {
              "generate --spikes": launched("oasis_ar1", serving_launches),
              "main (sampling epochs)": launched("oasis_ar1",
                                                 training["launches"]),
              "compute_metrics": launched("oasis_ar1",
-                                         evaluation["launches"])},
+                                         evaluation["launches"]),
+             "main --ema --device_store off on DG records (sampling "
+             "epochs)": launched("oasis_ar1", dg["train_launches"]),
+             "compute_dg_metrics": launched("oasis_ar1",
+                                            dg["metrics_launches"]),
+             "main --model mlp --algorithm gan (sampling epochs)": launched(
+                 "oasis_ar1", dg["mlp_launches"])},
          "path": "generate --spikes; main (sampling epochs); "
-                 "compute_metrics (one epoch file of 1000 x 2048 x 102)",
+                 "compute_metrics (one epoch file of 1000 x 2048 x 102); "
+                 "the DG run's and the mlp run's sampling epochs; "
+                 "compute_dg_metrics (one epoch file of 64 x 2048 x 100)",
          "library_ms": None,
          **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"]))},
         {"name": "oasis_ar1_precise", "route": "cuda", "source": source,

@@ -8,8 +8,9 @@ walked as an AST (imports inside functions included) for imports of
 the float64 golden and ``synth_ar1_traces``, the h5 functions, the array
 layouts, ``segments``, ``io``'s info file, the figure renderers, the C++
 float64 redo and crc32c, the TFRecord codec, the event writer, the signal
-metrics and the phase shuffle) are held against the JAX package's modules
-on seeded inputs.
+metrics and the phase shuffle, the DG model's host helpers and the DG
+metrics' percentage errors) are held against the JAX package's modules on
+seeded inputs.
 """
 
 import argparse
@@ -20,6 +21,7 @@ import os
 import re
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -27,11 +29,13 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import compute_dg_metrics as root_dg_metrics
 from calciumgan_tpu import config as jax_config
 from calciumgan_tpu import native
 from calciumgan_tpu import registry as jax_registry
 from calciumgan_tpu.data import segments
 from calciumgan_tpu.data import tfrecord as jax_tfrecord
+from calciumgan_tpu.ops import dg as jax_dg
 from calciumgan_tpu.ops import oasis_ref
 from calciumgan_tpu.ops import phase_shuffle as jax_shuffle
 from calciumgan_tpu.ops import signal_metrics as jax_metrics
@@ -41,10 +45,12 @@ from calciumgan_tpu.utils import io as jax_io
 from calciumgan_tpu.utils import plots as jax_plots
 from calciumgan_tpu.utils import tb as jax_tb
 from calciumgan_tpu.utils.tb_reader import read_scalars
+from calciumgan_tpu_torch import compute_dg_metrics as port_dg_metrics
 from calciumgan_tpu_torch import config as port_config
 from calciumgan_tpu_torch.data import pipeline as port_pipeline
 from calciumgan_tpu_torch.data import tfrecord as port_tfrecord
 from calciumgan_tpu_torch.models import registry as port_registry
+from calciumgan_tpu_torch.ops import dg as port_dg
 from calciumgan_tpu_torch.ops import golden
 from calciumgan_tpu_torch.ops import oasis as port_oasis
 from calciumgan_tpu_torch.ops import phase_shuffle as port_shuffle
@@ -145,6 +151,11 @@ def test_port_loads_no_jax_package_module():
         "import calciumgan_tpu_torch.utils.arrays\n"
         "import calciumgan_tpu_torch.utils.plots\n"
         "import calciumgan_tpu_torch.data.segments\n"
+        "import calciumgan_tpu_torch.ops.dg, calciumgan_tpu_torch.models.mlp\n"
+        "import calciumgan_tpu_torch.compute_dg_metrics\n"
+        "import calciumgan_tpu_torch.dataset.generate_dg_data\n"
+        "import calciumgan_tpu_torch.dataset.generate_surrogate_data\n"
+        "import calciumgan_tpu_torch.dataset.get_coordinate\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('calciumgan_tpu', 'jax', 'jaxlib', 'flax', 'optax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -439,3 +450,64 @@ def test_plot_renderers_copy_equals_the_original():
     theirs = jax_plots.render_and_save("histograms_grid", payload,
                                        {"dpi": 50})
     assert ours[1:] == theirs[1:] and ours[0][:8] == b"\x89PNG\r\n\x1a\n"
+
+
+# ---- the DG slice's copies ---------------------------------------------------
+
+def _near_correlation(rng, n, defect):
+    a = rng.normal(size=(n, n))
+    m = (a + a.T) / 2
+    np.fill_diagonal(m, 1.0)
+    m[0, 1] = m[1, 0] = defect
+    return m
+
+
+@pytest.mark.parametrize("n,defect", [(6, 5.0), (4, 0.2), (9, -3.0)])
+def test_higham_copy_equals_the_original(n, defect):
+    m = _near_correlation(np.random.default_rng(n), n, defect)
+    for kw in ({}, {"maxiters": 3}):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ours = port_dg.Higham(**kw).higham_correction(m)
+            theirs = jax_dg.Higham(**kw).higham_correction(m)
+        np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_array_equal(port_dg.Higham.projection_S(m),
+                                  jax_dg.Higham.projection_S(m))
+    np.testing.assert_array_equal(port_dg.Higham.projection_U(m),
+                                  jax_dg.Higham.projection_U(m))
+    with pytest.warns(port_dg.WarningDG, match="iteration cap"):
+        port_dg.Higham(maxiters=3).higham_correction(
+            _near_correlation(np.random.default_rng(6), 6, 5.0))
+    assert issubclass(port_dg.WarningDG, UserWarning)
+
+
+def test_dg_matrix_helpers_equal_the_originals():
+    rng = np.random.default_rng(12)
+    a = rng.normal(size=(5, 5))
+    cov = a @ a.T
+    np.testing.assert_array_equal(port_dg.cov_to_corr(cov),
+                                  jax_dg.cov_to_corr(cov))
+    lopsided = cov + np.triu(rng.normal(size=(5, 5)), 1)
+    np.testing.assert_array_equal(port_dg.make_symmetric(lopsided),
+                                  jax_dg.make_symmetric(lopsided))
+    assert port_dg.make_symmetric(cov) is cov  # symmetric: returned as is
+    for m in (cov, _near_correlation(rng, 5, 5.0), np.zeros((3, 3))):
+        assert port_dg.is_positive_definite(m) == \
+            jax_dg.is_positive_definite(m)
+    assert port_dg.is_positive_definite(cov)
+    assert not port_dg.is_positive_definite(np.zeros((3, 3)))
+    assert (port_dg._GL_ORDER, list(port_dg._GL_NODES)) == (
+        jax_dg._GL_ORDER, list(jax_dg._GL_NODES))
+
+
+def test_percentage_error_copies_equal_the_originals():
+    rng = np.random.default_rng(13)
+    y_true = rng.random((30, 5))
+    y_true[rng.random((30, 5)) < 0.2] = 0.0  # the zero-target rule
+    y_pred = rng.random((30, 5))
+    for i in range(5):
+        np.testing.assert_array_equal(
+            port_dg_metrics.percentage_error(y_true[:, i], y_pred[:, i]),
+            root_dg_metrics.percentage_error(y_true[:, i], y_pred[:, i]))
+    assert port_dg_metrics.mean_absolute_percentage_error(y_true, y_pred) \
+        == root_dg_metrics.mean_absolute_percentage_error(y_true, y_pred)

@@ -246,6 +246,25 @@ def test_trainer_refuses_what_it_cannot_run(records, tmp_path):
         port_train.main(config, device=device)
 
 
+@pytest.mark.parametrize("extra,raises", [
+    (("--model", "mlp"), None),
+    (("--model", "calciumgan2d"), KeyError),
+    (("--batch_norm",), NotImplementedError)])
+def test_models_the_port_builds_and_refuses(records, extra, raises):
+    # mlp is ported; calciumgan2d is no entry of the port's registry yet
+    # and --batch_norm raises from models/base.py
+    config, _ = port_main.parse_args(flags(records, "unused", 1, *extra))
+    pipeline.get_datasets(config)
+    if raises is None:
+        gen, dis = get_models(config)
+        noise = torch.zeros(3, config.noise_dim)
+        assert gen(noise).shape == (3,) + tuple(config.signal_shape)
+        assert dis(gen(noise)).shape == (3, 1)
+        return
+    with pytest.raises(raises, match="calciumgan2d|batch_norm"):
+        get_models(config)
+
+
 def test_surrogate_pickle_loads_as_jax(tmp_path):
     rng = np.random.default_rng(8)
     data = {"signals": rng.random((12, 6, 64)).astype(np.float32) * 3,

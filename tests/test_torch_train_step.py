@@ -132,8 +132,10 @@ _NETS = (("generator", convert.generator_state_dict),
          ("discriminator", convert.discriminator_state_dict))
 
 
-def check_step(new, tstate, bf16):
-    for name, to_sd in _NETS:
+def check_step(new, tstate, bf16, nets=_NETS):
+    """``nets``: each net's name and its Flax-to-``state_dict`` rule, the
+    generator's first."""
+    for name, to_sd in nets:
         net = getattr(tstate, name)
         assert net.step == int(getattr(new, name).step)
         tol = BF16_GRAD_TOL if bf16 else F32_GRAD_TOL
@@ -142,9 +144,8 @@ def check_step(new, tstate, bf16):
     if bf16:
         return
     # the generator's one Adam step, where its gradient is well above eps
-    pairs = moments(new.generator, tstate.generator,
-                    convert.generator_state_dict)
-    updated = convert.generator_state_dict(new.generator.params)
+    pairs = moments(new.generator, tstate.generator, nets[0][1])
+    updated = nets[0][1](new.generator.params)
     for n, p in tstate.generator.module.named_parameters():
         _, ref_mu = pairs[n]
         sure = ref_mu.abs() > 1e-3 * ref_mu.abs().max()

@@ -1,10 +1,11 @@
-"""Shared by the port's step parity tests: the tiny configuration, the
+"""Shared by the port's step parity tests: the tiny configurations, the
 shared weights, and the capture and replay of the JAX package's random
-draws (see ``test_torch_train_step.py``)."""
+draws (see ``test_torch_train_step.py`` and ``test_torch_mlp.py``)."""
 
 import collections
 import contextlib
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,7 @@ from calciumgan_tpu.algorithms.state import GANState, make_net_state
 from calciumgan_tpu.config import Config as JaxConfig
 from calciumgan_tpu.models import calciumgan as jax_calciumgan
 from calciumgan_tpu.models import get_models as jax_get_models
+from calciumgan_tpu.models import mlp as jax_mlp
 from calciumgan_tpu.ops.phase_shuffle import _shift_axis as jax_shift_axis
 from calciumgan_tpu_torch import convert
 from calciumgan_tpu_torch.algorithms import get_algorithm
@@ -32,6 +34,13 @@ def tiny(**kw):
              learning_rate=1e-5)
     d.update(kw)
     return d
+
+
+def tiny_mlp(**kw):
+    """The surrogate set's shape: sequences of 6 frames, 2 neurons."""
+    return tiny(**dict(dict(model="mlp", sequence_length=6, num_neurons=2,
+                            num_channels=2, signal_shape=(6, 2),
+                            dropout=0.2), **kw))
 
 
 class Recorder:
@@ -66,6 +75,11 @@ class Replay:
     def shifts(self, m, count):
         return [int(self.queue["shift"].pop(0)) for _ in range(count)]
 
+    def dropout(self, shape, rate):
+        keep = self.queue["dropout"].pop(0)
+        assert keep.shape == tuple(shape) and keep.dtype == np.bool_
+        return torch.from_numpy(keep)
+
     def left(self):
         return {k: len(v) for k, v in self.queue.items() if v}
 
@@ -73,15 +87,18 @@ class Replay:
 def make_pair(rec, **kw):
     """The port's algorithm and state, and the JAX algorithm (its noise and
     alpha draws recorded) with a state holding the same weights; the
-    weights are the port's glorot draws, so no Flax ``init`` is compiled."""
-    cfg = Config(**tiny(**kw))
+    weights are the port's glorot draws, so no Flax ``init`` is compiled.
+    ``model="mlp"`` takes :func:`tiny_mlp`'s sizes."""
+    sizes = tiny_mlp(**kw) if kw.get("model") == "mlp" else tiny(**kw)
+    cfg = Config(**sizes)
     algo = get_algorithm(cfg, *get_models(
         cfg, rng=torch.Generator().manual_seed(0)))
-    jcfg = JaxConfig(**tiny(**kw))
+    jcfg = JaxConfig(**sizes)
     jalgo = jax_get_algorithm(jcfg, *jax_get_models(jcfg))
-    gen = convert.flax_generator_params(algo.generator.state_dict())
+    gen = convert.flax_generator_params(algo.generator.state_dict(),
+                                        cfg.model)
     dis = convert.flax_discriminator_params(
-        algo.discriminator.state_dict())
+        algo.discriminator.state_dict(), cfg.model)
     jstate = GANState(generator=make_net_state({"params": gen},
                                                jalgo.tx_gen),
                       discriminator=make_net_state({"params": dis},
@@ -104,11 +121,45 @@ def make_pair(rec, **kw):
     return algo, algo.init_state(), jalgo, jstate
 
 
+def recording_dropout(rec):
+    """Flax's ``nn.Dropout`` with its keep mask recorded: the same name (so
+    the same ``dropout`` RNG path), the same draw, the same arithmetic."""
+
+    class Dropout(nn.Dropout):
+
+        @nn.compact
+        def __call__(self, inputs, deterministic=None, rng=None):
+            deterministic = nn.merge_param(
+                "deterministic", self.deterministic, deterministic)
+            if self.rate == 0.0 or deterministic:
+                return inputs
+            keep_prob = 1.0 - self.rate
+            keep = jax.random.bernoulli(self.make_rng("dropout"),
+                                        p=keep_prob, shape=inputs.shape)
+            jax.debug.callback(rec("dropout"), keep, ordered=True)
+            return jax.lax.select(keep, inputs / keep_prob,
+                                  jnp.zeros_like(inputs))
+
+    return Dropout
+
+
+class _Linen:
+    """``flax.linen`` as ``calciumgan_tpu.models.mlp`` reads it at call
+    time, with another ``Dropout``."""
+
+    def __init__(self, dropout):
+        self.Dropout = dropout
+
+    def __getattr__(self, name):
+        return getattr(nn, name)
+
+
 @contextlib.contextmanager
 def recording():
     """A :class:`Recorder` of the JAX discriminator's phase shifts, drawn
     exactly as ``calciumgan_tpu.ops.phase_shuffle.phase_shuffle`` draws
-    them, while the context lasts."""
+    them, and of the JAX mlp model's dropout masks, while the context
+    lasts."""
     rec = Recorder()
 
     def phase_shuffle(x, key, m, axis=1):
@@ -120,8 +171,10 @@ def recording():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_calciumgan, "phase_shuffle", phase_shuffle)
+        mp.setattr(jax_mlp, "nn", _Linen(recording_dropout(rec)))
         yield rec
 
 
-def real_batch(n=8, seed=0):
-    return np.random.default_rng(seed).random((n, 64, 6)).astype(np.float32)
+def real_batch(n=8, seed=0, shape=(64, 6)):
+    return np.random.default_rng(seed).random((n,) + shape).astype(
+        np.float32)
