@@ -14,6 +14,12 @@ Behaviours kept:
 - per-batch signal metrics on denormalised data (``gan.py:110-112``);
 - the generator EMA is a side-car: updated after each generator step, used
   by evaluation and sampling, never by training (``gan.py:56-64,97-103``).
+  It averages parameters only: sampling pairs it with the generator's
+  BatchNorm running statistics, the module's buffers;
+- a ``--batch_norm`` generator moves its running statistics once per
+  training pass: once a step here, as the JAX step keeps the statistics of
+  one of its two identical passes (``gan.py:182-197``); evaluation,
+  sampling and generation read them (``training=False``).
 
 Randomness comes from a :class:`Draws`, one per step: noise, GP alpha and
 dropout masks from a ``torch.Generator`` on the device, phase shifts from
@@ -87,12 +93,16 @@ class Draws:
                           dtype=torch.float32) < (1.0 - rate)
 
 
-def eval_gen_params(state: Mapping):
-    """Generator params for generation: the EMA when the state has one.
-    ``state`` is a train-state dictionary as the JAX checkpoints store it
-    (``{"generator": {"params": ...}, "ema_params": ... or None, ...}``)."""
+def eval_gen_variables(state: Mapping) -> dict:
+    """Generator variables for generation, as ``GAN.generate`` takes them
+    (``gan.py:229-231``): the EMA params when the state has one, else the
+    raw ones, beside the generator's BatchNorm running statistics
+    (``{}`` without BatchNorm). ``state`` is a train-state dictionary as the
+    JAX checkpoints store it (``{"generator": {"params": ..., "batch_stats":
+    ...}, "ema_params": ... or None, ...}``)."""
     ema = state.get("ema_params")
-    return ema if ema is not None else state["generator"]["params"]
+    return {"params": ema if ema is not None else state["generator"]["params"],
+            "batch_stats": state["generator"].get("batch_stats") or {}}
 
 
 def denormalize(config, x):
@@ -174,8 +184,11 @@ class GAN:
                             alpha=1.0 - self.ema)
 
     def sample(self, state: GANState, noise: torch.Tensor) -> torch.Tensor:
-        """Generator output for evaluation and sampling (no dropout): the
-        EMA params when the state has them, else the raw ones."""
+        """Generator output for evaluation and sampling (no dropout, the
+        BatchNorm's running statistics): the EMA params when the state has
+        them, else the raw ones. ``functional_call`` swaps in the EMA's
+        parameters only, so the module's buffers, the running statistics,
+        stay."""
         with torch.no_grad():
             if state.ema is None:
                 return self.generator(noise)
@@ -189,7 +202,9 @@ class GAN:
     def gen(self, noise: torch.Tensor, draws, *,
             training: bool) -> torch.Tensor:
         """One generator pass with this pass's draws (dropout masks in a
-        training pass of a model that has dropout)."""
+        training pass of a model that has dropout); a training pass of a
+        BatchNorm generator moves its running statistics, under
+        ``torch.no_grad()`` too."""
         g = self.generator
         return g(noise, *g.draw_inputs(draws, noise.shape[0], training))
 

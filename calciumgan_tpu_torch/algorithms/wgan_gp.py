@@ -18,7 +18,10 @@ The paper's semantics, as the JAX package keeps them:
 - a model with dropout (``mlp``) draws fresh masks for every pass of a
   train step: the generator's, the critic's over ``concat(real, fake)``,
   the penalty's (dropout is active inside the penalty, ``:74-77``) and the
-  generator step's two; ``eval_step`` runs every pass without dropout.
+  generator step's two; ``eval_step`` runs every pass without dropout;
+- a ``--batch_norm`` generator moves its running statistics in each of
+  its ``n_critic + 1`` training passes: the critic steps' (under
+  ``torch.no_grad()``) and the generator step's (``:107-154``).
 
 ``--unroll_critic`` (XLA cost accounting) and the sharding pins (a
 partitioner workaround) have no counterpart here.

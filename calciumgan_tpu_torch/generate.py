@@ -4,8 +4,9 @@
     python -m calciumgan_tpu_torch.generate --output_dir runs/001 \\
         --num_samples 100000 --spikes
 
-Restores the generator (the EMA when the run kept one) from the newest
-checkpoint under ``<output_dir>/checkpoints``: the port's own
+Restores the generator (the EMA when the run kept one, with the
+generator's BatchNorm running statistics) from the newest checkpoint under
+``<output_dir>/checkpoints``: the port's own
 ``epoch-NNN.pt`` or the JAX package's ``epoch-NNN.msgpack``
 (:func:`~calciumgan_tpu_torch.utils.checkpoint.restore_generator_params`),
 generates on ``--device`` (default ``cuda``) and writes denormalised NWC
@@ -34,15 +35,17 @@ from calciumgan_tpu_torch.models import get_models
 from calciumgan_tpu_torch.utils.checkpoint import restore_generator_params
 
 
-def build_generator(config, params, device) -> torch.nn.Module:
-    """The configured generator on ``device`` with Flax ``params``."""
+def build_generator(config, variables, device) -> torch.nn.Module:
+    """The configured generator on ``device`` with Flax ``variables``
+    (``{"params": ..., "batch_stats": ...}``): its parameters and its
+    BatchNorm running statistics, all of which it must take."""
     generator, _ = get_models(config, device=device)
-    generator.load_state_dict(
-        convert.generator_state_dict(params, config.model))
+    generator.load_state_dict(convert.generator_state_dict(
+        variables["params"], config.model, variables.get("batch_stats")))
     return generator
 
 
-def generate(config, params, num_samples: int, batch_size: int = 1024,
+def generate(config, variables, num_samples: int, batch_size: int = 1024,
              with_spikes: bool = False, seed: int = 0,
              device="cuda") -> Iterator[dict]:
     """Yield one payload per batch until ``num_samples`` rows: ``signals``
@@ -54,7 +57,7 @@ def generate(config, params, num_samples: int, batch_size: int = 1024,
     follow torch's TF32 switches, which the caller sets (:func:`main` turns
     both off)."""
     device = torch.device(device)
-    generator = build_generator(config, params, device)
+    generator = build_generator(config, variables, device)
     rng = torch.Generator(device=device).manual_seed(seed)
     written = 0
     while written < num_samples:
@@ -83,14 +86,14 @@ def main(config, num_samples: int, out: str, batch_size: int = 1024,
     config.validate_model_shapes()
     ckpt_dir = config.ckpt_dir or os.path.join(config.output_dir,
                                                "checkpoints")
-    params, restored_epoch = restore_generator_params(
+    variables, restored_epoch = restore_generator_params(
         ckpt_dir, epoch=epoch, ema=float(config.ema or 0.0) > 0.0,
         model=config.model)
     if config.verbose:
         print(f"Restored checkpoint epoch {restored_epoch} from {ckpt_dir}")
     h5.remove(out)
     written = 0
-    for payload in generate(config, params, num_samples, batch_size,
+    for payload in generate(config, variables, num_samples, batch_size,
                             with_spikes, seed, device):
         h5.write(out, payload)
         written += len(payload["signals"])

@@ -1,9 +1,10 @@
 """Model zoo (PyTorch counterpart of :mod:`calciumgan_tpu.models`).
 
-Importing this package registers the ported models: ``calciumgan`` and
-``mlp`` (each a generator and a discriminator).
+Importing this package registers the ported models: ``calciumgan``,
+``calciumgan2d`` and ``mlp`` (each a generator and a discriminator).
 """
 
-from calciumgan_tpu_torch.models import calciumgan, mlp  # noqa: F401
+from calciumgan_tpu_torch.models import (  # noqa: F401
+    calciumgan, calciumgan2d, mlp)
 from calciumgan_tpu_torch.models.registry import (  # noqa: F401
     get_models, models)

@@ -7,15 +7,21 @@ Keras-parity choices kept from the JAX package (``base.py:3-9``):
   conv kernel's fans count its receptive field (``K*Cin``, ``K*Cout``),
 - LeakyReLU slope 0.3,
 - LayerNorm epsilon 1e-3 over the channel axis with Flax's fast variance
-  ``E[x^2] - E[x]^2``, skipped when that axis has size 1 (``base.py:45-70``).
+  ``E[x^2] - E[x]^2``, skipped when that axis has size 1 (``base.py:45-70``),
+- BatchNorm before it (Flax's ``nn.BatchNorm``, momentum 0.99, epsilon
+  1e-3), never skipped.
 
 Mixed precision follows Flax, not autocast: each module carries its compute
 ``dtype`` as an attribute, keeps float32 parameters and casts inputs and
-parameters to ``dtype`` on use. LayerNorm statistics are float32.
+parameters to ``dtype`` on use. Norm statistics are float32.
 
-Layout: modules compute in NCW (batch, channel, time); the models' public
-boundary is NWC (:mod:`calciumgan_tpu_torch.models.calciumgan`). Flax kernel
-layouts are converted by :mod:`calciumgan_tpu_torch.convert`.
+Layout: modules compute channels-first, NCW (batch, channel, time) or NCHW
+(batch, channel, time, neuron); the models' public boundary is channels-last
+(:mod:`calciumgan_tpu_torch.models.calciumgan`,
+:mod:`calciumgan_tpu_torch.models.calciumgan2d`). The convolutions take one
+or two spatial axes: an ``int`` kernel size and stride are 1-D, a pair 2-D,
+with SAME padding worked out per axis. Flax kernel layouts are converted by
+:mod:`calciumgan_tpu_torch.convert`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 LAYER_NORM_EPS = 1e-3
+BATCH_NORM_EPS = 1e-3
+BATCH_NORM_MOMENTUM = 0.99
+_CONV = {1: F.conv1d, 2: F.conv2d}
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -88,121 +97,223 @@ class Dense(nn.Module):
 
 
 def same_conv_padding(width: int, kernel_size: int, stride: int) -> tuple:
-    """(pad_lo, pad_hi) of XLA's SAME convolution: the output has
-    ``ceil(W/s)`` frames, the padding totals ``max((ceil(W/s)-1)*s + K - W,
-    0)`` and its floor half goes on the left, so it is asymmetric when the
-    total is odd."""
+    """(pad_lo, pad_hi) of XLA's SAME convolution on one axis: the output
+    has ``ceil(W/s)`` frames, the padding totals ``max((ceil(W/s)-1)*s + K -
+    W, 0)`` and its floor half goes on the left, so it is asymmetric when
+    the total is odd."""
     out = -(-width // stride)
     total = max((out - 1) * stride + kernel_size - width, 0)
     return total // 2, total - total // 2
 
 
+def _spatial(kernel_size, stride) -> tuple:
+    """``(kernel, stride)`` as tuples with one entry per spatial axis."""
+    kernel = tuple(kernel_size) if isinstance(kernel_size, (tuple, list)) \
+        else (kernel_size,)
+    stride = tuple(stride) if isinstance(stride, (tuple, list)) \
+        else (stride,) * len(kernel)
+    return kernel, stride
+
+
+def _per_channel(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A ``(C,)`` tensor shaped to broadcast over channels-first input of
+    ``ndim`` axes."""
+    return t.view(-1, *([1] * (ndim - 2)))
+
+
 class Conv(nn.Module):
-    """Flax ``nn.Conv`` with padding SAME and stride ``s``, in NCW; weight
-    stored ``(Cout, Cin, K)``. ``F.conv1d`` is a correlation, as
+    """Flax ``nn.Conv`` with padding SAME, channels-first; weight stored
+    ``(Cout, Cin, *K)``. ``F.conv1d``/``F.conv2d`` are correlations, as
     ``lax.conv`` is, so the Flax kernel is not flipped. Torch's
     ``padding="same"`` rejects stride > 1, so the SAME padding of
-    :func:`same_conv_padding` is given explicitly."""
+    :func:`same_conv_padding` is given explicitly, and where one axis pads
+    asymmetrically the input is padded by ``F.pad`` first."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, dtype: torch.dtype, rng: torch.Generator,
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride, dtype: torch.dtype, rng: torch.Generator,
                  device=None):
         super().__init__()
         self.dtype = dtype
-        self.kernel_size = kernel_size
-        self.stride = stride
+        self.kernel_size, self.stride = _spatial(kernel_size, stride)
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, kernel_size, device=device))
+            out_channels, in_channels, *self.kernel_size, device=device))
         self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
-        glorot_uniform_(self.weight, kernel_size * in_channels,
-                        kernel_size * out_channels, rng)
+        area = math.prod(self.kernel_size)
+        glorot_uniform_(self.weight, area * in_channels, area * out_channels,
+                        rng)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        lo, hi = same_conv_padding(x.shape[-1], self.kernel_size,
-                                   self.stride)
-        if lo == hi:
-            y = F.conv1d(x, self.weight.to(self.dtype), stride=self.stride,
-                         padding=lo)
-        else:
-            y = F.conv1d(F.pad(x, (lo, hi)), self.weight.to(self.dtype),
-                         stride=self.stride)
+        pads = [same_conv_padding(w, k, s) for w, k, s in
+                zip(x.shape[2:], self.kernel_size, self.stride)]
+        conv = _CONV[len(pads)]
+        w = self.weight.to(self.dtype)
+        if all(lo == hi for lo, hi in pads):
+            y = conv(x, w, stride=self.stride,
+                     padding=tuple(lo for lo, _ in pads))
+        else:  # F.pad lists the last axis first
+            y = conv(F.pad(x, [p for pair in reversed(pads) for p in pair]),
+                     w, stride=self.stride)
         # bias added after the convolution, as Flax does
-        return y + self.bias.to(self.dtype)[:, None]
+        return y + _per_channel(self.bias.to(self.dtype), y.ndim)
 
 
 def same_transpose_padding(kernel_size: int, stride: int) -> tuple:
     """(pad_a, pad_b) that ``lax.conv_transpose`` gives padding SAME on the
-    dilated input: ``pad_len = K+s-2``, ``pad_a = K-1`` if ``s > K-1`` else
-    ``ceil(pad_len/2)``. The output length is ``W*s``."""
+    dilated input of one axis: ``pad_len = K+s-2``, ``pad_a = K-1`` if ``s >
+    K-1`` else ``ceil(pad_len/2)``. The output length is ``W*s``."""
     pad_len = kernel_size + stride - 2
     pad_a = (kernel_size - 1 if stride > kernel_size - 1
              else -(-pad_len // 2))
     return pad_a, pad_len - pad_a
 
 
+def _conv_transpose1d(x, w, stride, pads) -> torch.Tensor:
+    """``F.conv_transpose1d`` with the weight K-flipped. Flax's output frame
+    ``o`` is PyTorch's frame ``o`` at ``padding = K-1-pad_a``; the end gets
+    ``output_padding = pad_b - pad_a`` frames (``s-K`` when ``s > K-1``,
+    else 0 or -1). Where that is -1 (odd ``K+s``), PyTorch's padding would
+    take the frame from the wrong side, so the full (padding 0) output is
+    cropped."""
+    (s,), ((pad_a, pad_b),) = stride, pads
+    padding, output_padding = w.shape[-1] - 1 - pad_a, pad_b - pad_a
+    if output_padding < 0:
+        return F.conv_transpose1d(x, w, stride=s).narrow(
+            -1, padding, x.shape[-1] * s)
+    return F.conv_transpose1d(x, w, stride=s, padding=padding,
+                              output_padding=output_padding)
+
+
+def _dilated_conv2d(x, w, stride, pads) -> torch.Tensor:
+    """``lax.conv_transpose`` as XLA defines it: the input dilated by the
+    strides (zeros between frames), padded ``(pad_a, pad_b)`` on each axis
+    and correlated at stride 1 with Flax's kernel, which is the stored
+    K-flipped weight flipped back. cuDNN runs ``F.conv_transpose2d`` at the
+    conv2d recipe's first two layers as a strided backward-data convolution
+    off the tensor cores, 4.54 and 6.13 s at batch 64, and this form as a
+    forward convolution on them, 23 and 158 ms (NVIDIA H100 80GB HBM3,
+    700 W; ``chip_smoke.py`` phase 10); the dilation's zeros cost
+    ``sh*sw`` times the products, which makes layers 2-3 slower this way
+    (218 and 147 ms against 70 and 90)."""
+    if any(s > 1 for s in stride):
+        size = [(n - 1) * s + 1 for n, s in zip(x.shape[2:], stride)]
+        dilated = x.new_zeros(*x.shape[:2], *size)
+        dilated[(..., *(slice(None, None, s) for s in stride))] = x
+        x = dilated
+    kernel = w.flip((2, 3)).transpose(0, 1)  # Flax's (Cout, Cin, kh, kw)
+    if all(a == b for a, b in pads):
+        return F.conv2d(x, kernel, padding=tuple(a for a, _ in pads))
+    return F.conv2d(F.pad(x, [p for pair in reversed(pads) for p in pair]),
+                    kernel)
+
+
 class ConvTranspose(nn.Module):
-    """Flax ``nn.ConvTranspose`` with padding SAME, in NCW.
+    """Flax ``nn.ConvTranspose`` with padding SAME, channels-first; weight
+    stored ``(Cin, Cout, *K)`` flipped on every spatial axis, the layout of
+    ``F.conv_transpose1d``/``2d`` (Flax does not flip its kernel,
+    ``transpose_kernel=False``; see :mod:`calciumgan_tpu_torch.convert`).
+    ``pads`` holds each axis's ``(pad_a, pad_b)``
+    (:func:`same_transpose_padding`). One spatial axis runs
+    ``F.conv_transpose1d`` (:func:`_conv_transpose1d`), two run XLA's own
+    form of the transposed convolution (:func:`_dilated_conv2d`)."""
 
-    Flax does not flip its kernel (``transpose_kernel=False``) and
-    ``F.conv_transpose1d`` does, so the weight is stored ``(Cin, Cout, K)``
-    already K-flipped (see :mod:`calciumgan_tpu_torch.convert`). Flax's
-    output frame ``o`` is PyTorch's frame ``o`` at ``padding = K-1-pad_a``;
-    the end gets ``output_padding = pad_b - pad_a`` frames (``s-K`` when
-    ``s > K-1``, else 0 or -1). When that is -1 (odd ``K+s``), PyTorch's
-    padding would take the frame from the wrong side, so the full (padding
-    0) output is cropped instead."""
-
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, dtype: torch.dtype, rng: torch.Generator,
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride, dtype: torch.dtype, rng: torch.Generator,
                  device=None):
         super().__init__()
         self.dtype = dtype
-        self.stride = stride
+        kernel, self.stride = _spatial(kernel_size, stride)
         self.weight = nn.Parameter(torch.empty(
-            in_channels, out_channels, kernel_size, device=device))
+            in_channels, out_channels, *kernel, device=device))
         self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
-        glorot_uniform_(self.weight, kernel_size * in_channels,
-                        kernel_size * out_channels, rng)
-        pad_a, pad_b = same_transpose_padding(kernel_size, stride)
-        self.padding = kernel_size - 1 - pad_a
-        self.output_padding = pad_b - pad_a
-        self.crop = self.output_padding < 0
+        area = math.prod(kernel)
+        glorot_uniform_(self.weight, area * in_channels, area * out_channels,
+                        rng)
+        self.pads = tuple(same_transpose_padding(k, s)
+                          for k, s in zip(kernel, self.stride))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        w = self.weight.to(self.dtype)
-        if self.crop:
-            width = x.shape[-1] * self.stride
-            y = F.conv_transpose1d(x, w, stride=self.stride)
-            y = y[..., self.padding:self.padding + width]
-        else:
-            y = F.conv_transpose1d(x, w, stride=self.stride,
-                                   padding=self.padding,
-                                   output_padding=self.output_padding)
+        run = _conv_transpose1d if len(self.stride) == 1 else _dilated_conv2d
+        y = run(x.to(self.dtype), self.weight.to(self.dtype), self.stride,
+                self.pads)
         # bias added after the convolution, as Flax does
-        return y + self.bias.to(self.dtype)[:, None]
+        return y + _per_channel(self.bias.to(self.dtype), y.ndim)
+
+
+def _float32_mean(x32: torch.Tensor, dims, count: int) -> torch.Tensor:
+    """XLA's float32 mean: the sum times ``1/n`` rounded to float32."""
+    return x32.sum(dims) * float(torch.tensor(1.0 / count))
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)`` over the channel
+    axis of channels-first input (``flax/linen/normalization.py``):
+
+    - in training the statistics are the batch's, over every axis but the
+      channel, in float32 whatever the dtype, with the fast biased variance
+      ``max(0, E[x^2] - E[x]^2)``; gradients flow through them. Each training
+      pass then moves the running statistics ``r = 0.99 r + 0.01 batch``
+      (the biased variance, float32);
+    - in evaluation the running statistics normalise;
+    - ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32,
+      cast to the compute dtype.
+
+    ``scale``/``bias`` are parameters (Flax's ``params``), ``mean``/``var``
+    buffers (Flax's ``batch_stats``), starting at 1, 0, 0 and 1. No module
+    state says whether a pass trains: the caller passes ``training``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("mean", torch.zeros(channels, device=device))
+        self.register_buffer("var", torch.ones(channels, device=device))
+
+    def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        x32 = x.float()
+        if training:
+            dims = [0, *range(2, x.ndim)]
+            n = x.numel() // x.shape[1]
+            mean = _float32_mean(x32, dims, n)
+            var = (_float32_mean(x32 * x32, dims, n)
+                   - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                for running, batch in ((self.mean, mean), (self.var, var)):
+                    running.mul_(BATCH_NORM_MOMENTUM).add_(
+                        batch * (1.0 - BATCH_NORM_MOMENTUM))
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BATCH_NORM_EPS) * self.scale
+        y = ((x32 - _per_channel(mean, x.ndim)) * _per_channel(mul, x.ndim)
+             + _per_channel(self.bias, x.ndim))
+        return y.to(self.dtype)
 
 
 class Norm(nn.Module):
-    """LayerNorm over the channel axis of NCW input (``base.py:45-70``).
-    BatchNorm is not ported yet: the flagship recipe uses layer_norm."""
+    """Optional BatchNorm then LayerNorm over the channel axis of
+    channels-first input (``base.py:45-70``). The LayerNorm is skipped on a
+    size-1 channel axis, the BatchNorm never. ``training`` selects the
+    BatchNorm's batch statistics (and moves its running ones) over its
+    running statistics; the LayerNorm does not read it."""
 
     def __init__(self, channels: int, batch_norm: bool = False,
                  layer_norm: bool = False, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError(
-                "batch_norm is not ported to calciumgan_tpu_torch yet "
-                "(ROADMAP Queue 1)")
         self.dtype = dtype
+        self.batch_norm = (BatchNorm(channels, dtype, device)
+                           if batch_norm else None)
         self.layer_norm = layer_norm and channels > 1
         if self.layer_norm:
             self.scale = nn.Parameter(torch.ones(channels, device=device))
             self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
+        if self.batch_norm is not None:
+            x = self.batch_norm(x, training)
         if not self.layer_norm:
             return x
         x32 = x.float()
@@ -210,6 +321,7 @@ class Norm(nn.Module):
         mean = x32.sum(1, keepdim=True) * inv_n
         var = ((x32 * x32).sum(1, keepdim=True) * inv_n
                - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + LAYER_NORM_EPS) * self.scale[:, None]
-        y = (x32 - mean) * mul + self.bias[:, None]
+        mul = torch.rsqrt(var + LAYER_NORM_EPS) * _per_channel(self.scale,
+                                                               x.ndim)
+        y = (x32 - mean) * mul + _per_channel(self.bias, x.ndim)
         return y.to(self.dtype)

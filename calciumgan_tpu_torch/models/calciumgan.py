@@ -7,6 +7,9 @@ Generator (``:31-64``):
      with filters [5u, 4u, 3u, 2u, C]
   -> Dense(C) -> float32 -> sigmoid (normalised data) else linear.
   Input ``(B, noise_dim)``, output NWC ``(B, sequence_length, C)`` float32.
+  ``forward(z, training)``: a training pass normalises a ``--batch_norm``
+  net by its batch statistics and moves the running ones; evaluation
+  (the default) reads the running ones.
 
 Discriminator (``:67-89``):
   5 x [Conv1D(filters [u, 2u, 3u, 4u, 5u], kernel, stride, SAME) -> act
@@ -64,15 +67,16 @@ class Generator(nn.Module):
                                   device)
 
     def draw_inputs(self, draws, batch: int, training: bool) -> tuple:
-        """What ``forward`` takes besides the noise: nothing, in training
-        and evaluation alike."""
-        return ()
+        """What ``forward`` takes besides the noise: ``(training,)``, which
+        only a BatchNorm reads; nothing is drawn."""
+        return (training,)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
         x = self.act(self.dense_0(z))
         x = x.reshape(x.shape[0], self.w0, self.noise_dim).transpose(1, 2)
         for conv, norm in zip(self.conv_transpose, self.norm):
-            x = self.act(norm(conv(x)))
+            x = self.act(norm(conv(x), training))
         x = self.dense_1(x.transpose(1, 2)).float()
         return torch.sigmoid(x) if self.normalize else x
 

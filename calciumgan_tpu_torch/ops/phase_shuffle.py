@@ -1,5 +1,5 @@
-"""WaveGAN phase shuffle (copy of ``phase_shuffle`` and ``_shift_axis`` in
-``calciumgan_tpu/ops/phase_shuffle.py:24-63``).
+"""WaveGAN phase shuffle (copy of ``phase_shuffle``, ``phase_shuffle_2d`` and
+``_shift_axis`` in ``calciumgan_tpu/ops/phase_shuffle.py:24-63``).
 
 One shift per call, shared by the whole batch: the feature map is
 reflect-padded by ``m`` (edge excluded, as ``jnp.pad(mode="reflect")`` and
@@ -10,13 +10,14 @@ saturate instead of failing.
 The shift is a slice offset, so it is a host integer: :func:`draw_shifts`
 draws it from a CPU ``torch.Generator`` (a draw on the card would cost a
 synchronisation per layer), and callers may pass shifts in explicitly, which
-is how the tests replay the JAX package's draws. ``phase_shuffle_2d`` comes
-with the ``calciumgan2d`` model.
+is how the tests replay the JAX package's draws. The 2-D variant takes a
+(time, neuron) pair of them.
 """
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +40,31 @@ def phase_shuffle(x: torch.Tensor, shift: int, m: int,
     return _shift_axis(x, shift, m, axis)
 
 
+def phase_shuffle_2d(x: torch.Tensor, shifts: Sequence[int], m: int,
+                     n: int, time_axis: int = -2,
+                     neuron_axis: int = -1) -> torch.Tensor:
+    """``x`` shifted along ``time_axis`` by ``shifts[0]`` (drawn from
+    ``-m..m``) if ``m > 0``, then along ``neuron_axis`` by ``shifts[1]``
+    (from ``-n..n``) if ``n > 0``; the default axes are NCHW's."""
+    if m > 0:
+        x = _shift_axis(x, shifts[0], m, time_axis)
+    if n > 0:
+        x = _shift_axis(x, shifts[1], n, neuron_axis)
+    return x
+
+
+def folded_shape(shape: Sequence[int], axis: int) -> tuple:
+    """The 3-D ``(N, C, W)`` view that :func:`_shift_axis` reflect-pads for
+    a map of ``shape`` shifted along ``axis``. ``F.pad``'s reflect kernel
+    on the card puts N and C on grid axes of at most 65,535 blocks, so the
+    leading axes are not folded into one: N is the first of them and C the
+    product of the rest (the 1-D critic's ``(B, C, W)`` as is)."""
+    axis = axis % len(shape)
+    lead = [w for i, w in enumerate(shape) if i != axis]
+    rows = lead[0] if len(lead) > 1 else 1
+    return rows, math.prod(lead) // rows, shape[axis]
+
+
 def _shift_axis(x: torch.Tensor, shift: int, m: int,
                 axis: int) -> torch.Tensor:
     axis = axis % x.ndim
@@ -49,12 +75,8 @@ def _shift_axis(x: torch.Tensor, shift: int, m: int,
     shift = max(-m, min(m, int(shift)))
     if shift == 0:
         return x
-    # F.pad's reflect mode pads the last axis of a 3-D (N, C, W) tensor;
-    # its CUDA kernel puts N and C on grid axes of at most 65,535 blocks,
-    # so the leading axes stay split (the discriminator's (B, C, W) as is)
     moved = x.movedim(axis, -1)
-    lead = moved.shape[:-1]
-    flat = moved.reshape(lead[0] if len(lead) > 1 else 1, -1, width)
-    padded = F.pad(flat, (m, m), mode="reflect")
+    padded = F.pad(moved.reshape(folded_shape(x.shape, axis)), (m, m),
+                   mode="reflect")
     out = padded[..., m + shift:m + shift + width]
-    return out.reshape(*lead, width).movedim(-1, axis)
+    return out.reshape(moved.shape).movedim(-1, axis)

@@ -69,6 +69,28 @@ def count_params(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 
 
+def layer_table(module: torch.nn.Module) -> str:
+    """The ``--verbose 2`` table of a net (the JAX package prints Flax's
+    ``tabulate``, ``train.py:460-469``): one row per module that holds
+    parameters or buffers of its own, with its class, parameter count and
+    their shapes (buffers, the BatchNorm running statistics, marked and not
+    counted), then the total."""
+    rows = [f"{type(module).__name__}"]
+    for name, sub in module.named_modules():
+        params = dict(sub.named_parameters(recurse=False))
+        buffers = dict(sub.named_buffers(recurse=False))
+        if not params and not buffers:
+            continue
+        shapes = [f"{k} {tuple(v.shape)}" for k, v in params.items()]
+        shapes += [f"{k} {tuple(v.shape)} (buffer)"
+                   for k, v in buffers.items()]
+        count = sum(p.numel() for p in params.values())
+        rows.append(f"  {name:<24} {type(sub).__name__:<14} {count:>12,}  "
+                    + ", ".join(shapes))
+    rows.append(f"  {'total':<24} {'':<14} {count_params(module):>12,}")
+    return "\n".join(rows)
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -419,6 +441,9 @@ def main(config, return_metrics: bool = False,
         print(f"device: {device}")
         print(f"generator parameters: {count_params(generator):,}")
         print(f"discriminator parameters: {count_params(discriminator):,}")
+    if config.verbose >= 2:
+        print(layer_table(generator))
+        print(layer_table(discriminator))
     summary.scalar("model/trainable_parameters/generator",
                    count_params(generator))
     summary.scalar("model/trainable_parameters/discriminator",

@@ -15,7 +15,9 @@ arrays are msgpack ext type 1 (``npscalar`` 3) holding a packed ``(shape,
 dtype name, C-order bytes)`` triple, and arrays above 1 GiB are split into
 ``__msgpack_chunked_array__`` dictionaries. ``msgpack`` is imported on use,
 so the library core does not need it. :func:`restore_generator_params`
-serves either format to ``generate``.
+serves either format to ``generate``: the generator's variables (the EMA or
+raw parameters beside its BatchNorm running statistics, which the EMA does
+not average).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from calciumgan_tpu_torch import convert
-from calciumgan_tpu_torch.algorithms.gan import eval_gen_params
+from calciumgan_tpu_torch.algorithms.gan import eval_gen_variables
 from calciumgan_tpu_torch.algorithms.state import GANState
 
 _EPOCH_RE = re.compile(r"epoch-(\d+)\.(msgpack|pt)$")
@@ -197,13 +199,15 @@ def read_state(path: str) -> dict:
 
 def import_jax_checkpoint(ckpt_dir: str, epoch: Optional[int] = None,
                           ema: bool = True) -> Tuple[dict, int]:
-    """Generator params of a JAX checkpoint: ``(params, epoch)``.
+    """Generator variables of a JAX checkpoint: ``({"params": ...,
+    "batch_stats": ...}, epoch)``.
 
     ``epoch=None`` takes :func:`latest_epoch`. With ``ema`` (the run's
-    ``--ema`` > 0) the stored generator EMA is returned when the checkpoint
-    has one, else the raw generator params, as the JAX restore seeds a
-    missing average from them (``checkpoint.py:74-91``); ``ema=False``
-    returns the raw params (``generate.py --ema 0``)."""
+    ``--ema`` > 0) the stored generator EMA is the ``params`` when the
+    checkpoint has one, else the raw generator params, as the JAX restore
+    seeds a missing average from them (``checkpoint.py:74-91``); ``ema=False``
+    takes the raw params (``generate.py --ema 0``). ``batch_stats`` is the
+    generator's in either case (``{}`` without BatchNorm)."""
     if epoch is None:
         epoch = latest_epoch(ckpt_dir)
     if epoch is None:
@@ -211,18 +215,19 @@ def import_jax_checkpoint(ckpt_dir: str, epoch: Optional[int] = None,
     state = read_state(checkpoint_path(ckpt_dir, epoch))
     if not ema:
         state = dict(state, ema_params=None)
-    return eval_gen_params(state), epoch
+    return eval_gen_variables(state), epoch
 
 
 def restore_generator_params(ckpt_dir: str, epoch: Optional[int] = None,
                              ema: bool = True,
                              model: str = "calciumgan") -> Tuple[dict, int]:
-    """Generator params (Flax layout, as ``generate`` takes them) of a
-    ``model`` (the run's ``config.model``) from the
-    port's ``epoch-NNN.pt`` when it exists for ``epoch`` (default
-    :func:`latest_epoch`), else of JAX's ``epoch-NNN.msgpack`` through
-    :func:`import_jax_checkpoint`. With ``ema`` the stored EMA is taken when
-    there is one, else the raw params."""
+    """Generator variables (Flax layout, ``{"params": ..., "batch_stats":
+    ...}``, as ``generate`` takes them) of a ``model`` (the run's
+    ``config.model``) from the port's ``epoch-NNN.pt`` when it exists for
+    ``epoch`` (default :func:`latest_epoch`), else of JAX's
+    ``epoch-NNN.msgpack`` through :func:`import_jax_checkpoint`. With
+    ``ema`` the stored EMA's parameters are taken when there is one, else
+    the raw ones; the running statistics are the generator's buffers."""
     if epoch is None:
         epoch = latest_epoch(ckpt_dir)
     if epoch is None:
@@ -231,6 +236,7 @@ def restore_generator_params(ckpt_dir: str, epoch: Optional[int] = None,
     if not os.path.exists(path):
         return import_jax_checkpoint(ckpt_dir, epoch, ema)
     stored = torch.load(path, map_location="cpu", weights_only=True)
-    params = stored["ema"] if ema and stored["ema"] is not None else \
-        stored["generator"]["params"]
-    return convert.flax_generator_params(params, model), epoch
+    weights = dict(stored["generator"]["params"])
+    if ema and stored["ema"] is not None:
+        weights.update(stored["ema"])
+    return convert.flax_generator_variables(weights, model), epoch

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, whole-recording spike
-inference, dataset preparation, training, evaluation and the DG experiments
-once on one NVIDIA GPU.
+inference, dataset preparation, training, evaluation, the DG experiments,
+the conv2d model and BatchNorm once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs nine phases, printing one line of findings per phase.
+``nvcc`` and runs eleven phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
@@ -114,6 +114,26 @@ every (machine, storage) pair the plan can choose is compared:
    climbed, and 2 x 6 (an mlp sampling epoch: fewer frames than a ring is
    deep). Every error printed is of seeded synthetic data and generators
    of a few epochs.
+10. conv2d: one of phase 5's recordings (its 102 rows the neurons) through
+   ``generate_tfrecords --conv2d`` (129 windows of 2048 x 102 x 1), ``main
+   --model calciumgan2d`` at the conv2d recipe (wgan-gp, batch 64, units
+   64, kernel 24, m 10, n 2, layer_norm, bf16, n_critic 5) for 2 epochs
+   with ``--save_generated last``, ``compute_metrics --device cuda`` on the
+   run and ``generate --spikes`` from its newest checkpoint: finite losses
+   and KLs, the epoch file's shape (64, 2048, 102), ``oasis_ar1/shared``
+   launches only, the kernel equal to its plain version at each (shape,
+   depth) those launches ran, the sampled, epoch-file and served spikes
+   against the float64 references; one full-width 2-D WGAN-GP step (256
+   frames, batch 2, n_critic 1) on the card against the CPU in float32 and
+   bfloat16; the step at batch 64 by CUDA events, its FLOPs, share of the
+   bf16 bound and top kernels by ``torch.profiler``, and each layer's
+   convolutions alone (the generator's also as ``F.conv_transpose2d``);
+11. BatchNorm: ``main --batch_norm --algorithm gan --ema 0.999`` at the
+   flagship recipe on phase 6's records for 2 epochs: its sampling epochs'
+   launches and spikes, the stored running statistics (finite, moved from
+   0 and 1), ``generate`` serving the EMA parameters with them (equal to
+   ``GAN.sample``, unlike mean 0 and variance 1), and one BatchNorm step
+   on the card against the CPU (losses, gradients, running statistics).
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
@@ -211,6 +231,34 @@ STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL = 1e-5, 1e-6
 STEP_F32_GRAD_TOL = 3e-3      # of the net's largest gradient moment
 STEP_BF16_LOSS_RTOL, STEP_BF16_LOSS_ATOL = 5e-4, 2e-4
 STEP_BF16_GRAD_TOL = 0.1      # of the net's largest gradient moment
+# the generator's BatchNorm running statistics after a step, card vs CPU
+# (absolute; a net without BatchNorm has none): measured 6.0e-8 and 8.3e-7
+# after phase 11's GAN step on an H100 (NVIDIA H100 80GB HBM3, 700 W)
+STEP_F32_STATS_TOL, STEP_BF16_STATS_TOL = 1e-6, 1e-5
+# phase 11's float32 gradients, card vs CPU, of the net's largest moment:
+# a BatchNorm over the step's 8 rows divides by their standard deviation,
+# so the devices' summation orders show more than in phase 6's step
+# (measured 2.3e-3 and 2.8e-3 in two calls on an H100, NVIDIA H100 80GB
+# HBM3, 700 W)
+BN_STEP_F32_GRAD_TOL = 1e-2
+# phase 10: conv2d. Phase 5's recording with two rows in front (a
+# recording's first two rows are not neurons), so its 102 rows are the
+# neurons: 129 windows of 2048 at stride 140, 65 to train (one batch of 64:
+# a step of the recipe takes seconds) and 64 to validate; the epoch files'
+# spikes against the numpy golden on these many traces
+CONV2D_STRIDE, CONV2D_VAL_ROWS, CONV2D_BATCH = 140, 64, 64
+CONV2D_GOLDEN_TRACES = 128
+CONV2D_SERVED = 16          # generate --spikes samples
+# the full-width 2-D step on the card against the CPU, cut to 256 frames,
+# batch 2 and n_critic 1 to bound the CPU's time
+STEP2D_T, STEP2D_B = 256, 2
+# phase 6's bounds, but a bfloat16 gradient may also differ by 3 times the
+# CPU's own float32-vs-bfloat16 distance: the 2-D critic's largest moment is
+# its last convolution's bias, a sum over real and fake rows that cancels
+# and that bfloat16 keeps only as rounding (measured on an H100, NVIDIA
+# H100 80GB HBM3, 700 W: card vs CPU 0.269 of it where the CPU's own two
+# precisions differ by 0.156, 1.73 times)
+STEP2D_BOUNDS = dict(bf16_grad_gap=3.0)
 # the H100 SXM data sheet's dense bfloat16 tensor-core rate
 BF16_FLOPS_PER_S = 989e12
 # the bound of a kernel row: the bytes the function must move at the card's
@@ -456,7 +504,7 @@ def phase_kernel():
     return max(f["max_abs_err"] for f in (main, *rungs.values()))
 
 
-def generator_reference_check(config, params):
+def generator_reference_check(config, variables):
     """The generator on the card vs the same weights on the CPU, on a small
     input, in float32 (TF32 off) and in bfloat16."""
     import dataclasses
@@ -469,7 +517,7 @@ def generator_reference_check(config, params):
     errs, outs = {}, {}
     for name, bf16 in (("f32", False), ("bf16", True)):
         cfg = dataclasses.replace(config, mixed_precision=bf16)
-        outs[name] = [gan.generate(build_generator(cfg, params, dev),
+        outs[name] = [gan.generate(build_generator(cfg, variables, dev),
                                    noise.to(dev)).cpu()
                       for dev in ("cuda", "cpu")]
         check(all(bool(torch.isfinite(o).all()) for o in outs[name]),
@@ -482,17 +530,17 @@ def generator_reference_check(config, params):
     return errs
 
 
-def phase_slice(config, params):
+def phase_slice(config, variables):
     import numpy as np
     import torch
     from calciumgan_tpu_torch.generate import generate
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
-    ref_errs = generator_reference_check(config, params)
+    ref_errs = generator_reference_check(config, variables)
 
     oasis_cuda.launches.clear()
     oasis_torch.calls = 0
     start = time.perf_counter()
-    payloads = list(generate(config, params, BATCH * BATCHES, BATCH,
+    payloads = list(generate(config, variables, BATCH * BATCHES, BATCH,
                              with_spikes=True, seed=SEED, device="cuda"))
     seconds = time.perf_counter() - start
     launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
@@ -533,7 +581,7 @@ def phase_slice(config, params):
     return launches
 
 
-def e2e_stages(config, params, dev):
+def e2e_stages(config, variables, dev):
     """Host-clock seconds of each stage of one ``generate --spikes`` batch,
     as ``generate`` runs it, with a synchronize after each stage."""
     import numpy as np
@@ -542,7 +590,7 @@ def e2e_stages(config, params, dev):
     from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
     from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
     from calciumgan_tpu_torch.generate import build_generator
-    generator = build_generator(config, params, dev)
+    generator = build_generator(config, variables, dev)
     noise = gan.get_noise(torch.Generator(device=dev).manual_seed(SEED),
                           BATCH, config.noise_dim, dev)
     stages, last = {}, time.perf_counter()
@@ -564,7 +612,7 @@ def e2e_stages(config, params, dev):
     return stages
 
 
-def phase_timings(config, params, smi):
+def phase_timings(config, variables, smi):
     import numpy as np
     import torch
     from calciumgan_tpu_torch.algorithms import gan
@@ -572,7 +620,7 @@ def phase_timings(config, params, smi):
     from calciumgan_tpu_torch.ops import oasis as dispatch
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
     dev = torch.device("cuda")
-    generator = build_generator(config, params, dev)
+    generator = build_generator(config, variables, dev)
     noise = gan.get_noise(torch.Generator(device=dev).manual_seed(SEED),
                           BATCH, config.noise_dim, dev)
     gen_ms = cuda_ms(lambda: gan.generate(generator, noise), reps=10)
@@ -598,13 +646,13 @@ def phase_timings(config, params, smi):
     dispatch._exact_spikes_host(rows.numpy(), G, S_MIN, THRESHOLD)
     redo_s = time.perf_counter() - start
 
-    for _ in generate(config, params, BATCH, BATCH, True, SEED, dev):
+    for _ in generate(config, variables, BATCH, BATCH, True, SEED, dev):
         pass  # warm-up of the whole path
     start = time.perf_counter()
     n = sum(len(p["signals"]) for p in generate(
-        config, params, BATCH * BATCHES, BATCH, True, SEED, dev))
+        config, variables, BATCH * BATCHES, BATCH, True, SEED, dev))
     e2e_s = time.perf_counter() - start
-    stages = e2e_stages(config, params, dev)
+    stages = e2e_stages(config, variables, dev)
     B = traces.shape[0]
     report("phase 4 timings", card=smi, kernel_vs_plain=strip(generated),
            generator_ms_per_batch=gen_ms,
@@ -967,32 +1015,36 @@ def _moment_errors(a_state, b_state) -> dict:
     return errs
 
 
-def step_card_vs_cpu(signals) -> dict:
-    """One WGAN-GP step at full width (batch 8, n_critic 2) from one state
-    and the same injected noise, alpha and shifts on the card and on the
-    CPU, in float32 (TF32 off) and bfloat16: losses, GP and gradients.
-    The learning rate is 0, so every gradient is taken at the parameters
-    both devices share: Adam's first step, ``lr * g / (|g| + eps)``, would
-    move a parameter by up to ``lr`` where ``|g|`` is near ``eps`` and the
-    devices' roundings differ, and the later gradients with it."""
-    import dataclasses
+def _buffer_errors(a_state, b_state) -> float:
+    """Largest difference of the generators' buffers (the BatchNorm
+    running statistics) between two states; 0 without any."""
+    pairs = zip(a_state.generator.module.buffers(),
+                b_state.generator.module.buffers())
+    return max((float((a.cpu() - b.cpu()).abs().max()) for a, b in pairs),
+               default=0.0)
 
+
+def steps_card_vs_cpu(make_config, real, draws, keys, bounds=None) -> dict:
+    """One train step from one state and the same injected draws (``(noise,
+    alpha, shifts)`` lists) on the card and on the CPU, in float32 (TF32
+    off) and bfloat16, for the config ``make_config(bf16)``: the logs
+    ``keys``, Adam's first moments and the generator's running statistics
+    (where it has BatchNorm), each held to ``bounds`` (default: phase 6's
+    ``STEP_*``; ``bf16_grad_gap`` lets a bfloat16 gradient also differ by
+    that many times the CPU's own float32-vs-bfloat16 distance)."""
     import numpy as np
     import torch
     from calciumgan_tpu_torch.algorithms import get_algorithm
     from calciumgan_tpu_torch.models import get_models
-    B, n_critic = 8, 2
-    rng = np.random.default_rng(SEED + 21)
-    noise = [rng.standard_normal((B, 32)).astype(np.float32)
-             for _ in range(n_critic + 1)]
-    alpha = [rng.random(B).astype(np.float32) for _ in range(n_critic)]
-    shifts = rng.integers(-10, 11, 4 * (2 * n_critic + 1)).tolist()
-    real = np.ascontiguousarray(signals[:B])
+    bounds = dict(dict(f32_loss=(STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL),
+                       bf16_loss=(STEP_BF16_LOSS_RTOL, STEP_BF16_LOSS_ATOL),
+                       f32_grad=STEP_F32_GRAD_TOL,
+                       bf16_grad=STEP_BF16_GRAD_TOL, bf16_grad_gap=0.0,
+                       f32_stats=STEP_F32_STATS_TOL,
+                       bf16_stats=STEP_BF16_STATS_TOL), **(bounds or {}))
     found, cpu_runs = {}, {}
     for name, bf16 in (("f32", False), ("bf16", True)):
-        cfg = dataclasses.replace(flagship_config(), mixed_precision=bf16,
-                                  n_critic=n_critic, batch_size=B,
-                                  learning_rate=0.0)
+        cfg = make_config(bf16)
         runs = {}
         for dev in ("cuda", "cpu"):
             algo = get_algorithm(cfg, *get_models(
@@ -1000,7 +1052,7 @@ def step_card_vs_cpu(signals) -> dict:
             state = algo.init_state()
             logs = algo.train_step(
                 state, torch.from_numpy(real).to(dev),
-                FixedDraws(noise, alpha, shifts, dev))
+                FixedDraws(*draws, dev))
             runs[dev] = (state, {k: float(v) for k, v in logs.items()})
         (gpu, gpu_logs), (cpu, cpu_logs) = runs["cuda"], runs["cpu"]
         cpu_runs[name] = runs["cpu"]
@@ -1012,26 +1064,55 @@ def step_card_vs_cpu(signals) -> dict:
                           max(abs(cpu_logs[k]), 1e-30) for k in gpu_logs},
             loss_abs_err={k: abs(gpu_logs[k] - cpu_logs[k])
                           for k in gpu_logs},
-            grad_err=_moment_errors(gpu, cpu))
+            grad_err=_moment_errors(gpu, cpu),
+            stats_err=_buffer_errors(gpu, cpu))
     # what the bf16 bounds are set against: float32 vs bfloat16 on the CPU
     (a, a_logs), (b, b_logs) = cpu_runs["bf16"], cpu_runs["f32"]
     found["cpu_f32_vs_bf16"] = dict(
         loss_abs_err={k: abs(a_logs[k] - b_logs[k]) for k in a_logs},
-        grad_err=_moment_errors(a, b))
-    f32, bf16 = found["f32"], found["bf16"]
-    for k in ("loss/generator", "loss/discriminator",
-              "loss/gradient_penalty"):
-        check(f32["loss_abs_err"][k] <= STEP_F32_LOSS_RTOL * abs(
-            f32["logs_card"][k]) + STEP_F32_LOSS_ATOL,
-              f"f32 step {k}: card vs CPU {f32['loss_abs_err'][k]}")
-        check(bf16["loss_abs_err"][k] <= STEP_BF16_LOSS_RTOL * abs(
-            bf16["logs_card"][k]) + STEP_BF16_LOSS_ATOL,
-              f"bf16 step {k}: card vs CPU {bf16['loss_abs_err'][k]}")
-    check(max(f32["grad_err"].values()) <= STEP_F32_GRAD_TOL,
-          f"f32 step gradients: card vs CPU {f32['grad_err']}")
-    check(max(bf16["grad_err"].values()) <= STEP_BF16_GRAD_TOL,
-          f"bf16 step gradients: card vs CPU {bf16['grad_err']}")
+        grad_err=_moment_errors(a, b), stats_err=_buffer_errors(a, b))
+    for name in ("f32", "bf16"):
+        run = found[name]
+        rtol, atol = bounds[f"{name}_loss"]
+        for k in keys:
+            check(run["loss_abs_err"][k] <= rtol * abs(run["logs_card"][k])
+                  + atol, f"{name} step {k}: card vs CPU "
+                          f"{run['loss_abs_err'][k]}")
+        gap = found["cpu_f32_vs_bf16"]["grad_err"] if name == "bf16" \
+            else {}
+        for net, err in run["grad_err"].items():
+            check(err <= max(bounds[f"{name}_grad"], bounds.get(
+                f"{name}_grad_gap", 0.0) * gap.get(net, 0.0)),
+                  f"{name} step gradients: card vs CPU {run['grad_err']}")
+        check(run["stats_err"] <= bounds[f"{name}_stats"],
+              f"{name} step running statistics: card vs CPU "
+              f"{run['stats_err']}")
     return found
+
+
+def step_card_vs_cpu(signals) -> dict:
+    """One WGAN-GP step at full width (batch 8, n_critic 2) from one state
+    and the same injected noise, alpha and shifts on the card and on the
+    CPU, in float32 (TF32 off) and bfloat16: losses, GP and gradients.
+    The learning rate is 0, so every gradient is taken at the parameters
+    both devices share: Adam's first step, ``lr * g / (|g| + eps)``, would
+    move a parameter by up to ``lr`` where ``|g|`` is near ``eps`` and the
+    devices' roundings differ, and the later gradients with it."""
+    import dataclasses
+
+    import numpy as np
+    B, n_critic = 8, 2
+    rng = np.random.default_rng(SEED + 21)
+    noise = [rng.standard_normal((B, 32)).astype(np.float32)
+             for _ in range(n_critic + 1)]
+    alpha = [rng.random(B).astype(np.float32) for _ in range(n_critic)]
+    shifts = rng.integers(-10, 11, 4 * (2 * n_critic + 1)).tolist()
+    return steps_card_vs_cpu(
+        lambda bf16: dataclasses.replace(
+            flagship_config(), mixed_precision=bf16, n_critic=n_critic,
+            batch_size=B, learning_rate=0.0),
+        np.ascontiguousarray(signals[:B]), (noise, alpha, shifts),
+        ("loss/generator", "loss/discriminator", "loss/gradient_penalty"))
 
 
 class _NoModuleTracker:
@@ -1110,9 +1191,8 @@ def phase_training(smi, work):
     resumed, its generated files, its sampling epochs' OASIS launches and
     spikes, its checkpoint served; one step on the card against the CPU;
     the step's times and FLOPs. The run stays under ``work`` (``run``) for
-    phase 8; the records are deleted."""
+    phase 8, the records (``records``) for phase 11."""
     import json
-    import shutil
 
     import numpy as np
     import torch
@@ -1233,7 +1313,6 @@ def phase_training(smi, work):
     train_store = sources[-1][0]
     epoch_s = spy.calls["train_epoch"][-1]["s"]
     sample_s = [round(c["s"], 4) for c in samples]
-    shutil.rmtree(records)
 
     # step on the card vs the CPU, and the step's times
     torch.cuda.synchronize()
@@ -1262,7 +1341,8 @@ def phase_training(smi, work):
                      epoch_host_s=epoch_s, steps_per_epoch=steps,
                      sample_and_plot_s=sample_s,
                      profile_window=window))
-    return dict(launches=launches, timing=timing, window=window, run=run)
+    return dict(launches=launches, timing=timing, window=window, run=run,
+                records=records, head=np.ascontiguousarray(signals[:8]))
 
 
 def phase_prepare(smi, work, recording):
@@ -2243,6 +2323,502 @@ def phase_dg(smi, work, recording):
                 metrics_launches=metrics_launches, mlp_launches=mlp_launches)
 
 
+def conv2d_flags(records, run, epochs, *extra):
+    """The conv2d recipe's flags for ``calciumgan_tpu_torch.main``: the
+    flagship's (``BASELINE.md:278-312``) with ``--model calciumgan2d`` at
+    batch 64."""
+    return ["--input_dir", records, "--output_dir", run,
+            "--model", "calciumgan2d", "--batch_size", str(CONV2D_BATCH),
+            "--num_units", "64", "--kernel_size", "24", "--strides", "2",
+            "--m", "10", "--n", "2", "--layer_norm", "--mixed_precision",
+            "--n_critic", "5", "--noise_dim", "32", "--algorithm", "wgan-gp",
+            "--epochs", str(epochs), "--checkpoint_every", "1",
+            "--seed", str(SEED), "--device", "cuda", "--verbose", "0",
+            *extra]
+
+
+def conv2d_config(frames=T, **kw):
+    """The conv2d recipe's architecture at ``frames`` frames."""
+    from calciumgan_tpu_torch.config import Config
+    return Config(**dict(dict(
+        model="calciumgan2d", algorithm="wgan-gp", sequence_length=frames,
+        num_neurons=CLI_NEURONS, num_channels=1,
+        signal_shape=(frames, CLI_NEURONS, 1), noise_dim=32, num_units=64,
+        kernel_size=24, strides=2, m=10, n=2, layer_norm=True, n_critic=5,
+        normalize=True, signals_min=0.0, signals_max=1.0,
+        mixed_precision=True, seed=SEED), **kw))
+
+
+def rungs_climbed(traces) -> int:
+    """The launches the dispatch makes on host ``traces`` (N, T) on the
+    card: the rungs of the depth ladder their batch climbs, as on the path
+    that deconvolved them (the climb depends on the traces alone)."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
+    from calciumgan_tpu_torch.ops import oasis_cuda
+    before = collections.Counter(oasis_cuda.launches)
+    deconvolve_traces(torch.from_numpy(np.ascontiguousarray(
+        traces, np.float32)).cuda())
+    return launched("oasis_ar1", oasis_cuda.launches - before)
+
+
+def file_spikes_vs_references(filename, what: str) -> dict:
+    """An epoch file's ``spikes`` against the C++ float64 kernel on every
+    trace and the numpy golden on ``CONV2D_GOLDEN_TRACES`` of them; both
+    must agree. Returns the findings and the file's traces (N*C, T)."""
+    import numpy as np
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.utils import h5
+    signals, spikes = h5.get(filename, "signals"), h5.get(filename, "spikes")
+    check(spikes.dtype == np.int8 and spikes.shape == signals.shape
+          and set(np.unique(spikes).tolist()) <= {0, 1},
+          f"{what}: spikes {spikes.shape} {spikes.dtype}")
+    traces = np.ascontiguousarray(signals.transpose(0, 2, 1)).reshape(-1, T)
+    ours = np.ascontiguousarray(spikes.transpose(0, 2, 1)).reshape(-1, T)
+    vs_cxx = int((ours != dispatch._exact_spikes_host(
+        traces, G, S_MIN, THRESHOLD)).sum())
+    pick = np.sort(np.random.default_rng(SEED).choice(
+        len(traces), CONV2D_GOLDEN_TRACES, replace=False))
+    vs_golden = int((ours[pick] != golden_spikes(traces[pick])).sum())
+    check(vs_cxx == 0 and vs_golden == 0,
+          f"{what}: {vs_cxx} spike mismatches vs the C++ float64 kernel, "
+          f"{vs_golden} vs the golden")
+    return dict(spikes=int(spikes.sum()), cxx_traces=len(traces),
+                mismatches_vs_cxx=vs_cxx, golden="oasis_ref",
+                golden_traces=CONV2D_GOLDEN_TRACES,
+                mismatches_vs_golden=vs_golden), traces
+
+
+def step2d_card_vs_cpu() -> dict:
+    """One full-width ``calciumgan2d`` WGAN-GP step (units 64, kernel 24,
+    102 neurons; 256 frames, batch 2, n_critic 1) from one state and the
+    same draws on the card and on the CPU, float32 and bfloat16, at
+    learning rate 0 (see :func:`step_card_vs_cpu`)."""
+    import numpy as np
+    B, n_critic = STEP2D_B, 1
+    rng = np.random.default_rng(SEED + 71)
+    noise = [rng.standard_normal((B, 32)).astype(np.float32)
+             for _ in range(n_critic + 1)]
+    alpha = [rng.random(B).astype(np.float32) for _ in range(n_critic)]
+    # 7 shifts a critic pass: (time, neuron) on layers 0-2, neuron on 3;
+    # within -2..2, both axes' range
+    shifts = rng.integers(-2, 3, 7 * (2 * n_critic + 1)).tolist()
+    real = rng.random((B, STEP2D_T, CLI_NEURONS, 1)).astype(np.float32)
+    return steps_card_vs_cpu(
+        lambda bf16: conv2d_config(
+            STEP2D_T, mixed_precision=bf16, n_critic=n_critic,
+            batch_size=B, learning_rate=0.0),
+        real, (noise, alpha, shifts),
+        ("loss/generator", "loss/discriminator", "loss/gradient_penalty"),
+        bounds=STEP2D_BOUNDS)
+
+
+def dilation_zero_flops(generator, batch: int, n_critic: int) -> int:
+    """The products by zeros that ``FlopCounterMode`` counts in one WGAN-GP
+    step of a 2-D generator: each transposed convolution runs as a stride-1
+    convolution over its input dilated by the strides
+    (``base._dilated_conv2d``), so it is counted ``sh*sw`` times its work,
+    in each of the step's ``n_critic + 1`` forwards and in the generator
+    step's backward (both gradients, twice a forward). The work is what
+    ``F.conv_transpose2d`` is counted for the same layers (checked on the
+    CPU against a step that runs them so)."""
+    h, w = generator.w0, generator.c0
+    zeros = 0
+    for conv in generator.conv_transpose:
+        c_in, c_out, kh, kw = conv.weight.shape
+        sh, sw = conv.stride
+        zeros += (sh * sw - 1) * 2 * batch * h * w * c_in * c_out * kh * kw
+        h, w = h * sh, w * sw
+    return zeros * (n_critic + 3)
+
+
+def conv2d_layer_times() -> dict:
+    """Which 2-D convolutions cuDNN runs slowly, by CUDA events at the
+    conv2d recipe's widths (random weights and inputs, bf16): each
+    generator layer at batch 64 as ``F.conv_transpose2d`` (one call: the
+    slow ones take seconds) and in the port's dilated form (after a
+    warm-up), and each critic layer at 128 rows, its forward and its
+    forward with the gradient of its input (the penalty's and the
+    generator step's), after a warm-up."""
+    import torch
+    import torch.nn.functional as F
+    from calciumgan_tpu_torch.models import get_models
+
+    def once(fn, warm: bool) -> float:
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    cfg = conv2d_config(batch_size=CONV2D_BATCH)
+    gen, dis = get_models(cfg, rng=torch.Generator().manual_seed(SEED),
+                          device="cuda")
+    found = {}
+    with torch.no_grad():
+        x = torch.randn(CONV2D_BATCH, cfg.noise_dim, gen.w0, gen.c0,
+                        device="cuda", dtype=torch.bfloat16)
+        for i, conv in enumerate(gen.conv_transpose):
+            w = conv.weight.to(torch.bfloat16)
+            found[f"generator {i} {list(x.shape)}"] = dict(
+                conv_transpose2d_ms=once(lambda: F.conv_transpose2d(
+                    x, w, stride=conv.stride), warm=False),
+                dilated_ms=once(lambda: conv(x), warm=True))
+            x = conv(x)
+    x = torch.rand(2 * CONV2D_BATCH, 1, T, CLI_NEURONS, device="cuda",
+                   dtype=torch.bfloat16)
+    for i, conv in enumerate(dis.conv):
+        x = x.detach().requires_grad_(True)
+        y = conv(x)
+        grad = torch.randn_like(y)
+        found[f"critic {i} {list(x.shape)}"] = dict(
+            forward_ms=once(lambda: conv(x), warm=True),
+            with_input_gradient_ms=once(lambda: torch.autograd.grad(
+                conv(x), x, grad), warm=True))
+        x = y
+    return found
+
+
+def time_conv2d_step(signals, smi, work) -> dict:
+    """The conv2d recipe's step at batch 64 (n_critic 5), after the phase's
+    run has warmed cuDNN and the allocator: one step under
+    ``torch.profiler`` and ``FlopCounterMode`` timed by CUDA events, its
+    FLOPs as run and as work (without the dilation's zeros) against the
+    bf16 peak, the device's busy share and the kernels that took the most
+    device time."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.algorithms import get_algorithm
+    from calciumgan_tpu_torch.algorithms.gan import Draws
+    from calciumgan_tpu_torch.data.pipeline import DeviceStore
+    from calciumgan_tpu_torch.models import get_models
+    cfg = conv2d_config(batch_size=CONV2D_BATCH)
+    dev = torch.device("cuda")
+    algo = get_algorithm(cfg, *get_models(
+        cfg, rng=torch.Generator().manual_seed(SEED), device=dev))
+    state = algo.init_state()
+    real = DeviceStore(signals[:CONV2D_BATCH], dev).batch(
+        list(range(CONV2D_BATCH)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted = FlopCounterMode(display=False)
+    counted.mod_tracker = _NoModuleTracker()
+    window = train._ProfileWindow(os.path.join(work, "profile2d"), dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with counted:
+        start.record()
+        algo.train_step(state, real, Draws(SEED, 0, dev))
+        end.record()
+    window.steps = 1
+    profile = window.stop()
+    ms = start.elapsed_time(end)
+    flops = counted.get_total_flops()
+    work_flops = flops - dilation_zero_flops(algo.generator, CONV2D_BATCH,
+                                             cfg.n_critic)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bound_ms = work_flops / BF16_FLOPS_PER_S * 1e3
+    return dict(card=smi, batch=CONV2D_BATCH, step_ms=ms,
+                flops_as_run=flops, flops_per_step=work_flops,
+                bound_ms=bound_ms, bf16_peak_share=bound_ms / ms,
+                peak_memory_gb=peak_gb, profiled_step=profile)
+
+
+def phase_conv2d(smi, work, recording):
+    """This slice's path at full width: phase 5's recording through
+    ``generate_tfrecords --conv2d``, ``main --model calciumgan2d`` at the
+    conv2d recipe for 2 epochs with ``--save_generated last``,
+    ``compute_metrics --device cuda`` on that run and ``generate --spikes``
+    from its newest checkpoint; one full-width 2-D step on the card against
+    the CPU; the step's time, FLOPs and kernels."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import compute_metrics
+    from calciumgan_tpu_torch import generate as generate_mod
+    from calciumgan_tpu_torch import main as train_main
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.config import Config
+    from calciumgan_tpu_torch.data import pipeline
+    from calciumgan_tpu_torch.dataset import generate_tfrecords
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.utils import h5, io
+    C = CLI_NEURONS
+    root = os.path.join(work, "conv2d")
+    os.makedirs(root)
+    pkl, records = os.path.join(root, "rec.pkl"), os.path.join(root, "rec")
+    run = os.path.join(root, "run")
+    with open(pkl, "wb") as f:
+        pickle.dump({k: np.concatenate([v[:2], v]) for k, v in
+                     ((k, np.asarray(recording[k], np.float32))
+                      for k in ("signals", "oasis"))}, f)
+    start = time.perf_counter()
+    generate_tfrecords.cli([
+        "--input", pkl, "--output_dir", records, "--sequence_length", str(T),
+        "--stride", str(CONV2D_STRIDE), "--normalize", "--conv2d",
+        "--validation_size", str(CONV2D_VAL_ROWS), "--verbose", "0"])
+    records_s = time.perf_counter() - start
+    info = pipeline.load_info(records)
+    check(info["signal_shape"] == (T, C, 1) and info["num_channels"] == 1
+          and info["conv2d"] and info["validation_size"] == CONV2D_VAL_ROWS
+          and info["train_size"] >= CONV2D_BATCH,
+          f"conv2d records: {info['signal_shape']}, {info['train_size']} + "
+          f"{info['validation_size']}")
+
+    # 1. training: the sampling epochs run the kernel
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    spy = Spy(train, "train_epoch", "validate_epoch", "sample_and_plot",
+              "make_batch_sources")
+    start = time.perf_counter()
+    with spy:
+        train_main.cli(conv2d_flags(records, run, 2, "--save_generated",
+                                    "last"))
+    train_s = time.perf_counter() - start
+    launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    check(set(launches) == {"oasis_ar1/shared"}
+          and launches["oasis_ar1/shared"] >= 2 and calls == 0,
+          f"conv2d sampling epochs launched {launches}, plain calls {calls}")
+    logs = [c["out"] for c in spy.calls["train_epoch"]
+            + spy.calls["validate_epoch"]]
+    check(len(logs) == 4 and all(np.isfinite(v) for d in logs
+                                 for v in d.values()),
+          f"conv2d training: non-finite losses {logs}")
+    samples = spy.calls["sample_and_plot"]
+    check(len(samples) == 2, f"{len(samples)} conv2d sampling epochs")
+    sample_diff = sampled_vs_golden(samples, (C, T), "conv2d sampling epochs")
+    last_sample = samples[-1]["out"][0]
+    sample_twin = hold_to_twin(last_sample, rungs_climbed(last_sample),
+                               "conv2d sampling epoch")
+    cfg = Config(output_dir=run, verbose=0).load()
+    check(cfg.model == "calciumgan2d" and cfg.signal_shape == (T, C, 1),
+          f"conv2d run: {cfg.model} {cfg.signal_shape}")
+    fake_file = io.load_generated_info(cfg)[1]["filename"]
+    check(h5.get_shape(fake_file, "signals") == (CONV2D_VAL_ROWS, T, C),
+          f"conv2d epoch file {h5.get_shape(fake_file, 'signals')}")
+    train_signals = spy.calls["make_batch_sources"][0]["args"][1].signals
+
+    # 2. compute_metrics on the run
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    config, options = compute_metrics.parse_args(
+        ["--output_dir", run, "--device", "cuda", "--verbose", "0",
+         "--seed", str(SEED)])
+    stages = {}
+    start = time.perf_counter()
+    results = compute_metrics.main(config, seconds=stages, **options)
+    torch.cuda.synchronize()
+    metrics_s = time.perf_counter() - start
+    metrics_launches = dict(oasis_cuda.launches)
+    check(set(metrics_launches) == {"oasis_ar1/shared"}
+          and oasis_torch.calls == 0,
+          f"compute_metrics launched {metrics_launches}, plain calls "
+          f"{oasis_torch.calls}")
+    check(list(results) == [1] and all(np.isfinite(v)
+                                       for v in results[1].values()),
+          f"conv2d KLs of synthetic data: {results}")
+    file_found, traces = file_spikes_vs_references(fake_file,
+                                                   "conv2d epoch file")
+    file_twin = hold_to_twin(traces, launched("oasis_ar1", metrics_launches),
+                             "conv2d epoch file")
+
+    # 3. generate --spikes from the newest checkpoint
+    out = os.path.join(root, "samples" + h5.default_suffix(verbose=False))
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    start = time.perf_counter()
+    generate_mod.cli(["--output_dir", run, "--num_samples",
+                      str(CONV2D_SERVED), "--batch_size", str(CONV2D_SERVED),
+                      "--spikes", "--device", "cuda", "--out", out,
+                      "--verbose", "0"])
+    serve_s = time.perf_counter() - start
+    serve_launches = dict(oasis_cuda.launches)
+    check(set(serve_launches) == {"oasis_ar1/shared"}
+          and oasis_torch.calls == 0,
+          f"generate --spikes launched {serve_launches}, plain calls "
+          f"{oasis_torch.calls}")
+    served = h5.get(out, "signals")
+    check(served.shape == (CONV2D_SERVED, T, C)
+          and bool(np.isfinite(served).all()),
+          f"generate --spikes: signals {served.shape}")
+    served_found, served_traces = file_spikes_vs_references(
+        out, "generate --spikes")
+    served_twin = hold_to_twin(served_traces,
+                               launched("oasis_ar1", serve_launches),
+                               "generate --spikes")
+
+    # 4. the step on the card against the CPU, then its time and kernels
+    versus = step2d_card_vs_cpu()
+    timing = time_conv2d_step(np.asarray(train_signals), smi, root)
+    layers = conv2d_layer_times()
+    torch.cuda.synchronize()
+    report("phase 10 conv2d", card=smi,
+           records=dict(windows=info["train_size"] + info["validation_size"],
+                        train=info["train_size"],
+                        validation=info["validation_size"],
+                        stride=CONV2D_STRIDE, shape=[T, C, 1],
+                        generate_tfrecords_s=records_s),
+           run=dict(flags="conv2d recipe: calciumgan2d, wgan-gp, batch 64, "
+                          "units 64, kernel 24, m 10, n 2, layer_norm, bf16,"
+                          " --save_generated last",
+                    epochs=2, seconds=train_s,
+                    train_epoch_s=[c["s"] for c in spy.calls["train_epoch"]],
+                    train_logs=logs[:2], validation_logs=logs[2:],
+                    sampling_launches=launches, plain_calls=calls,
+                    sampled_traces=2 * C, golden="oasis_ref",
+                    mismatches_vs_golden=sample_diff,
+                    kernel_vs_plain=sample_twin,
+                    epoch_file=[CONV2D_VAL_ROWS, T, C]),
+           compute_metrics=dict(of_seeded_synthetic_data=results[1],
+                                seconds=metrics_s, stages_s=stages,
+                                launches=metrics_launches,
+                                epoch_file_spikes=file_found,
+                                kernel_vs_plain=file_twin),
+           generate=dict(samples=CONV2D_SERVED, seconds=serve_s,
+                         launches=serve_launches, spikes=served_found,
+                         kernel_vs_plain=served_twin),
+           card_vs_cpu=dict(cut=f"{STEP2D_T} frames, batch {STEP2D_B}, "
+                                f"n_critic 1, learning rate 0",
+                            **versus),
+           step=timing, layers_ms=layers)
+    return dict(train_launches=launches, metrics_launches=metrics_launches,
+                serve_launches=serve_launches, timing=timing)
+
+
+def bn_step_card_vs_cpu(signals) -> dict:
+    """One vanilla-GAN step of the flagship with ``--batch_norm`` (batch 8,
+    learning rate 0) from one state and the same noise and shifts on the
+    card and on the CPU, float32 and bfloat16: losses, gradients and the
+    running statistics its one training pass moved."""
+    import dataclasses
+
+    import numpy as np
+    B = 8
+    rng = np.random.default_rng(SEED + 81)
+    noise = [rng.standard_normal((B, 32)).astype(np.float32)]
+    shifts = rng.integers(-10, 11, 4).tolist()
+    return steps_card_vs_cpu(
+        lambda bf16: dataclasses.replace(
+            flagship_config(), algorithm="gan", batch_norm=True,
+            mixed_precision=bf16, batch_size=B, learning_rate=0.0),
+        np.ascontiguousarray(signals[:B]), (noise, [], shifts),
+        ("loss/generator", "loss/discriminator"),
+        bounds=dict(f32_grad=BN_STEP_F32_GRAD_TOL))
+
+
+def phase_batch_norm(smi, work, records, signals):
+    """BatchNorm: ``main --batch_norm --layer_norm --algorithm gan --ema
+    0.999`` on phase 6's flagship records for 2 epochs; the running
+    statistics it stored; ``generate`` serving the EMA parameters with them
+    (equal to ``GAN.sample``, and not what mean 0 and variance 1 give); one
+    step on the card against the CPU."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import generate as generate_mod
+    from calciumgan_tpu_torch import main as train_main
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.algorithms import gan, get_algorithm
+    from calciumgan_tpu_torch.algorithms.gan import Draws
+    from calciumgan_tpu_torch.config import Config
+    from calciumgan_tpu_torch.models import get_models
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.utils import checkpoint
+    run = os.path.join(work, "bn_run")
+    ckpt_dir = os.path.join(run, "checkpoints")
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    spy = Spy(train, "train_epoch", "validate_epoch", "sample_and_plot")
+    start = time.perf_counter()
+    with spy:
+        train_main.cli(train_flags(records, run, 2, "--batch_norm",
+                                   "--algorithm", "gan", "--ema", "0.999"))
+    train_s = time.perf_counter() - start
+    launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    check(set(launches) == {"oasis_ar1/shared"}
+          and launches["oasis_ar1/shared"] >= 2 and calls == 0,
+          f"BatchNorm sampling epochs launched {launches}, plain calls "
+          f"{calls}")
+    logs = [c["out"] for c in spy.calls["train_epoch"]
+            + spy.calls["validate_epoch"]]
+    check(len(logs) == 4 and all(np.isfinite(v) for d in logs
+                                 for v in d.values())
+          and "loss/gradient_penalty" not in logs[0],
+          f"BatchNorm training: {logs}")
+    samples = spy.calls["sample_and_plot"]
+    sample_diff = sampled_vs_golden(samples, (102, T),
+                                    "BatchNorm sampling epochs")
+    last_sample = samples[-1]["out"][0]
+    sample_twin = hold_to_twin(last_sample, rungs_climbed(last_sample),
+                               "BatchNorm sampling epoch")
+
+    # the running statistics the run stored: finite, moved from (0, 1)
+    stored = torch.load(checkpoint.port_checkpoint_path(ckpt_dir, 1),
+                        map_location="cpu", weights_only=True)
+    stats = {k: v for k, v in stored["generator"]["params"].items()
+             if k.endswith((".mean", ".var"))}
+    moved = {k: float((v - float(k.endswith(".var"))).abs().max())
+             for k, v in stats.items()}
+    check(len(stats) == 10 and all(bool(torch.isfinite(v).all())
+                                   for v in stats.values())
+          and min(moved.values()) > 0.0 and stored["ema"] is not None
+          and not any(k in stored["ema"] for k in stats),
+          f"stored running statistics: moved {moved}")
+
+    # generate serves the EMA parameters with those statistics
+    cfg = Config(output_dir=run, verbose=0).load()
+    algo = get_algorithm(cfg, *get_models(cfg, device="cuda"))
+    state = algo.init_state()
+    checkpoint.restore(ckpt_dir, state, verbose=0)
+    noise = Draws(SEED, 0, "cuda").noise(16, cfg.noise_dim)
+    variables, epoch = checkpoint.restore_generator_params(
+        ckpt_dir, ema=True, model=cfg.model)
+    served = gan.generate(generate_mod.build_generator(cfg, variables,
+                                                       "cuda"), noise)
+    sampled = algo.sample(state, noise)
+    served_vs_sample = float((served - sampled).abs().max())
+    fresh = dict(variables, batch_stats={
+        group: {"BatchNorm_0": {
+            "mean": np.zeros_like(norm["BatchNorm_0"]["mean"]),
+            "var": np.ones_like(norm["BatchNorm_0"]["var"])}}
+        for group, norm in variables["batch_stats"].items()})
+    stale = gan.generate(generate_mod.build_generator(cfg, fresh, "cuda"),
+                         noise)
+    stale_gap = float((stale - sampled).abs().max())
+    raw, _ = checkpoint.restore_generator_params(ckpt_dir, ema=False,
+                                                 model=cfg.model)
+    raw_gap = float((gan.generate(generate_mod.build_generator(
+        cfg, raw, "cuda"), noise) - sampled).abs().max())
+    check(epoch == 1 and served_vs_sample == 0.0 and stale_gap > 1e-3
+          and raw_gap > 0.0,
+          f"generate: {served_vs_sample} from GAN.sample, {stale_gap} with "
+          f"mean 0 and variance 1, {raw_gap} with the raw parameters")
+    versus = bn_step_card_vs_cpu(signals)
+    torch.cuda.synchronize()
+    report("phase 11 BatchNorm", card=smi,
+           run=dict(flags="flagship recipe, --batch_norm --algorithm gan "
+                          "--ema 0.999", epochs=2, seconds=train_s,
+                    train_epoch_s=[c["s"] for c in spy.calls["train_epoch"]],
+                    last_logs=logs[1], sampling_launches=launches,
+                    plain_calls=calls, sampled_traces=2 * 102,
+                    golden="oasis_ref", mismatches_vs_golden=sample_diff,
+                    kernel_vs_plain=sample_twin),
+           running_statistics=dict(buffers=len(stats),
+                                   moved_from_init=moved),
+           generate=dict(epoch=epoch, served_vs_gan_sample=served_vs_sample,
+                         with_mean_0_var_1=stale_gap,
+                         with_raw_parameters=raw_gap),
+           card_vs_cpu=versus)
+    return dict(train_launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2264,9 +2840,9 @@ def main() -> int:
     max_err = phase_kernel()
     config = flagship_config()
     weights, _ = get_models(config, rng=torch.Generator().manual_seed(SEED))
-    params = convert.flax_generator_params(weights.state_dict())
-    serving_launches = phase_slice(config, params)
-    serving = phase_timings(config, params, smi)
+    variables = convert.flax_generator_variables(weights.state_dict())
+    serving_launches = phase_slice(config, variables)
+    serving = phase_timings(config, variables, smi)
     recordings = phase_recordings(smi)
     with tempfile.TemporaryDirectory() as work:
         training = phase_training(smi, work)
@@ -2274,6 +2850,9 @@ def main() -> int:
         phase_prepare(smi, work, recording)
         evaluation = phase_evaluation(smi, work, training["run"])
         dg = phase_dg(smi, work, recording)
+        conv2d = phase_conv2d(smi, work, recording)
+        batch_norm = phase_batch_norm(smi, work, training["records"],
+                                      training["head"])
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
@@ -2288,7 +2867,12 @@ def main() -> int:
                          + collections.Counter(evaluation["launches"])
                          + collections.Counter(dg["train_launches"])
                          + collections.Counter(dg["metrics_launches"])
-                         + collections.Counter(dg["mlp_launches"])),
+                         + collections.Counter(dg["mlp_launches"])
+                         + collections.Counter(conv2d["train_launches"])
+                         + collections.Counter(conv2d["metrics_launches"])
+                         + collections.Counter(conv2d["serve_launches"])
+                         + collections.Counter(
+                             batch_norm["train_launches"])),
          "launches_by_path": {
              "generate --spikes": launched("oasis_ar1", serving_launches),
              "main (sampling epochs)": launched("oasis_ar1",
@@ -2300,11 +2884,22 @@ def main() -> int:
              "compute_dg_metrics": launched("oasis_ar1",
                                             dg["metrics_launches"]),
              "main --model mlp --algorithm gan (sampling epochs)": launched(
-                 "oasis_ar1", dg["mlp_launches"])},
+                 "oasis_ar1", dg["mlp_launches"]),
+             "main --model calciumgan2d (sampling epochs)": launched(
+                 "oasis_ar1", conv2d["train_launches"]),
+             "compute_metrics on the conv2d run": launched(
+                 "oasis_ar1", conv2d["metrics_launches"]),
+             "generate --spikes from the conv2d run": launched(
+                 "oasis_ar1", conv2d["serve_launches"]),
+             "main --batch_norm --algorithm gan --ema (sampling epochs)":
+                 launched("oasis_ar1", batch_norm["train_launches"])},
          "path": "generate --spikes; main (sampling epochs); "
                  "compute_metrics (one epoch file of 1000 x 2048 x 102); "
                  "the DG run's and the mlp run's sampling epochs; "
-                 "compute_dg_metrics (one epoch file of 64 x 2048 x 100)",
+                 "compute_dg_metrics (one epoch file of 64 x 2048 x 100); "
+                 "the conv2d run's sampling epochs, compute_metrics (64 x "
+                 "2048 x 102) and generate --spikes; the BatchNorm run's "
+                 "sampling epochs",
          "library_ms": None,
          **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"]))},
         {"name": "oasis_ar1_precise", "route": "cuda", "source": source,

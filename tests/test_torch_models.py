@@ -21,7 +21,6 @@ import torch
 
 from calciumgan_tpu.models.calciumgan import Generator as FlaxGenerator
 from calciumgan_tpu_torch import convert
-from calciumgan_tpu_torch.models import base
 from calciumgan_tpu_torch.models.calciumgan import Generator
 
 torch.set_num_threads(1)
@@ -158,8 +157,3 @@ def test_glorot_init_from_explicit_generator():
     torch.testing.assert_close(a.state_dict(), b.state_dict(), rtol=0,
                                atol=0)
     assert not torch.equal(conv, c.conv_transpose[1].weight)
-
-
-def test_batch_norm_not_ported():
-    with pytest.raises(NotImplementedError, match="batch_norm"):
-        base.Norm(4, batch_norm=True)

@@ -246,22 +246,45 @@ def test_trainer_refuses_what_it_cannot_run(records, tmp_path):
         port_train.main(config, device=device)
 
 
-@pytest.mark.parametrize("extra,raises", [
-    (("--model", "mlp"), None),
-    (("--model", "calciumgan2d"), KeyError),
-    (("--batch_norm",), NotImplementedError)])
-def test_models_the_port_builds_and_refuses(records, extra, raises):
-    # mlp is ported; calciumgan2d is no entry of the port's registry yet
-    # and --batch_norm raises from models/base.py
-    config, _ = port_main.parse_args(flags(records, "unused", 1, *extra))
+@pytest.fixture(scope="module")
+def conv2d_records(tmp_path_factory):
+    """The records fixture's data as a ``--conv2d`` dataset: 64 x 6 x 1."""
+    out = str(tmp_path_factory.mktemp("data2d") / "records")
+    rng = np.random.default_rng(7)
+    data = {"signals": rng.random((6, 1200)).astype(np.float32),
+            "oasis": (rng.random((6, 1200)) < 0.05).astype(np.float32)}
+    signals, spikes, meta = segments.preprocess(data, 64, 8, conv2d=True,
+                                                do_normalize=True,
+                                                is_dg_data=True)
+    segments.write_dataset(out, signals, spikes, meta, 64, 8,
+                           validation_size=16, do_normalize=True,
+                           apply_fft=False, conv2d=True, verbose=0)
+    return out
+
+
+@pytest.mark.parametrize("extra", [
+    ("--model", "mlp"), ("--model", "calciumgan2d"), ("--batch_norm",)],
+    ids=["mlp", "calciumgan2d", "batch_norm"])
+def test_models_the_port_builds_and_refuses(records, conv2d_records, extra):
+    # every model of the JAX registry builds, --batch_norm too (the 2-D
+    # model on a --conv2d dataset); a model the registry lacks is refused
+    conv2d = "calciumgan2d" in extra
+    config, _ = port_main.parse_args(flags(
+        conv2d_records if conv2d else records, "unused", 1, *extra))
     pipeline.get_datasets(config)
-    if raises is None:
-        gen, dis = get_models(config)
-        noise = torch.zeros(3, config.noise_dim)
-        assert gen(noise).shape == (3,) + tuple(config.signal_shape)
-        assert dis(gen(noise)).shape == (3, 1)
-        return
-    with pytest.raises(raises, match="calciumgan2d|batch_norm"):
+    assert config.signal_shape == ((64, 6, 1) if conv2d else (64, 6))
+    gen, dis = get_models(config)
+    draws = gan.Draws(0, 0, "cpu")
+    noise = torch.zeros(3, config.noise_dim)
+    fake = gen(noise, *gen.draw_inputs(draws, 3, True))
+    assert fake.shape == (3,) + tuple(config.signal_shape)
+    assert dis(fake, *dis.draw_inputs(draws, 3, True)).shape == (3, 1)
+    assert bool(torch.isfinite(fake).all())
+    if "--batch_norm" in extra:
+        assert any(n.endswith("batch_norm.var") for n, _ in
+                   gen.named_buffers())
+    config.model = "bogus"
+    with pytest.raises(KeyError, match="bogus"):
         get_models(config)
 
 

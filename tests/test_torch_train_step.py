@@ -100,12 +100,13 @@ def run_train_step(rec, algorithm, bf16, kernel_size, edit=None):
     return new, jlogs, state, logs, draws
 
 
-def moments(jax_net, port_net, to_state_dict):
-    """(port, JAX) first moments per parameter name."""
+def moments(jax_net, port_net, to_state_dict, skip=()):
+    """(port, JAX) first moments per parameter name, but those in
+    ``skip``."""
     mu = to_state_dict(jax_net.opt_state[0].mu)
     opt = port_net.optimizer
     return {n: (opt.state[p]["exp_avg"], mu[n])
-            for n, p in port_net.module.named_parameters()}
+            for n, p in port_net.module.named_parameters() if n not in skip}
 
 
 def grad_errors(pairs, bf16):
@@ -132,21 +133,23 @@ _NETS = (("generator", convert.generator_state_dict),
          ("discriminator", convert.discriminator_state_dict))
 
 
-def check_step(new, tstate, bf16, nets=_NETS):
+def check_step(new, tstate, bf16, nets=_NETS, skip=()):
     """``nets``: each net's name and its Flax-to-``state_dict`` rule, the
-    generator's first."""
+    generator's first; parameters named in ``skip`` are left out."""
     for name, to_sd in nets:
         net = getattr(tstate, name)
         assert net.step == int(getattr(new, name).step)
         tol = BF16_GRAD_TOL if bf16 else F32_GRAD_TOL
-        assert grad_errors(moments(getattr(new, name), net, to_sd),
+        assert grad_errors(moments(getattr(new, name), net, to_sd, skip),
                            bf16) <= tol, name
     if bf16:
         return
     # the generator's one Adam step, where its gradient is well above eps
-    pairs = moments(new.generator, tstate.generator, nets[0][1])
+    pairs = moments(new.generator, tstate.generator, nets[0][1], skip)
     updated = nets[0][1](new.generator.params)
     for n, p in tstate.generator.module.named_parameters():
+        if n in skip:
+            continue
         _, ref_mu = pairs[n]
         sure = ref_mu.abs() > 1e-3 * ref_mu.abs().max()
         np.testing.assert_allclose(p.detach()[sure].numpy(),

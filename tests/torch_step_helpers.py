@@ -1,6 +1,7 @@
 """Shared by the port's step parity tests: the tiny configurations, the
 shared weights, and the capture and replay of the JAX package's random
-draws (see ``test_torch_train_step.py`` and ``test_torch_mlp.py``)."""
+draws (see ``test_torch_train_step.py``, ``test_torch_mlp.py``,
+``test_torch_calciumgan2d.py`` and ``test_torch_batch_norm.py``)."""
 
 import collections
 import contextlib
@@ -16,6 +17,7 @@ from calciumgan_tpu.algorithms import get_algorithm as jax_get_algorithm
 from calciumgan_tpu.algorithms.state import GANState, make_net_state
 from calciumgan_tpu.config import Config as JaxConfig
 from calciumgan_tpu.models import calciumgan as jax_calciumgan
+from calciumgan_tpu.models import calciumgan2d as jax_calciumgan2d
 from calciumgan_tpu.models import get_models as jax_get_models
 from calciumgan_tpu.models import mlp as jax_mlp
 from calciumgan_tpu.ops.phase_shuffle import _shift_axis as jax_shift_axis
@@ -41,6 +43,14 @@ def tiny_mlp(**kw):
     return tiny(**dict(dict(model="mlp", sequence_length=6, num_neurons=2,
                             num_channels=2, signal_shape=(6, 2),
                             dropout=0.2), **kw))
+
+
+def tiny_2d(**kw):
+    """A ``--conv2d`` dataset's shape: (64 frames, 6 neurons, 1 channel),
+    units 2 (``tests/test_models.py:49-90``)."""
+    return tiny(**dict(dict(model="calciumgan2d", signal_shape=(64, 6, 1),
+                            num_channels=1, num_units=2, noise_dim=4, n=2),
+                       **kw))
 
 
 class Recorder:
@@ -86,21 +96,22 @@ class Replay:
 
 def make_pair(rec, **kw):
     """The port's algorithm and state, and the JAX algorithm (its noise and
-    alpha draws recorded) with a state holding the same weights; the
-    weights are the port's glorot draws, so no Flax ``init`` is compiled.
-    ``model="mlp"`` takes :func:`tiny_mlp`'s sizes."""
-    sizes = tiny_mlp(**kw) if kw.get("model") == "mlp" else tiny(**kw)
+    alpha draws recorded) with a state holding the same weights and
+    BatchNorm running statistics; the weights are the port's glorot draws,
+    so no Flax ``init`` is compiled. ``model="mlp"`` takes
+    :func:`tiny_mlp`'s sizes, ``model="calciumgan2d"`` :func:`tiny_2d`'s."""
+    sizes = {"mlp": tiny_mlp, "calciumgan2d": tiny_2d}.get(
+        kw.get("model"), tiny)(**kw)
     cfg = Config(**sizes)
     algo = get_algorithm(cfg, *get_models(
         cfg, rng=torch.Generator().manual_seed(0)))
     jcfg = JaxConfig(**sizes)
     jalgo = jax_get_algorithm(jcfg, *jax_get_models(jcfg))
-    gen = convert.flax_generator_params(algo.generator.state_dict(),
-                                        cfg.model)
+    gen = convert.flax_generator_variables(algo.generator.state_dict(),
+                                           cfg.model)
     dis = convert.flax_discriminator_params(
         algo.discriminator.state_dict(), cfg.model)
-    jstate = GANState(generator=make_net_state({"params": gen},
-                                               jalgo.tx_gen),
+    jstate = GANState(generator=make_net_state(gen, jalgo.tx_gen),
                       discriminator=make_net_state({"params": dis},
                                                    jalgo.tx_dis))
     get_noise = jalgo.get_noise
@@ -156,21 +167,32 @@ class _Linen:
 
 @contextlib.contextmanager
 def recording():
-    """A :class:`Recorder` of the JAX discriminator's phase shifts, drawn
-    exactly as ``calciumgan_tpu.ops.phase_shuffle.phase_shuffle`` draws
-    them, and of the JAX mlp model's dropout masks, while the context
-    lasts."""
+    """A :class:`Recorder` of the JAX discriminators' phase shifts, drawn
+    exactly as ``calciumgan_tpu.ops.phase_shuffle.phase_shuffle`` and
+    ``phase_shuffle_2d`` draw them (the 2-D one's time shift, then its
+    neuron shift), and of the JAX mlp model's dropout masks, while the
+    context lasts."""
     rec = Recorder()
 
-    def phase_shuffle(x, key, m, axis=1):
-        if m == 0:
-            return x
+    def shift_axis(x, key, m, axis):
         shift = jax.random.randint(key, (), -m, m + 1)
         jax.debug.callback(rec("shift"), shift, ordered=True)
         return jax_shift_axis(x, shift, m, axis)
 
+    def phase_shuffle(x, key, m, axis=1):
+        return x if m == 0 else shift_axis(x, key, m, axis)
+
+    def phase_shuffle_2d(x, key, m, n, w_axis=1, c_axis=2):
+        kw, kc = jax.random.split(key)
+        if m > 0:
+            x = shift_axis(x, kw, m, w_axis)
+        if n > 0:
+            x = shift_axis(x, kc, n, c_axis)
+        return x
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_calciumgan, "phase_shuffle", phase_shuffle)
+        mp.setattr(jax_calciumgan2d, "phase_shuffle_2d", phase_shuffle_2d)
         mp.setattr(jax_mlp, "nn", _Linen(recording_dropout(rec)))
         yield rec
 
