@@ -21,5 +21,7 @@ evaluation (``...dataset.generate_tfrecords``, ``...compute_metrics``), each
 deconvolving on the hand-written OASIS AR(1) CUDA kernel
 (``csrc/oasis_ar1.cu``), and the DG experiments (``...dataset.
 generate_dg_data``, ``...dataset.generate_surrogate_data``, the ``mlp``
-model, ``...compute_dg_metrics``).
+model, ``...compute_dg_metrics``), the conv2d model and BatchNorm, the
+sweep (``python -m calciumgan_tpu_torch.search``), the figure render pool
+and the in-graph ``ops.oasis.deconvolve_signals``.
 """

@@ -12,9 +12,9 @@ van Rossum distance, and behind flags covariance and Victor-Purpura
 distance. The mean KL per statistic and epoch, and the best epoch per
 statistic, go to ``<output_dir>/metrics/metrics.json``; scalars and figures
 to ``<output_dir>/metrics``. ``--device cuda`` (the default) without a card
-raises; ``--device cpu`` runs on the host. Figures render inline:
-``--num_processors`` is accepted and unused, since the JAX package's render
-pool is not ported.
+raises; ``--device cpu`` runs on the host. Figures render in a pool of up
+to ``--num_processors`` spawned processes (at most one fewer than the
+host's cores; inline where that leaves none), as the JAX CLI's do.
 """
 
 import argparse
@@ -86,7 +86,13 @@ def main(config, with_covariance: bool = False,
         config.num_samples, min(config.num_trial_plots, config.num_samples),
         replace=False)]
 
-    summary = Summary(config, spike_metrics=True, no_plots=no_plots)
+    # figures render in a process pool (matplotlib is the host work worth
+    # fanning out beside the card's); on a single-core host the pool only
+    # adds spawn and pickling, so the worker count follows the cores
+    workers = 0 if no_plots else min(config.num_processors,
+                                     max(0, (os.cpu_count() or 1) - 1))
+    summary = Summary(config, spike_metrics=True, no_plots=no_plots,
+                      workers=workers)
 
     # real spikes are epoch-invariant: load the validation cache once
     real_spikes = spike_eval._load_spikes(config, config.validation_cache,
@@ -146,9 +152,8 @@ def parse_args(argv=None):
                              "statistics ('cpu' runs on the host)")
     parser.add_argument("--output_dir", default=S, help="(default: runs)")
     parser.add_argument("--num_processors", default=S, type=int,
-                        help="accepted for the root CLI's sake and unused: "
-                             "figures render inline (the render pool is "
-                             "not ported)")
+                        help="processes of the figure render pool "
+                             "(default: 6; 0 renders inline)")
     parser.add_argument("--all_epochs", action="store_true", default=S)
     parser.add_argument("--no_plots", action="store_true", default=False,
                         help="skip all matplotlib figures; compute and "

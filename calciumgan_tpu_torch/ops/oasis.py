@@ -1,5 +1,6 @@
-"""Host-side dispatch of OASIS AR(1) spike deconvolution (counterpart of
-``calciumgan_tpu/ops/oasis.py:179-398,401-430``).
+"""OASIS AR(1) spike deconvolution: the host-side dispatch, the in-graph
+API and the AR(1) forward model (counterpart of
+``calciumgan_tpu/ops/oasis.py``).
 
 :func:`deconvolve_signals_host` runs the OASIS kernel with the JAX
 package's production arguments, walks a stack-depth ladder while too many
@@ -19,8 +20,14 @@ figures in the JAX comments were taken on a TPU and say nothing of the GPU.
 generators (counterpart of ``calciumgan_tpu/ops/oasis.py:451-491``): plain
 PyTorch operations, as it is XLA and no kernel in the JAX package.
 
-Not ported yet: the in-graph ``deconvolve_signals`` and its XLA
-``while_loop`` machine ``oasis_ar1_jax``.
+:func:`deconvolve_signals` is the in-graph API (JAX ``:124-177``): float32
+spikes that stay on the traces' device. Its ``"kernel"`` backend (JAX's
+``"pallas"``) runs :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1`
+with JAX's arguments and gives every flagged row the spikes of
+:func:`oasis_ar1_while`, the float32 pool machine of ``oasis_ar1_jax``
+(JAX ``:37-121``: an XLA ``while_loop``, so plain PyTorch operations
+here), run on those rows alone; JAX reruns the whole batch when one lane
+flags, which gives each row the same result.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from calciumgan_tpu_torch.kernels import build
 from calciumgan_tpu_torch.ops import oasis_cuda
 from calciumgan_tpu_torch.ops.spike_metrics import first_order_recurrence
 
-__all__ = ["ar1_filter", "deconvolve_signals_host"]
+__all__ = ["ar1_filter", "deconvolve_signals", "deconvolve_signals_host",
+           "oasis_ar1_while"]
 
 # first rung covers spiky-calcium sl2048 traces; escalate the whole batch
 # one rung deeper while more than _ESCALATE_FRAC of its traces overflow
@@ -68,6 +76,139 @@ _PALLAS_MAX_T = oasis_cuda.PALLAS_MAX_T
 
 # fewest flagged traces worth a thread of the host redo
 _HOST_ROWS_PER_THREAD = 256
+
+# the in-graph API's merge budget: oasis_ar1_pallas's default, which the
+# JAX package's deconvolve_signals keeps
+_IN_GRAPH_MERGE_ATTEMPTS = 4
+
+# iterations of oasis_ar1_while between two looks (a device sync) at
+# whether a lane is still active; the iterations after the last lane ends
+# change nothing
+_WHILE_CHECK_EVERY = 64
+
+
+def oasis_ar1_while(signals, g: float = 0.95, lam: float = 0.0,
+                    s_min: float = 0.0):
+    """OASIS AR(1) of ``(..., T)`` traces by the pool machine of the JAX
+    package's ``oasis_ar1_jax`` / ``_oasis_single`` (JAX ``ops/oasis.py:
+    37-121``), on the traces' device; returns ``(c, s)`` of their shape.
+
+    float32 throughout, in JAX's order of operations: ``g^e`` is
+    ``exp(e * log g)``. Each lane holds pools ``v``, ``w``, ``ln`` of shape
+    ``(B, T)``, its frame ``t`` and top pool ``p``; an iteration merges the
+    top pool into its neighbour where it violates the ordering and pushes
+    the next frame otherwise, until no lane is active (at most ``2T - 2``
+    iterations). The pools are then spread over the frames in parallel
+    (``cumsum`` of the pool lengths, ``searchsorted``). Lanes are
+    independent: a subset of rows gives those rows' results."""
+    signals = torch.as_tensor(signals, dtype=torch.float32)
+    T = signals.shape[-1]
+    if T < 1:
+        raise ValueError(f"signals must be (..., T) with T >= 1, got shape "
+                         f"{tuple(signals.shape)}")
+    y = signals.reshape(-1, T)
+    B, dev, f32 = y.shape[0], y.device, torch.float32
+    g32 = torch.tensor(g, dtype=f32, device=dev)
+    log_g = torch.log(g32)
+    s_min32 = torch.tensor(s_min, dtype=f32, device=dev)
+    lam32 = torch.tensor(lam, dtype=f32, device=dev)
+    yy = y - lam32 * (1.0 - g32)
+    yy[:, -1] = y[:, -1] - lam32
+
+    v = torch.zeros((B, T), dtype=f32, device=dev)
+    w = torch.zeros_like(v)
+    ln = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    v[:, 0], w[:, 0], ln[:, 0] = yy[:, 0], 1.0, 1
+    t = torch.ones(B, dtype=torch.long, device=dev)
+    p = torch.zeros(B, dtype=torch.long, device=dev)
+    base = torch.arange(B, device=dev) * T   # lane b's slots: base[b] + i
+    vf, wf, lf, yf = v.view(-1), w.view(-1), ln.view(-1), yy.reshape(-1)
+    for it in range(2 * T):
+        at_p, at_q = base + p, base + (p - 1).clamp_min(0)
+        vp, wp, lp = vf[at_p], wf[at_p], lf[at_p]
+        vq, wq, lq = vf[at_q], wf[at_q], lf[at_q]
+        gl = torch.exp(lq.to(f32) * log_g)
+        viol = (p > 0) & (vp / wp < gl * (vq / wq) + s_min32)
+        active = viol | (t < T)
+        if it % _WHILE_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        push = active & ~viol
+        # one slot changes a lane: the merge's neighbour, the push's new
+        # pool, or (inactive) the top pool rewritten with its own values
+        at = torch.where(viol, at_q, torch.where(
+            push, base + (p + 1).clamp_max(T - 1), at_p))
+        y_t = yf[base + t.clamp_max(T - 1)]
+        vf[at] = torch.where(viol, vq + gl * vp, torch.where(push, y_t, vp))
+        wf[at] = torch.where(viol, wq + gl * gl * wp,
+                             torch.where(push, 1.0, wp))
+        lf[at] = torch.where(viol, lq + lp, torch.where(push, 1, lp))
+        t = t + push
+        p = p + push.long() - viol.long()
+
+    # parallel reconstruction (JAX ops/oasis.py:96-110)
+    idx = torch.arange(T, device=dev)
+    valid = idx < (p + 1)[:, None]
+    l_masked = torch.where(valid, ln.long(), 0)
+    starts = torch.cumsum(l_masked, 1) - l_masked
+    starts = torch.where(valid, starts, T)  # empty pools start after T
+    pool_id = torch.searchsorted(starts, idx.expand(B, T).contiguous(),
+                                 right=True) - 1
+    h = torch.clamp_min(v / w, 0.0)
+    c = h.gather(1, pool_id) * torch.exp(
+        (idx - starts.gather(1, pool_id)).to(f32) * log_g)
+    s = torch.cat([torch.zeros_like(c[:, :1]), c[:, 1:] - g32 * c[:, :-1]],
+                  dim=1)
+    return c.reshape(signals.shape), s.reshape(signals.shape)
+
+
+def _in_graph_backend(backend: str, signals) -> str:
+    """``"kernel"`` or ``"while"``: ``"auto"`` takes the kernel for a CUDA
+    tensor of up to ``_PALLAS_MAX_T`` frames, as the JAX package takes
+    Pallas on a TPU, and the while machine otherwise."""
+    if backend == "auto":
+        return ("kernel" if signals.is_cuda
+                and signals.shape[-1] <= _PALLAS_MAX_T else "while")
+    if backend not in ("kernel", "while"):
+        raise ValueError(f"backend must be 'auto', 'kernel' or 'while', "
+                         f"got {backend!r}")
+    return backend
+
+
+def deconvolve_signals(signals, g: float = 0.95, s_min: float = 0.55,
+                       threshold: float = 0.5, backend: str = "auto",
+                       depth: int | None = None) -> torch.Tensor:
+    """Binary spike trains of ``(..., T)`` traces as float32 of the same
+    shape on the same device (JAX ``ops/oasis.py:124-177``; the
+    reference's recipe g 0.95, s_min 0.55, binarised at 0.5).
+
+    ``backend``: ``"kernel"`` (the port's name for JAX's ``"pallas"``) runs
+    :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1` (the CUDA kernel
+    for a CUDA tensor, its plain twin for a CPU one) with JAX's arguments
+    (``lam`` 0, ``depth``, merge budget 4, no borderline band, so redo bit
+    2 never rises), then gives every flagged row the spikes of
+    :func:`oasis_ar1_while` run on the flagged rows alone; ``"while"``
+    runs :func:`oasis_ar1_while` on every row; ``"auto"`` takes the kernel
+    for a CUDA tensor of up to ``_PALLAS_MAX_T`` frames and the while
+    machine otherwise. The traces stay on their device; the kernel backend
+    syncs once, to learn which rows flagged.
+
+    Precision: exact with respect to the float32 algorithm, as JAX's; a
+    decision whose float32 margin is within rounding may differ from the
+    float64 golden. :func:`deconvolve_signals_host` recomputes such rows
+    in float64."""
+    signals = torch.as_tensor(signals, dtype=torch.float32)
+    if _in_graph_backend(backend, signals) == "while":
+        _, s = oasis_ar1_while(signals, g=g, s_min=s_min)
+    else:
+        flat = signals.reshape(-1, signals.shape[-1]).contiguous()
+        _, s, redo = oasis_cuda.oasis_ar1(
+            flat, g=g, lam=0.0, s_min=s_min, depth=depth,
+            merge_attempts=_IN_GRAPH_MERGE_ATTEMPTS, flag_tol=0.0)
+        rows = torch.nonzero(redo).squeeze(1)
+        if rows.numel():
+            s[rows] = oasis_ar1_while(flat[rows], g=g, s_min=s_min)[1]
+        s = s.reshape(signals.shape)
+    return (s > threshold).to(torch.float32)
 
 
 def _flag_tol(s_min: float, threshold: float,

@@ -1,6 +1,7 @@
 """The figures of training and of the spike metrics (copy of the renderers
-and ``render_and_save`` of ``calciumgan_tpu/utils/plots.py``; its process
-pool is not ported: figures render inline).
+and ``render_and_save`` of ``calciumgan_tpu/utils/plots.py``), rendered
+inline or in :mod:`.summary`'s spawned render pool, whose workers import
+this module alone.
 
 matplotlib is imported when the first figure is rendered, not with this
 module: the port's library core and a machine without matplotlib import it

@@ -10,16 +10,25 @@ figure inline, saves its PNG under ``<logdir>/plots`` (and, in metrics mode,
 its vector copy) and writes it as an image summary.
 
 ``no_plots`` is true when the caller asks for it or when matplotlib is not
-installed (one line says so): then no figure is rendered and callers skip
-the work that only feeds figures; the scalars are written all the same.
-The JAX package's render pool (``workers``, ``drain``) is not ported.
+installed (one line says so): then no figure is rendered, no render pool
+starts, and callers skip the work that only feeds figures; the scalars are
+written all the same.
+
+With ``workers=N`` figures render in a pool of N processes started with
+``spawn`` (the JAX package's render pool): a worker renders through
+:mod:`.plots` and never initialises CUDA, so evaluation overlaps
+matplotlib with the card's work. :meth:`drain` writes every
+figure rendered so far into the event files; :meth:`close` drains, shuts
+the pool down and closes the files.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import multiprocessing
 import os
 import shutil
+from concurrent.futures import ProcessPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -31,7 +40,7 @@ from calciumgan_tpu_torch.utils.tb import EventWriter
 class Summary:
 
     def __init__(self, config, spike_metrics: bool = False,
-                 no_plots: bool = False):
+                 no_plots: bool = False, workers: int = 0):
         self._config = config
         self.spike_metrics = spike_metrics
         self.dpi = getattr(config, "dpi", 120)
@@ -40,6 +49,9 @@ class Summary:
             print("matplotlib is not installed: figures are skipped")
             no_plots = True
         self.no_plots = no_plots
+        self._workers = max(0, int(workers))
+        self._pool = None
+        self._pending = []
 
         if spike_metrics:
             self._metrics_dir = os.path.join(config.output_dir, "metrics")
@@ -74,10 +86,24 @@ class Summary:
         self._writer(training).histogram(tag, np.asarray(values), step)
 
     def flush(self):
+        self.drain()
         for writer in self._writers():
             writer.flush()
 
+    def drain(self):
+        """Write every pending pooled figure into the event files."""
+        pending, self._pending = self._pending, []
+        for future, tag, step, training in pending:
+            self._write_image(future.result(), tag, step, training)
+
     def close(self):
+        """Drain pooled figures, shut the pool down, close the files."""
+        try:
+            self.drain()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
+                self._pool = None
         for writer in self._writers():
             writer.close()
 
@@ -101,8 +127,21 @@ class Summary:
     def _figure(self, kind, payload, tag, step, training):
         if self.no_plots:
             return
-        png, w, h = plots.render_and_save(kind, payload,
-                                          self._meta(tag, step, training))
+        meta = self._meta(tag, step, training)
+        if not self._workers:
+            self._write_image(plots.render_and_save(kind, payload, meta),
+                              tag, step, training)
+            return
+        if self._pool is None:
+            self._pool = ProcessPoolExecutor(
+                max_workers=self._workers,
+                mp_context=multiprocessing.get_context("spawn"))
+        self._pending.append((self._pool.submit(
+            plots.render_and_save, kind, payload, meta), tag, step,
+            training))
+
+    def _write_image(self, result, tag, step, training):
+        png, w, h = result
         self._writer(training).image(f"{tag}/image/0", png, height=h,
                                      width=w, step=step)
 

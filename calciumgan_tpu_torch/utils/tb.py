@@ -1,6 +1,7 @@
-"""Dependency-free TensorBoard event-file writer: a copy of the scalar,
-histogram and image half of ``calciumgan_tpu/utils/tb.py`` (``:37-128``,
-``:175-182``; the HParams plugin serves the sweep, not yet ported).
+"""Dependency-free TensorBoard event-file writer: a copy of
+``calciumgan_tpu/utils/tb.py``, with the HParams plugin events of the
+sweep (``hparams_config``, ``hparams``; ``:130-198`` there), which write
+the same bytes as the JAX package's for the same arguments and clock.
 
 An events file is a TFRecord stream of ``Event`` protos, written with the
 port's record framing and varint codec (:mod:`..data.tfrecord`).
@@ -124,6 +125,49 @@ class EventWriter:
                  _varint_field(3, colorspace) + _len_field(4, png_bytes))
         self._summary(_value(tag, _len_field(4, image)), step)
 
+    # ---- TensorBoard HParams plugin ----------------------------------
+    # (the reference's search.py uses tensorboard.plugins.hparams; proto
+    # field numbers from tensorboard/plugins/hparams/{plugin_data,api}.proto)
+
+    def _hparams_value(self, tag: str, plugin_content: bytes) -> None:
+        plugin_data = (_len_field(1, b"hparams") +
+                       _len_field(2, plugin_content))
+        metadata = _len_field(1, plugin_data)          # SummaryMetadata
+        body = _len_field(9, metadata)                 # Value.metadata
+        self._summary(_value(tag, body), step=0)
+
+    def hparams_config(self, hparam_domains, metric_tags) -> None:
+        """Experiment-level sweep schema: {name: [discrete values]} domains
+        plus the metric tags shown in the HParams dashboard."""
+        infos = b""
+        for name, values in hparam_domains.items():
+            dtype = _pb_dtype(values[0]) if values else 1
+            domain = _len_field(  # HParamInfo.domain_discrete (ListValue)
+                5, b"".join(_len_field(1, _pb_value(v)) for v in values))
+            info = (_len_field(1, name.encode()) +
+                    _varint_field(4, dtype) + domain)
+            infos += _len_field(4, info)               # Experiment.hparam_infos
+        metrics = b""
+        for tag in metric_tags:
+            metric_name = _len_field(2, tag.encode())  # MetricName.tag
+            metrics += _len_field(5, _len_field(1, metric_name))
+        experiment = infos + metrics
+        content = _varint_field(1, 0) + _len_field(2, experiment)
+        self._hparams_value("_hparams_/experiment", content)
+
+    def hparams(self, values: dict, group_name: str = "") -> None:
+        """Per-trial hyper-parameter values (SessionStartInfo)."""
+        entries = b""
+        for name, v in values.items():
+            entry = _len_field(1, name.encode()) + _len_field(2, _pb_value(v))
+            entries += _len_field(1, entry)            # map entry
+        info = entries
+        if group_name:
+            info += _len_field(4, group_name.encode())
+        info += _double_field(5, time.time())          # start_time_secs
+        content = _varint_field(1, 0) + _len_field(3, info)
+        self._hparams_value("_hparams_/session_start_info", content)
+
     def flush(self) -> None:
         with self._lock:
             self._writer.flush()
@@ -131,3 +175,20 @@ class EventWriter:
     def close(self) -> None:
         with self._lock:
             self._writer.close()
+
+
+def _pb_value(v) -> bytes:
+    """Encode a google.protobuf.Value."""
+    if isinstance(v, bool):
+        return _varint_field(4, int(v))
+    if isinstance(v, (int, float)):
+        return _double_field(2, float(v))
+    return _len_field(3, str(v).encode())
+
+
+def _pb_dtype(v) -> int:
+    if isinstance(v, bool):
+        return 2    # DATA_TYPE_BOOL
+    if isinstance(v, (int, float)):
+        return 3    # DATA_TYPE_FLOAT64
+    return 1        # DATA_TYPE_STRING

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, whole-recording spike
 inference, dataset preparation, training, evaluation, the DG experiments,
-the conv2d model and BatchNorm once on one NVIDIA GPU.
+the conv2d model, BatchNorm, the in-graph ``deconvolve_signals`` and the
+sweep once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs eleven phases, printing one line of findings per phase.
+``nvcc`` and runs thirteen phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
@@ -19,13 +20,15 @@ every (machine, storage) pair the plan can choose is compared:
    the card, on seeded spiky traces at sl2048 with the production arguments
    at every rung of the depth ladder (64, 160, 256: shared-memory rings)
    and at depth 1024 (device-memory rings), and on the redo-bit edge
-   cases, plus the dispatch's spikes against the float64 golden;
+   cases, plus the dispatch's spikes against the C++ float64 kernel (all
+   4096 traces) and the numpy float64 golden (the first 1024);
 3. slice: ``calciumgan_tpu_torch.generate.generate`` at the flagship width
    (calciumgan, sl2048, 102 neurons, noise 32, units 64, kernel 24, stride
    2, layer_norm, bf16, normalize) with random weights from a seed, two
    batches of 1024 with spikes; the generator against its own float32 and
-   CPU runs on a small input; spikes against the float64 golden; the
-   kernel launch counter of that run;
+   CPU runs on a small input; spikes of 4096 sampled traces against the
+   C++ float64 kernel and of 1024 of them against the numpy float64
+   golden; the kernel launch counter of that run;
 4. timings on the card, each beside the card's name and power limit:
    generator, kernel and plain version (held against each other again at
    the main path's shape, one batch of generated traces), host redo, end
@@ -133,7 +136,28 @@ every (machine, storage) pair the plan can choose is compared:
    launches and spikes, the stored running statistics (finite, moved from
    0 and 1), ``generate`` serving the EMA parameters with them (equal to
    ``GAN.sample``, unlike mean 0 and variance 1), and one BatchNorm step
-   on the card against the CPU (losses, gradients, running statistics).
+   on the card against the CPU (losses, gradients, running statistics);
+12. the in-graph API: ``ops.oasis.deconvolve_signals`` on phase 4's
+   generated traces (104,448 x 2048) on the card, with its launches (one
+   ``oasis_ar1/shared``, no plain call), flagged rows and host-to-host
+   seconds, its spikes equal to the kernel's where no redo bit rose and to
+   ``oasis_ar1_while``'s where one did (and counted against the host
+   dispatch, which recomputes borderline rows in float64); the kernel at
+   the API's setting (depth 128, merge budget 4, no band) against its
+   plain version bit for bit and timed; the redo path forced by depth 8 on
+   256 rows: the while machine sees the flagged rows and no other, and
+   they take its spikes; ``oasis_ar1_while`` on the card against the CPU
+   and the float64 golden (differences reported, not bounded: a float32
+   decision within rounding of its margin may go either way), timed at 64
+   and 1024 rows;
+13. the sweep: ``python -m calciumgan_tpu_torch.search --device cuda``
+   in-process with two points of the default grid (noise_dim 4 and 16,
+   units 32, kernel 4, phase shuffle 1) on phase 6's records, batch 64, 2
+   epochs: two ``results.jsonl`` lines with finite metrics, the
+   ``_hparams_`` events, each experiment's sampling-epoch launches and
+   spikes against the float64 golden; a rerun that skips both ("already
+   exists") and leaves the results as they were; ``--summarize``;
+   ``--parallel 2`` refused on one GPU.
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
@@ -158,7 +182,11 @@ T = 2048
 G, S_MIN, THRESHOLD = 0.95, 0.55, 0.5
 KERNEL_TRACES = 4096        # phase 2 batch (B >= 4096)
 BATCH, BATCHES = 1024, 2    # phase 3 generation
-GOLDEN_TRACES = 4096        # generated traces checked against float64
+# phases 2-3: traces checked against the C++ float64 kernel, and the first
+# of them against the numpy float64 golden (~0.02 s a 2048-frame row on the
+# card's host: 1024 of 4096 since PR 8, to keep the script's time)
+GOLDEN_TRACES = 4096
+NUMPY_GOLDEN_TRACES = 1024
 # phase 5: whole recordings (tools/check_long_kernel_tpu.py's size)
 REC_TRACES, REC_T = 2048, 20000
 REC_GOLDEN_TRACES = 256     # of them checked against the numpy golden
@@ -259,6 +287,18 @@ STEP2D_T, STEP2D_B = 256, 2
 # H100 80GB HBM3, 700 W: card vs CPU 0.269 of it where the CPU's own two
 # precisions differ by 0.156, 1.73 times)
 STEP2D_BOUNDS = dict(bf16_grad_gap=3.0)
+# phase 12: the in-graph API on phase 4's generated traces. Its redo path
+# forced by depth 8 on these rows; oasis_ar1_while on the card against the
+# CPU on these rows, the first of them against the float64 golden; the
+# while machine timed at these row counts
+FORCED_ROWS = 256
+WHILE_CPU_ROWS, WHILE_GOLDEN_ROWS = 1024, 256
+WHILE_TIMED_ROWS = (64, 1024)
+# phase 13: two points of search.DEFAULT_GRID on phase 6's records, cut in
+# depth to 2 epochs
+SWEEP_GRID = {"noise_dim": [4, 16], "num_units": [32], "kernel_size": [4],
+              "phase_shuffle": [1]}
+SWEEP_EPOCHS = 2
 # the H100 SXM data sheet's dense bfloat16 tensor-core rate
 BF16_FLOPS_PER_S = 989e12
 # the bound of a kernel row: the bytes the function must move at the card's
@@ -488,9 +528,12 @@ def phase_kernel():
 
     # the dispatch (ladder + float64 host redo) on the CUDA tensor
     spikes = dispatch.deconvolve_signals_host(y)
-    golden = golden_spikes(host)
-    mismatches = int((spikes != golden).sum())
-    check(mismatches == 0, f"dispatch spikes: {mismatches} mismatches")
+    golden = golden_spikes(host[:NUMPY_GOLDEN_TRACES])
+    mismatches = int((spikes[:NUMPY_GOLDEN_TRACES] != golden).sum())
+    cxx = int((spikes != dispatch._exact_spikes_host(
+        host, G, S_MIN, THRESHOLD)).sum())
+    check(mismatches == 0 and cxx == 0, f"dispatch spikes: {mismatches} "
+          f"mismatches vs the golden, {cxx} vs the C++ float64 kernel")
     torch.cuda.synchronize()
     report("phase 2 kernel", shape=[KERNEL_TRACES, T], production=prod,
            **strip(main),
@@ -499,7 +542,10 @@ def phase_kernel():
            edge_bits={"bit0": bit0["redo"][0], "bit1": bit1["redo"][0],
                       "bit2": bit2["redo"][0]},
            dispatch_vs_golden=dict(golden="oasis_ref",
+                                   golden_traces=NUMPY_GOLDEN_TRACES,
                                    mismatches=mismatches,
+                                   cxx_float64_traces=KERNEL_TRACES,
+                                   cxx_float64_mismatches=cxx,
                                    spikes=int(golden.sum())))
     return max(f["max_abs_err"] for f in (main, *rungs.values()))
 
@@ -534,6 +580,7 @@ def phase_slice(config, variables):
     import numpy as np
     import torch
     from calciumgan_tpu_torch.generate import generate
+    from calciumgan_tpu_torch.ops import oasis as dispatch
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
     ref_errs = generator_reference_check(config, variables)
 
@@ -568,16 +615,20 @@ def phase_slice(config, variables):
     ours = np.transpose(spikes, (0, 2, 1)).reshape(-1, T)
     pick = np.random.default_rng(SEED).choice(len(traces), GOLDEN_TRACES,
                                               replace=False)
-    golden = golden_spikes(traces[pick])
-    mismatches = int((ours[pick] != golden).sum())
-    check(mismatches == 0, f"{mismatches} spike mismatches vs float64")
+    golden = golden_spikes(traces[pick[:NUMPY_GOLDEN_TRACES]])
+    mismatches = int((ours[pick[:NUMPY_GOLDEN_TRACES]] != golden).sum())
+    cxx = int((ours[pick] != dispatch._exact_spikes_host(
+        traces[pick], G, S_MIN, THRESHOLD)).sum())
+    check(mismatches == 0 and cxx == 0, f"{mismatches} spike mismatches vs "
+          f"the float64 golden, {cxx} vs the C++ float64 kernel")
     torch.cuda.synchronize()
     report("phase 3 slice", samples=len(signals), shape=list(shape),
            signals_range=[lo, hi], spikes=int(spikes.sum()),
            launches=launches, plain_calls=calls, seconds=round(seconds, 3),
            generator_vs_cpu=ref_errs, golden="oasis_ref",
-           golden_traces=GOLDEN_TRACES, golden_spikes=int(golden.sum()),
-           mismatches=mismatches)
+           golden_traces=NUMPY_GOLDEN_TRACES, golden_spikes=int(golden.sum()),
+           mismatches=mismatches, cxx_float64_traces=GOLDEN_TRACES,
+           cxx_float64_mismatches=cxx)
     return launches
 
 
@@ -2819,6 +2870,255 @@ def phase_batch_norm(smi, work, records, signals):
     return dict(train_launches=launches)
 
 
+def phase_in_graph(smi, config, variables):
+    """The in-graph API: ``deconvolve_signals`` on one serving batch of
+    generated traces (phase 4's, 1024 x 102 of 2048 frames) on the card,
+    with its kernel launches, flagged rows and host-to-host seconds; the
+    kernel at the API's setting (depth 128, merge budget 4, no band) against
+    its plain version bit for bit and timed; the redo path forced by depth
+    8 on a few hundred rows, whose flagged rows, and no other, take
+    ``oasis_ar1_while``'s spikes; ``oasis_ar1_while`` on the card against
+    the CPU and the float64 golden (mismatches reported: a float32 decision
+    within rounding of its margin may go either way), and timed."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.algorithms import gan
+    from calciumgan_tpu_torch.generate import build_generator
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    dev = torch.device("cuda")
+    generator = build_generator(config, variables, dev)
+    noise = gan.get_noise(torch.Generator(device=dev).manual_seed(SEED),
+                          BATCH, config.noise_dim, dev)
+    with torch.no_grad():
+        traces = gan.generate(generator, noise).transpose(1, 2).contiguous()
+    traces = traces.reshape(-1, T)  # (1024*102, 2048) as phase 4's
+    B = traces.shape[0]
+    torch.cuda.synchronize()
+
+    # the main path: counts at 0, one call, counts read
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    spy = Spy(dispatch, "oasis_ar1_while")
+    start = time.perf_counter()
+    with spy:
+        spikes = dispatch.deconvolve_signals(traces)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    while_rows = [int(c["args"][0].shape[0]) for c in spy.calls[
+        "oasis_ar1_while"]]
+    check(spikes.shape == traces.shape and spikes.dtype == torch.float32
+          and spikes.is_cuda and bool(((spikes == 0) | (spikes == 1)).all()),
+          f"in-graph spikes {tuple(spikes.shape)} {spikes.dtype}")
+    check(launches == {"oasis_ar1/shared": 1} and calls == 0,
+          f"in-graph launches {launches}, plain calls {calls}")
+
+    # the same composition rebuilt: kernel rows where redo is 0, the while
+    # machine's where it is not
+    api = dict(g=G, lam=0.0, s_min=S_MIN, depth=None,
+               merge_attempts=dispatch._IN_GRAPH_MERGE_ATTEMPTS,
+               flag_tol=0.0)
+    _, s_k, redo = oasis_cuda.oasis_ar1_cuda(traces, **api)
+    flagged = torch.nonzero(redo).squeeze(1)
+    check(while_rows == ([len(flagged)] if len(flagged) else []),
+          f"the while machine saw {while_rows} rows, {len(flagged)} flagged")
+    expect = (s_k > THRESHOLD).float()
+    if len(flagged):
+        expect[flagged] = (dispatch.oasis_ar1_while(
+            traces[flagged], g=G, s_min=S_MIN)[1] > THRESHOLD).float()
+    differ = int((spikes != expect).any(1).sum())
+    check(differ == 0, f"in-graph spikes differ from kernel + while on "
+                       f"{differ} rows")
+    flags = redo.cpu().numpy()
+    host = dispatch.deconvolve_signals_host(traces)
+    vs_host = int((spikes.to(torch.int8).cpu().numpy() != host).sum())
+
+    # the kernel at the in-graph setting against its plain version
+    held = compare_kernel(traces, **dict(api, depth=128))
+    check_equal(held, "classic, depth 128, merge budget 4")
+    check_variant(held, "oasis_ar1/shared", "classic, depth 128")
+    kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_cuda(traces, **api),
+                        reps=5)
+
+    # the redo path forced: depth 8 on a few hundred rows
+    rows = traces[:FORCED_ROWS]
+    _, s8, redo8 = oasis_cuda.oasis_ar1_cuda(rows, **dict(api, depth=8))
+    flagged8 = torch.nonzero(redo8).squeeze(1)
+    with Spy(dispatch, "oasis_ar1_while") as forced:
+        out8 = dispatch.deconvolve_signals(rows, depth=8)
+    seen = [c["args"][0] for c in forced.calls["oasis_ar1_while"]]
+    check(len(seen) == 1 and torch.equal(seen[0], rows[flagged8]),
+          f"forced redo: the while machine saw {[len(s) for s in seen]} "
+          f"rows, {len(flagged8)} flagged")
+    s_w = dispatch.oasis_ar1_while(rows[flagged8], g=G, s_min=S_MIN)[1]
+    keep = torch.ones(len(rows), dtype=torch.bool, device=dev)
+    keep[flagged8] = False
+    check(torch.equal(out8[flagged8], (s_w > THRESHOLD).float())
+          and torch.equal(out8[keep], (s8[keep] > THRESHOLD).float()),
+          "forced redo: flagged rows differ from oasis_ar1_while's")
+    vs_while = int((out8 != dispatch.deconvolve_signals(
+        rows, backend="while")).sum())
+
+    # oasis_ar1_while on the card against the CPU and the float64 golden
+    pick = np.sort(np.random.default_rng(SEED).choice(B, WHILE_CPU_ROWS,
+                                                      replace=False))
+    sample = traces[torch.from_numpy(pick).to(dev)]
+    c_card, s_card = dispatch.oasis_ar1_while(sample, g=G, s_min=S_MIN)
+    host_rows = sample.cpu()
+    c_cpu, s_cpu = dispatch.oasis_ar1_while(host_rows, g=G, s_min=S_MIN)
+    c_card, s_card = c_card.cpu(), s_card.cpu()
+    spk_card = (s_card > THRESHOLD).numpy().astype(np.int8)
+    spk_cpu = (s_cpu > THRESHOLD).numpy().astype(np.int8)
+    gold = golden_spikes(host_rows[:WHILE_GOLDEN_ROWS].numpy())
+    while_vs = dict(
+        rows=WHILE_CPU_ROWS,
+        card_vs_cpu=dict(c_max_abs=float((c_card - c_cpu).abs().max()),
+                         s_max_abs=float((s_card - s_cpu).abs().max()),
+                         c_lanes_differ=int((c_card != c_cpu).any(1).sum()),
+                         spike_mismatches=int((spk_card != spk_cpu).sum())),
+        golden_rows=WHILE_GOLDEN_ROWS, golden="oasis_ref",
+        card_vs_golden=int((spk_card[:WHILE_GOLDEN_ROWS] != gold).sum()),
+        cpu_vs_golden=int((spk_cpu[:WHILE_GOLDEN_ROWS] != gold).sum()),
+        golden_spikes=int(gold.sum()))
+    check(c_card.shape == c_cpu.shape == sample.shape
+          and bool(torch.isfinite(c_card).all())
+          and bool(torch.isfinite(c_cpu).all()),
+          f"oasis_ar1_while card vs CPU: {while_vs['card_vs_cpu']}")
+    while_ms = {n: cuda_ms(lambda n=n: dispatch.oasis_ar1_while(
+        traces[:n], g=G, s_min=S_MIN), reps=1) for n in WHILE_TIMED_ROWS}
+    torch.cuda.synchronize()
+    report("phase 12 in-graph deconvolve_signals", card=smi,
+           shape=[B, T], seconds=seconds, launches=launches,
+           plain_calls=calls, flagged=int(len(flagged)),
+           flagged_bits={f"bit{b}": int(((flags >> b) & 1).sum())
+                         for b in range(3)},
+           while_rows=while_rows, spikes=int(spikes.sum()),
+           vs_host_dispatch=dict(mismatches=vs_host,
+                                 note="the host dispatch recomputes "
+                                      "borderline rows in float64"),
+           kernel_depth128_budget4=dict(strip(held), ms=kernel_ms,
+                                        **bound(B, T, False)),
+           forced_redo=dict(rows=FORCED_ROWS, depth=8,
+                            flagged=int(len(flagged8)),
+                            spikes_vs_while_backend=vs_while),
+           oasis_ar1_while=while_vs,
+           while_ms={str(n): ms for n, ms in while_ms.items()})
+    return dict(launches=launches, kernel_ms=kernel_ms,
+                plain_ms=held["plain_ms"], max_abs_err=held["max_abs_err"])
+
+
+def phase_sweep(smi, work, records):
+    """The sweep: ``python -m calciumgan_tpu_torch.search --device cuda``
+    in-process with two points of the default grid on phase 6's records,
+    batch 64, 2 epochs: two ``results.jsonl`` lines with finite metrics, the
+    ``_hparams_`` events, the OASIS launches of each experiment's sampling
+    epochs (and their spikes against the float64 golden); a rerun that
+    skips both and leaves the results as they were; ``--summarize``;
+    ``--parallel 2`` refused on one GPU."""
+    import contextlib
+    import glob
+    import io
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import search, train
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    out = os.path.join(work, "sweep")
+    argv = ["--input_dir", records, "--output_dir", out, "--batch_size",
+            "64", "--epochs", str(SWEEP_EPOCHS), "--device", "cuda",
+            "--grid", json.dumps(SWEEP_GRID)]
+    per_experiment = {}
+    run_experiment = search.run_experiment
+
+    def counted(config, session, params, **kw):
+        before = collections.Counter(oasis_cuda.launches)
+        start = time.perf_counter()
+        metrics = run_experiment(config, session, params, **kw)
+        per_experiment[session] = dict(
+            seconds=time.perf_counter() - start,
+            launches=dict(collections.Counter(oasis_cuda.launches) - before))
+        return metrics
+
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    text = io.StringIO()
+    search.run_experiment = counted
+    try:
+        with Spy(train, "sample_and_plot") as spy, \
+                contextlib.redirect_stdout(text):
+            start = time.perf_counter()
+            search.main(argv)
+            sweep_s = time.perf_counter() - start
+    finally:
+        search.run_experiment = run_experiment
+    launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    check("ERROR" not in text.getvalue(), f"sweep: {text.getvalue()}")
+    with open(os.path.join(out, "results.jsonl")) as f:
+        results = f.read()
+    lines = [json.loads(line) for line in results.splitlines()]
+    check([line["session"] for line in lines] == [1, 2]
+          and all(np.isfinite(list(line["metrics"].values())).all()
+                  and "signals_metrics/mean" in line["metrics"]
+                  for line in lines), f"sweep results: {lines}")
+    check(sorted(per_experiment) == [1, 2] and all(
+        set(e["launches"]) == {"oasis_ar1/shared"}
+        for e in per_experiment.values()) and calls == 0,
+        f"sweep launches {per_experiment}, plain calls {calls}")
+    sampled = sampled_vs_golden(spy.calls["sample_and_plot"], (102, T),
+                                "sweep sampling epochs")
+    events = {}
+    for name in glob.glob(os.path.join(out, "**", "events.out.tfevents.*"),
+                          recursive=True):
+        with open(name, "rb") as f:
+            events[os.path.relpath(name, out)] = f.read()
+    blob = b"".join(events.values())
+    check(blob.count(b"_hparams_/experiment") == 1
+          and blob.count(b"_hparams_/session_start_info") == 2
+          and blob.count(b"test/signals_metrics/mean") >= 3,
+          f"sweep events: {sorted(events)}")
+
+    # resume: both skipped, results unchanged
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        search.main(argv)
+    with open(os.path.join(out, "results.jsonl")) as f:
+        rerun_same = f.read() == results
+    skipped = text.getvalue().count("already exists")
+    check(skipped == 2 and rerun_same, f"sweep rerun: {skipped} skipped, "
+                                       f"results unchanged {rerun_same}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        ranked = search.main(["--output_dir", out, "--summarize"])
+    means = [r["metrics"]["signals_metrics/mean"] for r in ranked]
+    check(len(ranked) == 2 and means == sorted(means),
+          f"--summarize: {means}")
+    # --parallel 2 wants an even number of GPUs: refused on one card, as
+    # the JAX package refuses it on one device
+    count = torch.cuda.device_count()
+    refused = "not run: an even number of GPUs"
+    if count % 2:
+        try:
+            search.main(argv[:2] + ["--output_dir", os.path.join(
+                work, "sweep_parallel")] + argv[4:] + ["--parallel", "2"])
+            refused = None
+        except ValueError as exc:
+            refused = str(exc)
+        check(refused == f"{count} devices not divisible by --parallel 2",
+              f"--parallel 2 on {count} GPU(s): {refused}")
+    torch.cuda.synchronize()
+    report("phase 13 sweep", card=smi, grid=SWEEP_GRID, batch_size=64,
+           epochs=SWEEP_EPOCHS, records=dict(train=TRAIN_ROWS,
+                                             validation=VAL_ROWS),
+           seconds=sweep_s, experiments={
+               str(s): dict(e, metrics=lines[s - 1]["metrics"])
+               for s, e in sorted(per_experiment.items())},
+           launches=launches, plain_calls=calls,
+           sampled_mismatches_vs_golden=sampled, event_files=sorted(events),
+           rerun_skipped=skipped, summarize=[r["session"] for r in ranked],
+           parallel_2=refused)
+    return dict(launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2853,6 +3153,8 @@ def main() -> int:
         conv2d = phase_conv2d(smi, work, recording)
         batch_norm = phase_batch_norm(smi, work, training["records"],
                                       training["head"])
+        in_graph = phase_in_graph(smi, config, variables)
+        sweep = phase_sweep(smi, work, training["records"])
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
@@ -2872,7 +3174,9 @@ def main() -> int:
                          + collections.Counter(conv2d["metrics_launches"])
                          + collections.Counter(conv2d["serve_launches"])
                          + collections.Counter(
-                             batch_norm["train_launches"])),
+                             batch_norm["train_launches"])
+                         + collections.Counter(in_graph["launches"])
+                         + collections.Counter(sweep["launches"])),
          "launches_by_path": {
              "generate --spikes": launched("oasis_ar1", serving_launches),
              "main (sampling epochs)": launched("oasis_ar1",
@@ -2892,16 +3196,23 @@ def main() -> int:
              "generate --spikes from the conv2d run": launched(
                  "oasis_ar1", conv2d["serve_launches"]),
              "main --batch_norm --algorithm gan --ema (sampling epochs)":
-                 launched("oasis_ar1", batch_norm["train_launches"])},
+                 launched("oasis_ar1", batch_norm["train_launches"]),
+             "deconvolve_signals (in-graph)": launched(
+                 "oasis_ar1", in_graph["launches"]),
+             "search (sampling epochs)": launched("oasis_ar1",
+                                                  sweep["launches"])},
          "path": "generate --spikes; main (sampling epochs); "
                  "compute_metrics (one epoch file of 1000 x 2048 x 102); "
                  "the DG run's and the mlp run's sampling epochs; "
                  "compute_dg_metrics (one epoch file of 64 x 2048 x 100); "
                  "the conv2d run's sampling epochs, compute_metrics (64 x "
                  "2048 x 102) and generate --spikes; the BatchNorm run's "
-                 "sampling epochs",
+                 "sampling epochs; deconvolve_signals (in-graph, 104,448 x "
+                 "2048 at depth 128, merge budget 4); search (the two "
+                 "experiments' sampling epochs)",
          "library_ms": None,
-         **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"]))},
+         **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"],
+                                         in_graph["max_abs_err"]))},
         {"name": "oasis_ar1_precise", "route": "cuda", "source": source,
          "replaces": "calciumgan_tpu/ops/oasis_pallas.py:603",
          "library_ms": None, **recordings["precise"]},
