@@ -28,6 +28,17 @@ PyTorch's Philox never draw the same numbers, so the parity tests pass an
 object with the same four methods that replays the JAX package's draws
 instead.
 
+In a data-parallel rank the draws are the global batch's, as JAX draws
+them from a replicated key and lets the batch sharding split them
+(``parallel/mesh.py:144-147``): :class:`ShardDraws` draws every random
+tensor at the global shape and keeps this rank's rows, and the phase
+shifts, host integers from one generator, are the same on every rank. A
+P-rank step then takes exactly the draws of the one-process step at the
+global batch. Its gradients are averaged over the ranks before each Adam
+step (:func:`~.state.apply_updates`), its logs are the global batch's
+means, and an evaluation's masked means and real-row count are summed over
+the ranks (:mod:`~calciumgan_tpu_torch.ops.signal_metrics`).
+
 A model's random inputs (the calciumgan critic's phase shifts, the mlp
 nets' dropout masks) are drawn per pass by the module's ``draw_inputs``;
 every step says whether the pass is a training pass (:meth:`GAN.gen`,
@@ -49,6 +60,7 @@ from calciumgan_tpu_torch.algorithms.state import (GANState, apply_updates,
                                                    make_net_state)
 from calciumgan_tpu_torch.ops import signal_metrics
 from calciumgan_tpu_torch.ops.phase_shuffle import draw_shifts
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 
 
 def get_noise(gen: torch.Generator, n: int, noise_dim: int,
@@ -91,6 +103,46 @@ class Draws:
         return torch.rand(tuple(shape), generator=self._device_gen,
                           device=self.device,
                           dtype=torch.float32) < (1.0 - rate)
+
+
+class ShardDraws:
+    """Rank ``rank``'s share of the global draws of ``draws`` (an object
+    with :class:`Draws`' methods) in a run of ``world`` ranks whose local
+    batch is ``batch`` rows: each tensor is drawn at its global shape and
+    this rank's rows are kept. A pass over ``k`` local batches put end to
+    end (the critic's ``concat(real, fake)``) takes rows of each of the
+    ``k`` global blocks, as JAX's global mask indexes the global
+    concatenation. Phase shifts are host integers, the same on every
+    rank."""
+
+    def __init__(self, draws, rank: int, world: int, batch: int):
+        self.draws, self.rank, self.world = draws, rank, world
+        self.batch = batch
+
+    def _rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        parts = max(1, n // self.batch)
+        per = n // parts
+        x = x.reshape((parts, self.world, per) + tuple(x.shape[1:]))
+        return x[:, self.rank].reshape((n,) + tuple(x.shape[3:]))
+
+    def noise(self, n: int, noise_dim: int) -> torch.Tensor:
+        return self._rows(self.draws.noise(n * self.world, noise_dim), n)
+
+    def alpha(self, n: int) -> torch.Tensor:
+        return self._rows(self.draws.alpha(n * self.world), n)
+
+    def shifts(self, m: int, count: int):
+        return self.draws.shifts(m, count)
+
+    def dropout(self, shape, rate: float) -> torch.Tensor:
+        n = shape[0]
+        keep = self.draws.dropout((n * self.world,) + tuple(shape[1:]), rate)
+        return self._rows(keep, n)
+
+
+def shard_draws(draws, rank: int, world: int, batch: int):
+    """``draws`` itself in a run of one rank, else its :class:`ShardDraws`."""
+    return draws if world == 1 else ShardDraws(draws, rank, world, batch)
 
 
 def eval_gen_variables(state: Mapping) -> dict:
@@ -140,10 +192,30 @@ def bce_with_logits(logits: torch.Tensor, label: int,
 
 
 def _real_rows(real: torch.Tensor, mask) -> torch.Tensor:
-    """This batch's real-row count (the epoch mean's weight)."""
+    """This batch's real-row count over every rank (the epoch mean's
+    weight)."""
     if mask is None:
-        return torch.tensor(float(real.shape[0]), device=real.device)
-    return mask.float().sum()
+        mask = torch.ones(real.shape[0], device=real.device)
+    return mesh_lib.all_reduce_sum(mask.float().sum())
+
+
+def _eval_mask(real: torch.Tensor, mask):
+    """``mask``, or all rows real in a data-parallel rank (whose means must
+    be summed over the ranks), or None."""
+    if mask is None and mesh_lib.data_group() is not None:
+        return torch.ones(real.shape[0], device=real.device)
+    return mask
+
+
+def global_logs(logs: dict) -> dict:
+    """A train step's logs as the global batch's means: each rank's means
+    of equal local batches, averaged over the ranks (one all-reduce)."""
+    if mesh_lib.data_group() is None:
+        return logs
+    keys = list(logs)
+    mean, = mesh_lib.all_reduce_mean([torch.stack(
+        [logs[k].float() for k in keys])])
+    return dict(zip(keys, mean.unbind()))
 
 
 @register("gan")
@@ -241,7 +313,7 @@ class GAN:
         logs = {"loss/generator": gen_loss.detach(),
                 "loss/discriminator": dis_loss.detach()}
         logs.update(self.metrics(real, fake.detach()))
-        return logs
+        return global_logs(logs)
 
     def eval_step(self, state: GANState, real: torch.Tensor, draws,
                   mask: Optional[torch.Tensor] = None):
@@ -249,6 +321,7 @@ class GAN:
         mean reduces exactly over the real rows (None = all rows real).
         Returns ``(fake, logs)``."""
         B = real.shape[0]
+        mask = _eval_mask(real, mask)
         fake = self.sample(state, draws.noise(B, self.noise_dim))
         with torch.no_grad():
             out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws,

@@ -17,6 +17,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+
 
 @dataclasses.dataclass
 class NetState:
@@ -40,7 +42,13 @@ def make_net_state(module: nn.Module, learning_rate: float) -> NetState:
 
 def apply_updates(net: NetState, grads) -> None:
     """One Adam step of ``net`` with ``grads`` (one per parameter, in
-    ``parameters()`` order)."""
+    ``parameters()`` order). In a data-parallel rank the gradients are
+    first averaged over the ranks, in one flattened all-reduce, so every
+    rank applies the same bytes and the replicas stay equal bit for bit.
+    (DDP's reducer would not see them: the steps take their gradients with
+    ``torch.autograd.grad``, and the gradient penalty differentiates
+    twice.)"""
+    grads = mesh_lib.all_reduce_mean(grads)
     for p, g in zip(net.module.parameters(), grads):
         p.grad = g
     net.optimizer.step()

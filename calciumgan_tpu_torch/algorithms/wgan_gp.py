@@ -33,7 +33,8 @@ from typing import Optional
 
 import torch
 
-from calciumgan_tpu_torch.algorithms.gan import GAN, _real_rows
+from calciumgan_tpu_torch.algorithms.gan import (GAN, _eval_mask, _real_rows,
+                                                 global_logs)
 from calciumgan_tpu_torch.algorithms.registry import register
 from calciumgan_tpu_torch.algorithms.state import GANState, apply_updates
 from calciumgan_tpu_torch.ops import signal_metrics
@@ -105,13 +106,14 @@ class WGAN_GP(GAN):
                 "loss/discriminator": torch.stack(dis_losses).mean(),
                 "loss/gradient_penalty": torch.stack(gps).mean()}
         logs.update(self.metrics(real, fake.detach()))
-        return logs
+        return global_logs(logs)
 
     def eval_step(self, state: GANState, real: torch.Tensor, draws,
                   mask: Optional[torch.Tensor] = None):
         """``mask`` (B,) zero-weights padded tail-batch rows so every logged
         mean reduces exactly over the real rows (None = all rows real).
         Returns ``(fake, logs)``."""
+        mask = _eval_mask(real, mask)
         fake = self.sample(state, draws.noise(real.shape[0], self.noise_dim))
         with torch.no_grad():
             real_out = self.dis(real, draws, training=False)

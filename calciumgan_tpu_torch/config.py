@@ -6,7 +6,8 @@ The fields, their defaults and the ``hparams.json`` contract are the JAX
 package's, so either package reads the other's run directories:
 
 - ``save()`` persists the full superset to ``<output_dir>/hparams.json``
-  (atomically). It has no multi-host guard: the port runs in one process.
+  (atomically); in a data-parallel run rank 0 writes it, after every rank
+  has filled it in.
 - ``load()`` fills only *unset* fields, so flags typed on a CLI win.
 """
 
@@ -157,9 +158,13 @@ class Config:
 
     def save(self, path: Optional[str] = None) -> None:
         """Persist to ``<output_dir>/hparams.json`` (superset contract),
-        atomically, so a reader never sees a torn file."""
+        atomically, so a reader never sees a torn file; rank 0 is the one
+        writer (``config.py:199-209``)."""
+        from calciumgan_tpu_torch.parallel import mesh as mesh_lib
         if self.git_hash is None:
             self.git_hash = _git_hash()
+        if mesh_lib.process_index() != 0:
+            return
         path = path or os.path.join(self.output_dir, "hparams.json")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = path + ".tmp"

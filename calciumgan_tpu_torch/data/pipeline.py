@@ -4,8 +4,11 @@ dataset loading, batches on the device, and reverse preprocessing.
 Shards are decoded once into contiguous numpy arrays (cached as ``.npy``
 beside the records, the names the JAX package uses, so either package reads
 the other's cache) and shuffled per epoch by an explicit numpy RNG, exactly
-as the JAX training loop does, so the port's batches are JAX's. One
-process: no per-process record split.
+as the JAX training loop does, so the port's batches are JAX's. In a
+data-parallel run each rank holds an interleaved share of the records
+(record ``i`` of all shards goes to rank ``i % P``, ``pipeline.py:98-171``)
+under its own cache name, and the surrogate set's rows likewise; the
+config's sizes stay global.
 
 :class:`DeviceStore` is the counterpart of the JAX ``DeviceStore``: the
 signals go to the card once and each batch is gathered there by index. Where
@@ -27,6 +30,7 @@ import torch
 
 from calciumgan_tpu_torch.algorithms.gan import denormalize
 from calciumgan_tpu_torch.data import tfrecord
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 from calciumgan_tpu_torch.utils import h5
 
 
@@ -109,7 +113,9 @@ def set_generated_paths(config) -> None:
         "validation" + h5.default_suffix(config.verbose))
 
 
-def _read_shards(pattern: str, signal_shape, spike_shape) -> ArrayDataset:
+def _read_shards(pattern: str, signal_shape, spike_shape,
+                 process_index: int = 0, process_count: int = 1
+                 ) -> ArrayDataset:
     all_files = sorted(glob.glob(pattern))
     if not all_files:
         raise FileNotFoundError(f"no record files match {pattern}")
@@ -117,8 +123,9 @@ def _read_shards(pattern: str, signal_shape, spike_shape) -> ArrayDataset:
     # .npy next to the records; later runs (resumes) memory-map them
     newest = max(os.path.getmtime(f) for f in all_files)
     tag = os.path.basename(pattern).split("-")[0].rstrip("*")
-    cache_base = os.path.join(os.path.dirname(pattern),
-                              f".{tag}.cache-000-of-001")
+    cache_base = os.path.join(
+        os.path.dirname(pattern),
+        f".{tag}.cache-{process_index:03d}-of-{process_count:03d}")
     sig_npy, spk_npy = cache_base + ".signals.npy", cache_base + ".spikes.npy"
     if (os.path.exists(sig_npy) and os.path.exists(spk_npy)
             # both files must postdate the records: a run killed between
@@ -127,14 +134,23 @@ def _read_shards(pattern: str, signal_shape, spike_shape) -> ArrayDataset:
                     os.path.getmtime(spk_npy)) >= newest):
         return ArrayDataset(np.load(sig_npy, mmap_mode="r"),
                             np.load(spk_npy, mmap_mode="r"))
+    # record-level interleave over all shards: every rank holds floor(N/P)
+    # or one more, which the uniform step count of train._epoch_steps
+    # rests on (a shard-level split could starve a rank, whose missing
+    # collectives would hang the others)
     signals, spikes = [], []
+    i = 0
     for path in all_files:
         for signal, spike in tfrecord.read_signal_records(
                 path, signal_shape, spike_shape):
-            signals.append(signal)
-            spikes.append(spike)
+            if i % process_count == process_index:
+                signals.append(signal)
+                spikes.append(spike)
+            i += 1
     if not signals:
-        raise ValueError(f"no records in {pattern}")
+        raise ValueError(
+            f"process {process_index}/{process_count} received no records "
+            f"for {pattern}")
     signals, spikes = np.stack(signals), np.stack(spikes)
     try:  # best-effort cache write, atomic, tmp names unique per writer
         uid = f".tmp.{os.getpid()}.{threading.get_ident()}.npy"
@@ -152,10 +168,11 @@ def load_tfrecord_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
         raise FileNotFoundError(
             f"input directory {config.input_dir} cannot be found")
     apply_dataset_info(config, load_info(config.input_dir))
+    rank = (mesh_lib.process_index(), mesh_lib.process_count())
     train = _read_shards(config.train_files, config.signal_shape,
-                         config.spike_shape)
+                         config.spike_shape, *rank)
     validation = _read_shards(config.validation_files, config.signal_shape,
-                              config.spike_shape)
+                              config.spike_shape, *rank)
     return train, validation
 
 
@@ -180,8 +197,12 @@ def load_surrogate_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
     train_size = min(8192, len(signals))
     config.train_size = train_size
     config.validation_size = len(signals) - train_size
-    train = ArrayDataset(signals[:train_size], spikes[:train_size])
-    validation = ArrayDataset(signals[train_size:], spikes[train_size:])
+    # each rank keeps an interleaved share of the rows
+    pi, pc = mesh_lib.process_index(), mesh_lib.process_count()
+    train = ArrayDataset(signals[:train_size][pi::pc],
+                         spikes[:train_size][pi::pc])
+    validation = ArrayDataset(signals[train_size:][pi::pc],
+                              spikes[train_size:][pi::pc])
     config.signal_shape = train.signals.shape[1:]
     config.spike_shape = spikes.shape[1:]
     config.sequence_length = train.signals.shape[1]
@@ -214,13 +235,17 @@ def get_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
 
 class DeviceStore:
     """The signals on ``device`` once; :meth:`batch` gathers rows there, so
-    a step moves only its index vector."""
+    a step moves only its index vector. A rank's store holds that rank's
+    rows only."""
 
     def __init__(self, signals: np.ndarray, device):
         self.device = torch.device(device)
         # a copy: the signals may be a read-only memory map of the cache
         self.signals = torch.from_numpy(np.array(signals, np.float32)).to(
             self.device)
+
+    def __len__(self):
+        return len(self.signals)
 
     @property
     def nbytes(self) -> int:
@@ -238,6 +263,9 @@ class HostBatches:
     def __init__(self, signals: np.ndarray, device):
         self.device = torch.device(device)
         self.signals = signals
+
+    def __len__(self):
+        return len(self.signals)
 
     def batch(self, idx: np.ndarray) -> torch.Tensor:
         rows = torch.from_numpy(np.ascontiguousarray(

@@ -13,8 +13,14 @@ generates on ``--device`` (default ``cuda``) and writes denormalised NWC
 float32 signals to the dataset ``signals`` of ``--out`` (HDF5, or a
 ``.npys`` directory of ``.npy`` arrays where the name ends so:
 :mod:`calciumgan_tpu_torch.utils.h5`), with OASIS spikes as int8
-``spikes`` under ``--spikes``. One device, eager; the JAX package's
-sharded multi-host generation has no counterpart yet.
+``spikes`` under ``--spikes``. The CLI is one process on one device.
+
+Called inside a data-parallel group of P ranks, :func:`generate` draws each
+global batch (``batch_size`` rounded up to a multiple of P) on every rank
+and generates only the rank's block of its rows, and :func:`main` writes
+them to the shard ``<out>.RRR`` (``generate.py:53-75``): the shards' rows,
+put back together batch by batch, are the one-process output of the same
+seed and batch.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from calciumgan_tpu_torch.config import Config
 from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
 from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
 from calciumgan_tpu_torch.models import get_models
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 from calciumgan_tpu_torch.utils.checkpoint import restore_generator_params
 
 
@@ -55,23 +62,31 @@ def generate(config, variables, num_samples: int, batch_size: int = 1024,
     Noise is drawn ``batch_size`` rows at a time from a ``torch.Generator``
     on ``device`` seeded with ``seed``. On a CUDA device float32 layers
     follow torch's TF32 switches, which the caller sets (:func:`main` turns
-    both off)."""
+    both off). In a group of P ranks each batch is drawn whole and the
+    rank's block of its rows generated (the last batch's rows past
+    ``num_samples`` dropped, so a rank may yield fewer)."""
     device = torch.device(device)
     generator = build_generator(config, variables, device)
     rng = torch.Generator(device=device).manual_seed(seed)
+    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    batch_size = -(-batch_size // world) * world
+    local = batch_size // world
     written = 0
     while written < num_samples:
         n = min(batch_size, num_samples - written)
         noise = gan.get_noise(rng, batch_size, config.noise_dim, device)
-        fake = gan.generate(generator, noise)
-        signals = reverse_preprocessing(config, fake)[:n].float()
+        written += n
+        lo, hi = rank * local, min((rank + 1) * local, n)
+        if hi <= lo:
+            continue
+        fake = gan.generate(generator, mesh_lib.rows_of(noise, rank, world))
+        signals = reverse_preprocessing(config, fake)[:hi - lo].float()
         payload = {"signals": signals.cpu().numpy()}
         if with_spikes:
             traces = signals.transpose(1, 2).contiguous()  # (n, C, T)
             payload["spikes"] = np.ascontiguousarray(
                 np.transpose(deconvolve_traces(traces), (0, 2, 1)))
         yield payload
-        written += n
 
 
 def main(config, num_samples: int, out: str, batch_size: int = 1024,
@@ -91,6 +106,8 @@ def main(config, num_samples: int, out: str, batch_size: int = 1024,
         model=config.model)
     if config.verbose:
         print(f"Restored checkpoint epoch {restored_epoch} from {ckpt_dir}")
+    if mesh_lib.process_count() > 1:  # each rank writes its own rows
+        out = f"{out}.{mesh_lib.process_index():03d}"
     h5.remove(out)
     written = 0
     for payload in generate(config, variables, num_samples, batch_size,

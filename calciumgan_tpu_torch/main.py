@@ -8,13 +8,25 @@ repo root; same flags and defaults, plus ``--device``).
 Trains on ``--device`` (default ``cuda``; ``--device cpu`` runs on the
 host; ``cuda`` without a card raises). Checkpoints are the port's own
 ``<output_dir>/checkpoints/epoch-NNN.pt``, resumed automatically and served
-by ``python -m calciumgan_tpu_torch.generate``. The mesh flags
-(``--data_parallelism``, ``--model_parallelism``, ``--dcn_slices``) are
-accepted for ``hparams.json`` parity and ignored: the port trains on one
-device; ``--time_parallelism`` above 1 raises. ``--save_generated all|last``
-writes the validation cache, the epoch files and ``info.pkl`` under
-``<output_dir>/generated``, which ``python -m
+by ``python -m calciumgan_tpu_torch.generate``. ``--save_generated
+all|last`` writes the validation cache, the epoch files and ``info.pkl``
+under ``<output_dir>/generated``, which ``python -m
 calciumgan_tpu_torch.compute_metrics`` evaluates.
+
+Data parallelism, one process (rank) per GPU, the global batch split
+between them:
+
+- ``--data_parallelism N`` (default -1: every visible GPU) and
+  ``--dcn_slices S`` lay the ranks out as the JAX package's mesh does,
+  with its checks ("mesh needs 2 devices, have 1"); a layout of more than
+  one device is started on ``cuda:0..N-1`` over NCCL (``--device cpu``: N
+  host ranks over gloo), a layout of one trains in this process;
+- ``--distributed`` joins the ranks ``torchrun`` started instead
+  (``torchrun --nproc_per_node 8 -m calciumgan_tpu_torch.main ...
+  --distributed``): rank i on ``cuda:LOCAL_RANK``, the layout over every
+  rank of the group;
+- ``--model_parallelism`` and ``--time_parallelism`` above 1 raise
+  ``NotImplementedError``: only the data axis is ported.
 """
 
 import argparse
@@ -22,8 +34,8 @@ import argparse
 from calciumgan_tpu_torch.config import Config
 
 
-def parse_args(argv=None):
-    """``(config, device)`` from the command line."""
+def _parse(argv=None):
+    """``(config, device, distributed)`` from the command line."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--input_dir", default="dataset/tfrecords", type=str)
     parser.add_argument("--output_dir", default="runs", type=str)
@@ -61,10 +73,13 @@ def parse_args(argv=None):
     parser.add_argument("--dpi", default=120, type=int)
     parser.add_argument("--verbose", default=1, type=int)
     parser.add_argument("--seed", default=1234, type=int)
-    parser.add_argument("--data_parallelism", default=-1, type=int)
+    parser.add_argument("--data_parallelism", default=-1, type=int,
+                        help="-1: all visible devices")
     parser.add_argument("--model_parallelism", default=1, type=int)
     parser.add_argument("--time_parallelism", default=1, type=int)
-    parser.add_argument("--dcn_slices", default=1, type=int)
+    parser.add_argument("--dcn_slices", default=1, type=int,
+                        help="an outer slice axis of the data layout "
+                             "(ranks slice-major)")
     parser.add_argument("--checkpoint_every", default=10, type=int)
     parser.add_argument("--device_store", default="auto",
                         choices=["auto", "on", "off"],
@@ -72,22 +87,48 @@ def parse_args(argv=None):
                              "gather batches there (auto: a GPU and the "
                              "signals fit --device_store_mb)")
     parser.add_argument("--device_store_mb", default=4096, type=int)
+    parser.add_argument("--distributed", action="store_true",
+                        help="join the ranks torchrun started (RANK, "
+                             "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                             "MASTER_PORT)")
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to train on")
     args = parser.parse_args(argv)
     device = args.device
-    del args.device  # a run's device is not a hyper-parameter
+    # how a run starts is not a hyper-parameter
+    distributed = args.distributed
+    del args.device, args.distributed
 
     config = Config.from_args(args)
     # the reference flags surrogate datasets by directory name
     config.surrogate_ds = "surrogate" in config.input_dir
+    return config, device, distributed
+
+
+def parse_args(argv=None):
+    """``(config, device)`` from the command line."""
+    config, device, _ = _parse(argv)
     return config, device
 
 
 def cli(argv=None):
-    from calciumgan_tpu_torch.train import main
-    config, device = parse_args(argv)
-    return main(config, device=device)
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.parallel import launch, mesh
+    config, device, distributed = _parse(argv)
+    if not distributed:
+        return train.run(config, device=device)
+    devices = launch.join(device)
+    try:
+        layout = mesh.create_mesh(config.data_parallelism,
+                                  config.model_parallelism, devices,
+                                  slices=config.dcn_slices)
+        if mesh.data_extent(layout) != len(devices):
+            raise ValueError(f"--distributed: the layout takes "
+                             f"{mesh.data_extent(layout)} of the group's "
+                             f"{len(devices)} ranks")
+        return train.main(config, mesh=layout)
+    finally:
+        launch.leave()
 
 
 if __name__ == "__main__":

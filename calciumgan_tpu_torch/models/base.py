@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+
 LAYER_NORM_EPS = 1e-3
 BATCH_NORM_EPS = 1e-3
 BATCH_NORM_MOMENTUM = 0.99
@@ -240,9 +242,19 @@ class ConvTranspose(nn.Module):
         return y + _per_channel(self.bias.to(self.dtype), y.ndim)
 
 
-def _float32_mean(x32: torch.Tensor, dims, count: int) -> torch.Tensor:
-    """XLA's float32 mean: the sum times ``1/n`` rounded to float32."""
-    return x32.sum(dims) * float(torch.tensor(1.0 / count))
+def _global_moments(x32: torch.Tensor, dims, count: int):
+    """The batch mean and fast biased variance over every rank's rows, as
+    XLA takes a float32 mean (the sum times the float32 ``1/n``): one
+    all-reduce of ``(sum, sum of squares, row count)``, differentiable when
+    the pass records a graph, and none in a process without a group."""
+    c = x32.shape[1]
+    local = torch.cat([x32.sum(dims), (x32 * x32).sum(dims),
+                       torch.full((1,), float(count), device=x32.device)])
+    total = mesh_lib.all_reduce_sum(
+        local, differentiable=torch.is_grad_enabled())
+    inv = torch.reciprocal(total[2 * c:])
+    mean = total[:c] * inv
+    return mean, (total[c:2 * c] * inv - mean * mean).clamp_min(0.0)
 
 
 class BatchNorm(nn.Module):
@@ -260,7 +272,13 @@ class BatchNorm(nn.Module):
 
     ``scale``/``bias`` are parameters (Flax's ``params``), ``mean``/``var``
     buffers (Flax's ``batch_stats``), starting at 1, 0, 0 and 1. No module
-    state says whether a pass trains: the caller passes ``training``."""
+    state says whether a pass trains: the caller passes ``training``.
+
+    In a data-parallel rank the statistics are the global batch's, as
+    Flax's are over a batch sharded on a JAX mesh: the float32 sums, sums
+    of squares and row counts are summed over the ranks, through autograd
+    where the pass backpropagates. Every rank makes the same training
+    passes in the same order, so each one's all-reduce meets its peers'."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  device=None):
@@ -276,9 +294,7 @@ class BatchNorm(nn.Module):
         if training:
             dims = [0, *range(2, x.ndim)]
             n = x.numel() // x.shape[1]
-            mean = _float32_mean(x32, dims, n)
-            var = (_float32_mean(x32 * x32, dims, n)
-                   - mean * mean).clamp_min(0.0)
+            mean, var = _global_moments(x32, dims, n)
             with torch.no_grad():
                 for running, batch in ((self.mean, mean), (self.var, var)):
                     running.mul_(BATCH_NORM_MOMENTUM).add_(

@@ -6,6 +6,11 @@ standard deviation, each reduced over the LAST axis (the neuron axis of NWC
 signals, as the reference's ``signals_metrics.py:9-28``), averaged over
 positions with optional per-row weights. The standard deviation is the
 population one (``correction=0``), as ``jnp.std`` computes it.
+
+In a data-parallel rank a masked mean is the global batch's, as JAX
+computes it over the sharded batch: the weighted sum and the weight are
+summed over the ranks first. An unmasked mean stays the rank's own (a train
+step's loss, whose gradient the step all-reduces instead).
 """
 
 from __future__ import annotations
@@ -14,17 +19,21 @@ from typing import Optional
 
 import torch
 
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+
 
 def batch_weighted_mean(x: torch.Tensor,
                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean of ``x`` with optional per-row (dim 0) weights: a ``(B,)`` mask
     makes padded validation rows weightless, so tail batches reduce exactly
-    over their real rows."""
+    over their real rows; over every rank's rows in a data-parallel run."""
     if mask is None:
         return x.mean()
     w = mask.reshape((mask.shape[0],) + (1,) * (x.ndim - 1)).float()
     per_row = x.numel() // x.shape[0]
-    return (x.float() * w).sum() / (w.sum() * per_row)
+    total, weight = mesh_lib.all_reduce_sum(
+        torch.stack([(x.float() * w).sum(), w.sum()]))
+    return total / (weight * per_row)
 
 
 def min_signals_error(real, fake, mask=None):

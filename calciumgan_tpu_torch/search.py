@@ -19,9 +19,10 @@ other's file). The sweep's ``hparams_config`` schema goes to
 ``--parallel N`` splits the visible devices into N equal slices, one
 spawned worker process per slice, and raises unless the device count
 divides by N, as the JAX package does: the GPUs with ``--device cuda``, N
-host workers with ``--device cpu``. A slice of more than one GPU would need
-data parallelism, which the port does not have yet: it raises
-``NotImplementedError``.
+host workers with ``--device cpu``. A worker whose slice holds more than
+one GPU trains each of its experiments data-parallel over the slice, one
+rank per GPU (:func:`calciumgan_tpu_torch.train.run`), as the JAX package
+trains it on the slice's mesh.
 """
 
 from __future__ import annotations
@@ -95,15 +96,18 @@ def experiment_config(args, session: int, params: dict) -> Config:
 
 
 def run_experiment(config: Config, session: int, params: dict,
-                   device="cuda") -> dict:
-    from calciumgan_tpu_torch.train import main as train
+                   device="cuda", devices=None) -> dict:
+    """Train one experiment on ``device``, or data-parallel over
+    ``devices`` (a slice of the GPUs), and write its test scalars."""
+    from calciumgan_tpu_torch.train import run as train
 
     print(f"\nExperiment {session:03d}\n"
           "-----------------------------------------")
     for key, value in params.items():
         print(f"\t{key}: {value}")
 
-    metrics = train(config, return_metrics=True, device=device)
+    metrics = train(config, device=device, return_metrics=True,
+                    devices=devices)
 
     writer = EventWriter(os.path.join(config.output_dir, "test"))
     # per-trial values for the TensorBoard HParams dashboard
@@ -114,14 +118,16 @@ def run_experiment(config: Config, session: int, params: dict,
     return metrics
 
 
-def _run_one(args, results_path, lock, session, params, device="cuda"):
+def _run_one(args, results_path, lock, session, params, device="cuda",
+             devices=None):
     config = experiment_config(args, session, params)
     if os.path.exists(config.output_dir):
         print(f"Experiment {config.output_dir} already exists")
         return
     try:
         start = time()
-        metrics = run_experiment(config, session, params, device=device)
+        metrics = run_experiment(config, session, params, device=device,
+                                 devices=devices)
         elapse = time() - start
         print(f"\nExperiment {session:03d} completed "
               f"in {elapse / 3600:.2f}hrs\n")
@@ -137,33 +143,32 @@ def _run_one(args, results_path, lock, session, params, device="cuda"):
 
 
 def device_slices(device: str, parallel: int) -> list:
-    """One device per worker: ``parallel`` equal slices of the visible
-    GPUs for a CUDA ``device`` (raising as the JAX package does unless
-    their count divides by ``parallel``, and where a slice holds more than
-    one GPU), or ``parallel`` host workers for the CPU."""
+    """The devices of each worker: ``parallel`` equal, contiguous slices of
+    the visible GPUs for a CUDA ``device`` (raising as the JAX package does
+    unless their count divides by ``parallel``), or one host each for the
+    CPU."""
     device = torch.device(device)
     if device.type == "cpu":
-        return ["cpu"] * parallel
+        return [["cpu"] for _ in range(parallel)]
     count = torch.cuda.device_count()
     if count % parallel:
         raise ValueError(f"{count} devices not divisible by "
                          f"--parallel {parallel}")
     per = count // parallel
-    if per > 1:
-        raise NotImplementedError(
-            f"--parallel {parallel} gives each experiment {per} GPUs, which "
-            "needs data parallelism: the port trains an experiment on one "
-            "device")
-    return [f"cuda:{i}" for i in range(parallel)]
+    return [[f"cuda:{i}" for i in range(w * per, (w + 1) * per)]
+            for w in range(parallel)]
 
 
-def _worker(args, results_path, lock, queue, device):
-    """One ``--parallel`` worker: its device first, then experiments from
-    ``queue`` until a ``None``."""
+def _worker(args, results_path, lock, queue, devices):
+    """One ``--parallel`` worker: its slice's first device, then
+    experiments from ``queue`` until a ``None``, each on its one device or
+    data-parallel over its slice."""
+    device = devices[0]
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(device)  # before any other CUDA call
     for session, params in iter(queue.get, None):
-        _run_one(args, results_path, lock, session, params, device=device)
+        _run_one(args, results_path, lock, session, params, device=device,
+                 devices=devices)
 
 
 def search(args):

@@ -12,10 +12,22 @@ pads its tail batch by repeating the last real row and masks the filler.
 Randomness: a step's :class:`~calciumgan_tpu_torch.algorithms.gan.Draws` is
 seeded from ``(seed, global_step)``, so a resumed run replays the same
 draws (``train.py:123``); validation from ``(seed, 10**9 + epoch * steps +
-i)`` (``:191``). Eager PyTorch on one device; steps return their logs as
-device tensors, which are read once per epoch.
+i)`` (``:191``). Eager PyTorch; steps return their logs as device
+tensors, which are read once per epoch.
 
-Not ported: meshes and ``--time_parallelism`` (one device; values above 1
+Data parallelism (``train.py:65-73,90-135,165-235,249-300,309-360``): a
+run of P ranks (:func:`run` starts them, or ``--distributed`` joins them)
+gives each rank its share of the records and a local batch of
+``batch_size / P`` rows. Steps per epoch come from the GLOBAL sizes
+(:func:`_epoch_steps`), so every rank makes the same collectives; the
+draws are the global batch's, each rank keeping its rows
+(:class:`~calciumgan_tpu_torch.algorithms.gan.ShardDraws`); validation
+pads and masks each rank's tail and weights its means globally. Rank 0
+alone samples, deconvolves and plots, and writes the checkpoints,
+``hparams.json``, the events and ``info.pkl``; every rank writes its shard
+of the epoch files and of the surrogate set.
+
+Not ported: model parallelism and ``--time_parallelism`` (values above 1
 raise), the background ``DevicePrefetcher`` thread, the persistent compile
 cache and the backend probe.
 
@@ -42,10 +54,12 @@ import numpy as np
 import torch
 
 from calciumgan_tpu_torch.algorithms import get_algorithm
-from calciumgan_tpu_torch.algorithms.gan import Draws
+from calciumgan_tpu_torch.algorithms.gan import Draws, shard_draws
 from calciumgan_tpu_torch.data import pipeline
 from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
 from calciumgan_tpu_torch.models import get_models
+from calciumgan_tpu_torch.parallel import launch as launch_lib
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 from calciumgan_tpu_torch.utils import arrays, checkpoint, io
 from calciumgan_tpu_torch.utils.device import resolve_device
 from calciumgan_tpu_torch.utils.summary import Summary
@@ -110,6 +124,27 @@ def _mean_logs(all_logs, weights=None) -> Dict[str, float]:
             for j, k in enumerate(keys)}
 
 
+def _epoch_steps(global_size: int, local_bs: int,
+                 drop_remainder: bool) -> int:
+    """Steps per epoch, the same on every rank: from the least number of
+    rows a rank holds (record ``i`` goes to rank ``i % P``, so each holds
+    ``floor(global / P)`` or one more), ``train.py:65-73``."""
+    min_local = global_size // mesh_lib.process_count()
+    if drop_remainder:
+        return min_local // local_bs
+    return -(-min_local // local_bs)
+
+
+def _draws(config, counter: int, device: torch.device, batch: int,
+           seed=None):
+    """The draws of one step (or evaluation batch): this rank's rows of the
+    global draws from ``(seed, counter)``, ``batch`` local rows."""
+    seed = config.seed if seed is None else seed
+    return shard_draws(Draws(seed, counter, device),
+                       mesh_lib.process_index(), mesh_lib.process_count(),
+                       batch)
+
+
 def focus_neurons(config):
     """The reference's 9 plotted neurons, clamped to the dataset's neuron
     count (``train.py:76-82``)."""
@@ -172,31 +207,38 @@ class _ProfileWindow:
 # epoch passes
 # ---------------------------------------------------------------------------
 
-def epoch_batches(config, epoch: int) -> list:
-    """The row indices of each of ``epoch``'s training batches: the JAX
-    training loop's shuffle (``np.random.default_rng(seed + epoch)`` over
-    the rows, ``train.py:94-107``), the remainder dropped."""
-    order = np.arange(config.train_size)
+def epoch_batches(config, epoch: int, rows: Optional[int] = None,
+                  steps: Optional[int] = None) -> list:
+    """The row indices of each of ``epoch``'s training batches of
+    ``local_batch_size`` rows: the JAX training loop's shuffle
+    (``np.random.default_rng(seed + epoch)`` over the ``rows`` this rank
+    holds, default ``train_size``, ``train.py:94-107``), ``steps`` of them
+    (default: the remainder dropped)."""
+    rows = config.train_size if rows is None else rows
+    bs = mesh_lib.local_batch_size(config.batch_size)
+    steps = rows // bs if steps is None else steps
+    order = np.arange(rows)
     np.random.default_rng(config.seed + epoch).shuffle(order)
-    bs = config.batch_size
-    return [order[i * bs:(i + 1) * bs]
-            for i in range(config.train_size // bs)]
+    return [order[i * bs:(i + 1) * bs] for i in range(steps)]
 
 
 def train_epoch(config, source, algo, state, summary: Summary, epoch: int,
                 device: torch.device) -> Dict[str, float]:
     """One pass over the training set (reference ``main.py:33-75``)."""
-    batches = epoch_batches(config, epoch)
+    local_bs = mesh_lib.local_batch_size(config.batch_size)
+    batches = epoch_batches(config, epoch, len(source), _epoch_steps(
+        config.train_size, local_bs, drop_remainder=True))
     all_logs = []
     window = None
     start = time()
     for batch_count, idx in enumerate(_progress(batches, "Train",
                                                 len(batches),
                                                 config.verbose)):
-        if config.profile and epoch == 1 and batch_count == 2:
+        if (config.profile and epoch == 1 and batch_count == 2
+                and summary.profiler_dir is not None):
             window = _ProfileWindow(summary.profiler_dir, device)
         real = source.batch(idx)
-        draws = Draws(config.seed, config.global_step, device)
+        draws = _draws(config, config.global_step, device, local_bs)
         all_logs.append(algo.train_step(state, real, draws))
         config.global_step += 1
         if window is not None:
@@ -218,11 +260,9 @@ def _validation_batches(source, n: int, bs: int, steps: int):
     """(batch, real row count) pairs of one validation pass; the tail batch
     pads by repeating the last real row."""
     for i in range(steps):
-        lo = i * bs
-        hi = min(n, lo + bs)
-        idx = np.concatenate([np.arange(lo, hi),
-                              np.full(bs - (hi - lo), hi - 1, np.int64)])
-        yield source.batch(idx), hi - lo
+        idx, real_count = mesh_lib.pad_to_multiple(
+            np.arange(i * bs, min(n, (i + 1) * bs)), bs)
+        yield source.batch(idx), real_count
 
 
 def _row_mask(bs: int, real_count: int, device) -> torch.Tensor:
@@ -244,18 +284,20 @@ def saves_generated(config, epoch: int) -> bool:
 def validate_epoch(config, source, algo, state, summary: Summary, epoch: int,
                    device: torch.device) -> Dict[str, float]:
     """One validation pass (reference ``main.py:78-122``), means weighted
-    by real rows; saves the generated signals per ``--save_generated``."""
-    bs = config.batch_size
-    steps = -(-config.validation_size // bs)
+    by real rows (every rank's: the step's masked means and its real-row
+    count are global); saves the generated signals per
+    ``--save_generated``, each rank its own rows."""
+    bs = mesh_lib.local_batch_size(config.batch_size)
+    steps = _epoch_steps(config.validation_size, bs, drop_remainder=False)
     save_generated = saves_generated(config, epoch)
     all_logs, weights = [], []
     save_s = 0.0
     start = time()
-    batches = _validation_batches(source, config.validation_size, bs, steps)
+    batches = _validation_batches(source, len(source), bs, steps)
     for i, (real, real_count) in enumerate(
             _progress(batches, "Validate", steps, config.verbose)):
-        draws = Draws(config.seed, _VALIDATION_COUNTER + epoch * steps + i,
-                      device)
+        draws = _draws(config, _VALIDATION_COUNTER + epoch * steps + i,
+                       device, bs)
         fake, logs = algo.eval_step(state, real, draws,
                                     _row_mask(bs, real_count, device))
         weights.append(logs.pop("batch/real_rows"))
@@ -293,7 +335,11 @@ def sample_and_plot(config, algo, state, summary: Summary, epoch: int,
     """Generate from the fixed test noise, deconvolve its traces where they
     lie (the OASIS kernel on the card) and plot them (reference
     ``main.py:141-156``). Returns the ``(neuron, time)`` signals and
-    spikes as host arrays."""
+    spikes as host arrays; None off rank 0, which alone samples (an
+    evaluation pass calls no collective, so the other ranks need not
+    join it)."""
+    if mesh_lib.process_index() != 0:
+        return None
     fake = pipeline.reverse_preprocessing(config,
                                           algo.sample(state, test_noise))
     signals = _traces(config, fake[0])
@@ -307,7 +353,9 @@ def sample_and_plot(config, algo, state, summary: Summary, epoch: int,
 
 def plot_real_signals(config, summary: Summary, dataset) -> None:
     """First validation batch's traces at step 0
-    (reference ``dataset_helper.py:33-51``)."""
+    (reference ``dataset_helper.py:33-51``); rank 0's."""
+    if mesh_lib.process_index() != 0:
+        return
     signal, spike = next(dataset.batches(config.batch_size))
     signal = pipeline.reverse_preprocessing(
         config, torch.from_numpy(np.ascontiguousarray(signal)))
@@ -376,13 +424,14 @@ def test(config, validation_ds, algo, state, device: torch.device,
     """Final metrics over the validation set (reference
     ``main.py:168-181``)."""
     source = source or pipeline.HostBatches(validation_ds.signals, device)
-    bs = config.batch_size
-    steps = -(-config.validation_size // bs)
+    bs = mesh_lib.local_batch_size(config.batch_size)
+    steps = _epoch_steps(config.validation_size, bs, drop_remainder=False)
     all_logs, weights = [], []
     for i, (real, real_count) in enumerate(_validation_batches(
-            source, config.validation_size, bs, steps)):
+            source, len(validation_ds), bs, steps)):
         _, logs = algo.eval_step(state, real,
-                                 Draws(config.seed + 777, i, device),
+                                 _draws(config, i, device, bs,
+                                        seed=config.seed + 777),
                                  _row_mask(bs, real_count, device))
         weights.append(logs.pop("batch/real_rows"))
         all_logs.append(logs)
@@ -392,24 +441,31 @@ def test(config, validation_ds, algo, state, device: torch.device,
 def generate_surrogate_dataset(config, algo, state, device: torch.device,
                                num_samples: int = 2 * 10**6) -> str:
     """A denormalised sample set in ``generated.pkl`` (reference
-    ``utils.py:191-207``), generated 1000 at a time."""
-    batch_size = 1000
+    ``utils.py:191-207``), generated about 1000 at a time: in a run of P
+    ranks ``ceil(1000 / P) * P`` rows a batch, each rank generating its
+    rows of it into its own shard ``generated.pkl.RRR``
+    (``train.py:332-364``)."""
+    world = mesh_lib.process_count()
+    batch_size = -(-1000 // world) * world
     num_samples = -(-num_samples // batch_size) * batch_size
-    generated = np.zeros((num_samples,) + tuple(config.signal_shape),
-                         np.float32)
+    local_bs = batch_size // world
+    generated = np.zeros((num_samples // world,)
+                         + tuple(config.signal_shape), np.float32)
     for step, i in enumerate(_progress(
             range(0, num_samples, batch_size), "Surrogate",
             num_samples // batch_size, config.verbose)):
-        noise = Draws(config.seed + 999, i, device).noise(batch_size,
-                                                          config.noise_dim)
+        noise = _draws(config, i, device, local_bs,
+                       seed=config.seed + 999).noise(local_bs,
+                                                     config.noise_dim)
         rows = pipeline.denormalize(config, algo.sample(state, noise))
-        generated[step * batch_size:(step + 1) * batch_size] = \
+        generated[step * local_bs:(step + 1) * local_bs] = \
             rows.cpu().numpy()
-    filename = os.path.join(config.output_dir, "generated.pkl")
+    suffix = f".{mesh_lib.process_index():03d}" if world > 1 else ""
+    filename = os.path.join(config.output_dir, f"generated.pkl{suffix}")
     with open(filename, "wb") as f:
         pickle.dump({"signals": generated}, f)
     if config.verbose:
-        print(f"save {num_samples} samples to {filename}")
+        print(f"save {len(generated)} samples to {filename}")
     return filename
 
 
@@ -417,15 +473,33 @@ def generate_surrogate_dataset(config, algo, state, device: torch.device,
 # main
 # ---------------------------------------------------------------------------
 
-def main(config, return_metrics: bool = False,
-         device="cuda") -> Optional[Dict[str, float]]:
-    """End-to-end wiring (reference ``main.py:184-224``) on ``device``."""
-    device = resolve_device(device)
+def main(config, return_metrics: bool = False, device="cuda",
+         mesh: Optional[mesh_lib.Mesh] = None) -> Optional[Dict[str, float]]:
+    """End-to-end wiring (reference ``main.py:184-224``): one rank's part of
+    a run over ``mesh``, whose ranks are the process group's, or without
+    one the whole run on ``device``, whose one-device mesh must hold the
+    configured layout."""
     if int(getattr(config, "time_parallelism", 1) or 1) > 1:
         raise NotImplementedError(
-            "--time_parallelism is not ported: the port trains on one device")
-    if config.clear_output_dir and os.path.exists(config.output_dir):
-        rmtree(config.output_dir)
+            "--time_parallelism is not ported: the port shards the batch "
+            "only")
+    if mesh is None:
+        mesh = mesh_lib.create_mesh(
+            config.data_parallelism, config.model_parallelism,
+            [str(torch.device(device))], slices=config.dcn_slices)
+    world, rank = mesh_lib.data_extent(mesh), mesh_lib.process_index()
+    if mesh_lib.process_count() != world:
+        raise ValueError(f"mesh of {world} ranks in a process group of "
+                         f"{mesh_lib.process_count()}")
+    device = resolve_device(mesh.device)
+    if rank:
+        config.verbose = 0  # rank 0 speaks for the run
+    if config.clear_output_dir:
+        if rank == 0 and os.path.exists(config.output_dir):
+            rmtree(config.output_dir)
+        if mesh_lib.data_group() is not None:  # cleared before any use
+            mesh_lib.collectives["barrier"] += 1
+            torch.distributed.barrier()
     os.makedirs(config.output_dir, exist_ok=True)
 
     summary = Summary(config)
@@ -438,7 +512,9 @@ def main(config, return_metrics: bool = False,
     algo = get_algorithm(config, generator, discriminator)
     state = algo.init_state()
     if config.verbose:
-        print(f"device: {device}")
+        print(f"device: {device}" + (f" (rank 0 of {world}: "
+                                     f"{', '.join(mesh.devices)})"
+                                     if world > 1 else ""))
         print(f"generator parameters: {count_params(generator):,}")
         print(f"discriminator parameters: {count_params(discriminator):,}")
     if config.verbose >= 2:
@@ -469,3 +545,27 @@ def main(config, return_metrics: bool = False,
                if return_metrics else None)
     summary.close()
     return metrics
+
+
+def run(config, device="cuda", return_metrics: bool = False, devices=None
+        ) -> Optional[Dict[str, float]]:
+    """Train ``config`` over the devices its layout takes
+    (``--data_parallelism``, ``--dcn_slices``) of ``devices`` (default:
+    every visible GPU for a CUDA ``device``, ``data_parallelism x
+    dcn_slices`` host ranks for the CPU): in this process when the layout
+    holds one device, else one rank per device through the launcher, over
+    NCCL for GPUs and gloo for the host. Returns rank 0's metrics (every
+    rank's are the same)."""
+    resolve_device(device)  # a CUDA device without a card raises
+    if devices is None:
+        devices = mesh_lib.visible_devices(device, host_ranks=max(
+            1, config.data_parallelism) * max(1, config.dcn_slices))
+    layout = mesh_lib.create_mesh(config.data_parallelism,
+                                  config.model_parallelism, devices,
+                                  slices=config.dcn_slices)
+    if mesh_lib.data_extent(layout) == 1:
+        return main(config, return_metrics, mesh=layout)
+    backend = "nccl" if layout.device.type == "cuda" else "gloo"
+    return launch_lib.launch(main, layout.devices, backend,
+                             args=(config, return_metrics, device,
+                                   layout))[0]

@@ -34,6 +34,7 @@ import torch
 from calciumgan_tpu_torch import convert
 from calciumgan_tpu_torch.algorithms.gan import eval_gen_variables
 from calciumgan_tpu_torch.algorithms.state import GANState
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 
 _EPOCH_RE = re.compile(r"epoch-(\d+)\.(msgpack|pt)$")
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
@@ -77,9 +78,13 @@ def _write_atomic(path: str, write) -> None:
 def save(ckpt_dir: str, epoch: int, state: GANState, config=None,
          verbose: int = 1) -> str:
     """Write the whole train state of ``epoch`` to ``epoch-NNN.pt`` and
-    ``latest.json``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``latest.json``. In a data-parallel run rank 0 is the one writer: every
+    rank holds the same state (``checkpoint.py:37-43``), and every rank
+    restores it."""
     path = port_checkpoint_path(ckpt_dir, epoch)
+    if mesh_lib.process_index() != 0:
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     global_step = None if config is None else int(config.global_step)
     payload = {"epoch": epoch, "global_step": global_step, "ema": state.ema}
     for name in ("generator", "discriminator"):

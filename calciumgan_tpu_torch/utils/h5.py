@@ -7,10 +7,11 @@ without loading the rest.
 
 The container is chosen by the file's name, and by nothing else:
 
-- a name ending in ``.npys`` is a directory that holds one ``<dataset>.npy``
-  per dataset. It needs numpy alone. A dataset grows in place: ``write``
-  puts the new rows behind the old ones and then rewrites the (fixed-size)
-  header with the new length, so a run killed between the two leaves the
+- a name ending in ``.npys`` (or ``.npys.RRR``, a data-parallel rank's
+  shard) is a directory that holds one ``<dataset>.npy`` per dataset. It
+  needs numpy alone. A dataset grows in place: ``write`` puts the new rows
+  behind the old ones and then rewrites the (fixed-size) header with the
+  new length, so a run killed between the two leaves the
   old, complete dataset;
 - any other name (``.h5``) is an HDF5 file through ``h5py``, imported on
   use, in the JAX package's layout, so either package reads the other's
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import importlib.util
 import os
+import re
 import shutil
 from typing import Dict, Optional
 
@@ -53,7 +55,7 @@ def default_suffix(verbose: bool = True) -> str:
 
 
 def is_npy(filename: str) -> bool:
-    return str(filename).endswith(NPY_SUFFIX)
+    return re.search(r"\.npys(\.\d{3})?$", str(filename)) is not None
 
 
 def staging_name(filename: str) -> str:

@@ -8,8 +8,12 @@ metrics CLI follows. The files are ``.h5`` where ``h5py`` is installed and
 ``.npys`` directories otherwise
 (:func:`calciumgan_tpu_torch.utils.h5.default_suffix`); ``info.pkl`` and
 ``config.validation_cache`` record the names, so a reader needs no rule of
-its own. One process: the JAX package's per-process shard suffix is not
-ported.
+its own.
+
+In a data-parallel run each rank appends its rows to its own shard,
+``epoch{E:03d}_signals<suffix>.RRR``, and rank 0 alone keeps ``info.pkl``
+(which names rank 0's shard, as the JAX package's does) and the validation
+cache (of rank 0's share of the records), ``io.py:26-48``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 from calciumgan_tpu_torch.utils import h5
 
 
@@ -36,12 +41,17 @@ def save_fake_signals(config, epoch: int, signals, append: bool = True) -> str:
     re-validates an already-saved epoch must replace the file, since
     ``h5.write`` appends to existing datasets, which would silently double
     every row."""
+    shard = (f".{mesh_lib.process_index():03d}"
+             if mesh_lib.process_count() > 1 else "")
     filename = os.path.join(
         config.generated_dir,
-        f"epoch{epoch:03d}_signals{h5.default_suffix(config.verbose)}")
+        f"epoch{epoch:03d}_signals{h5.default_suffix(config.verbose)}"
+        f"{shard}")
     if not append:
         h5.remove(filename)
     h5.write(filename, {"signals": _recording_units(config, signals)})
+    if mesh_lib.process_index() != 0:
+        return filename
 
     info_filename = os.path.join(config.generated_dir, "info.pkl")
     info = {}
@@ -71,7 +81,10 @@ def load_generated_info(config) -> dict:
 def cache_validation_set(config, validation) -> None:
     """One-time dump of the denormalised validation set (signals float32,
     spikes int8) to ``config.validation_cache`` so the metrics CLI reads
-    real data cheaply (reference ``dataset_helper.py:12-30``)."""
+    real data cheaply (reference ``dataset_helper.py:12-30``); rank 0's
+    records in a data-parallel run, written by rank 0 alone."""
+    if mesh_lib.process_index() != 0:
+        return
     if config.validation_cache is None or \
             os.path.exists(config.validation_cache):
         return

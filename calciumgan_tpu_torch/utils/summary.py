@@ -20,6 +20,10 @@ With ``workers=N`` figures render in a pool of N processes started with
 matplotlib with the card's work. :meth:`drain` writes every
 figure rendered so far into the event files; :meth:`close` drains, shuts
 the pool down and closes the files.
+
+In a data-parallel run only rank 0 writes (``summary.py:56-60``): on every
+other rank a ``Summary`` writes no file, renders no figure and reports
+``no_plots``, so callers skip the work that feeds figures.
 """
 
 from __future__ import annotations
@@ -33,8 +37,21 @@ from typing import Optional
 
 import numpy as np
 
+from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 from calciumgan_tpu_torch.utils import plots
 from calciumgan_tpu_torch.utils.tb import EventWriter
+
+
+class _NoWriter:
+    """The writer of a rank that writes nothing."""
+
+    def scalar(self, *args, **kwargs):
+        pass
+
+    histogram = image = scalar
+
+
+_NO_WRITER = _NoWriter()
 
 
 class Summary:
@@ -45,15 +62,20 @@ class Summary:
         self.spike_metrics = spike_metrics
         self.dpi = getattr(config, "dpi", 120)
         self._plot_weights = getattr(config, "plot_weights", False)
-        if not no_plots and importlib.util.find_spec("matplotlib") is None:
+        self._noop = mesh_lib.process_index() != 0
+        if not no_plots and not self._noop and \
+                importlib.util.find_spec("matplotlib") is None:
             print("matplotlib is not installed: figures are skipped")
             no_plots = True
-        self.no_plots = no_plots
+        self.no_plots = no_plots or self._noop
         self._workers = max(0, int(workers))
         self._pool = None
         self._pending = []
 
-        if spike_metrics:
+        if self._noop:
+            self._plot_weights = False
+            self.profiler_dir = None
+        elif spike_metrics:
             self._metrics_dir = os.path.join(config.output_dir, "metrics")
             self.format = getattr(config, "format", "pdf")
             self._vector_dir = os.path.join(self._metrics_dir, "plots")
@@ -71,10 +93,14 @@ class Summary:
                 os.path.join(config.output_dir, "validation"))
 
     def _writers(self):
+        if self._noop:
+            return []
         return ([self.metrics_writer] if self.spike_metrics
                 else [self.train_writer, self.val_writer])
 
     def _writer(self, training: bool) -> EventWriter:
+        if self._noop:
+            return _NO_WRITER
         if self.spike_metrics:
             return self.metrics_writer
         return self.train_writer if training else self.val_writer

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, whole-recording spike
 inference, dataset preparation, training, evaluation, the DG experiments,
-the conv2d model, BatchNorm, the in-graph ``deconvolve_signals`` and the
-sweep once on one NVIDIA GPU.
+the conv2d model, BatchNorm, the in-graph ``deconvolve_signals``, the
+sweep and data-parallel training once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 14   # phases 1 and 14 alone
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs thirteen phases, printing one line of findings per phase.
+``nvcc`` and runs fourteen phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
@@ -157,7 +158,27 @@ every (machine, storage) pair the plan can choose is compared:
    ``_hparams_`` events, each experiment's sampling-epoch launches and
    spikes against the float64 golden; a rerun that skips both ("already
    exists") and leaves the results as they were; ``--summarize``;
-   ``--parallel 2`` refused on one GPU.
+   ``--parallel 2`` refused on one GPU;
+14. data parallelism on one card (NCCL puts no two ranks on one GPU): two
+   ranks on ``cuda:0`` over gloo, started by the library's launcher: the
+   flagship step (batch 128, 64 rows a rank) at learning rate 0 in
+   float32 and bfloat16 against the one-process step on the same draws
+   (losses and each net's largest gradient difference), then ``main
+   --data_parallelism 2 --save_generated last`` for 2 epochs on phase 6's
+   records: the replicas equal bit for bit, one writer (``hparams.json``,
+   checkpoints, events), two epoch-file shards of 64 rows, OASIS launched
+   in rank 0's sampling epochs only, the kernel equal to its plain version
+   on the last sampled traces and their spikes to the float64 golden, the
+   ranks' steps/s beside phase 6's one process (gloo through the host: no
+   speed figure); one rank through ``--distributed`` in a ``torchrun``
+   environment of world size 1 over NCCL for an epoch, with its collective
+   calls counted; ``--data_parallelism 2 --device cuda`` refused on one
+   GPU (on a machine of several, the same run over NCCL on every GPU and
+   on one instead, and the flagship step loop timed on one GPU without a
+   group and on every GPU over NCCL, launched in the order 1, P, P, 1,
+   each launch timing ``DP_SCALING_WINDOWS`` windows of
+   ``DP_SCALING_STEPS`` steps after ``DP_SCALING_WARMUP``: the median
+   steps/s of each, their spread and the speed-up).
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
@@ -170,6 +191,7 @@ directory without the port beside this script. JAX is never imported.
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import os
 import subprocess
@@ -299,6 +321,12 @@ WHILE_TIMED_ROWS = (64, 1024)
 SWEEP_GRID = {"noise_dim": [4, 16], "num_units": [32], "kernel_size": [4],
               "phase_shuffle": [1]}
 SWEEP_EPOCHS = 2
+# phase 14: two gloo ranks on one card, the flagship batch split between them
+DP_RANKS, DP_BATCH, DP_EPOCHS = 2, 128, 2
+DP_TIMEOUT_S = 300
+# phase 14 on several GPUs: steps a timed window, windows a launch, and
+# untimed steps before them
+DP_SCALING_STEPS, DP_SCALING_WINDOWS, DP_SCALING_WARMUP = 50, 4, 10
 # the H100 SXM data sheet's dense bfloat16 tensor-core rate
 BF16_FLOPS_PER_S = 989e12
 # the bound of a kernel row: the bytes the function must move at the card's
@@ -1392,8 +1420,10 @@ def phase_training(smi, work):
                      epoch_host_s=epoch_s, steps_per_epoch=steps,
                      sample_and_plot_s=sample_s,
                      profile_window=window))
-    return dict(launches=launches, timing=timing, window=window, run=run,
-                records=records, head=np.ascontiguousarray(signals[:8]))
+    return dict(launches=launches, timing=dict(
+        timing, steps_per_s_host=steps / epoch_s), window=window, run=run,
+        records=records, head=np.ascontiguousarray(signals[:8]),
+        head_128=np.ascontiguousarray(signals[:DP_BATCH]))
 
 
 def phase_prepare(smi, work, recording):
@@ -3119,8 +3149,376 @@ def phase_sweep(smi, work, records):
     return dict(launches=launches)
 
 
-def main() -> int:
+def _flagship_steps(real, dev, rank: int, world: int, moments: bool):
+    """One flagship WGAN-GP step at learning rate 0 (every gradient taken
+    at the seeded weights) in float32 (TF32 off) and bfloat16, on rank
+    ``rank``'s rows of the global batch ``real`` with its share of the
+    draws ``Draws(SEED, 0)``: the logs and, with ``moments``, Adam's first
+    moments on the host."""
+    import dataclasses
+
     import torch
+    from calciumgan_tpu_torch.algorithms import get_algorithm
+    from calciumgan_tpu_torch.algorithms.gan import Draws, shard_draws
+    from calciumgan_tpu_torch.models import get_models
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    local = mesh_lib.rows_of(real, rank, world)
+    found = {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        cfg = dataclasses.replace(flagship_config(), mixed_precision=bf16,
+                                  batch_size=len(real), learning_rate=0.0)
+        algo = get_algorithm(cfg, *get_models(
+            cfg, rng=torch.Generator().manual_seed(SEED), device=dev))
+        state = algo.init_state()
+        logs = algo.train_step(state, torch.from_numpy(local).to(dev),
+                               shard_draws(Draws(SEED, 0, dev), rank, world,
+                                           len(local)))
+        found[name] = dict(logs={k: float(v) for k, v in logs.items()})
+        if moments:
+            found[name]["moments"] = {
+                net: [getattr(state, net).optimizer.state[p][
+                    "exp_avg"].cpu().numpy() for p in getattr(
+                        state, net).module.parameters()]
+                for net in ("generator", "discriminator")}
+        del algo, state
+    torch.cuda.empty_cache()
+    return found
+
+
+def _dp_rank(config, layout, real):
+    """One of phase 14's ranks on ``cuda:0`` (gloo): the flagship step on
+    its rows of ``real``, then ``train.main`` over ``layout`` with its
+    sampling epochs' OASIS launches, sampled traces, epoch seconds, and a
+    digest of the bytes it ends with (parameters, running statistics,
+    Adam's moments)."""
+    import torch
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = mesh_lib.process_index()
+    steps = _flagship_steps(real, layout.device, rank,
+                            mesh_lib.process_count(), moments=rank == 0)
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    mesh_lib.collectives.clear()
+    with Spy(train, "sample_and_plot", "train_epoch", "test") as spy:
+        metrics = train.main(config, return_metrics=True, mesh=layout)
+    torch.cuda.synchronize()
+    launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    collectives = dict(mesh_lib.collectives)
+    state = spy.calls["test"][0]["args"][3]
+    tensors = [t for net in (state.generator, state.discriminator)
+               for t in [*net.module.parameters(), *net.module.buffers(),
+                         *(net.optimizer.state[p][k]
+                           for p in net.module.parameters()
+                           for k in ("exp_avg", "exp_avg_sq"))]]
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().cpu().numpy().tobytes())
+    return dict(rank=rank, steps=steps, metrics=metrics,
+                launches=launches, plain_calls=calls,
+                collectives=collectives, digest=digest.hexdigest(),
+                samples=[c["out"] for c in spy.calls["sample_and_plot"]],
+                epoch_s=[c["s"] for c in spy.calls["train_epoch"]])
+
+
+def _dp_step_loop(layout, real):
+    """Steps/s of the flagship step (bfloat16, as phase 6 trains it) on
+    this rank's rows of the global batch ``real``, each step's draws its
+    share of ``Draws(SEED, step)``: one rate per timed window, the card
+    synchronised at each window's ends. In a process without a group, the
+    one-GPU run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.algorithms import get_algorithm
+    from calciumgan_tpu_torch.algorithms.gan import Draws, shard_draws
+    from calciumgan_tpu_torch.models import get_models
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    dev = layout.device
+    cfg = dataclasses.replace(flagship_config(), batch_size=len(real))
+    algo = get_algorithm(cfg, *get_models(
+        cfg, rng=torch.Generator().manual_seed(SEED), device=dev))
+    state = algo.init_state()
+    local = torch.from_numpy(np.ascontiguousarray(
+        mesh_lib.rows_of(real, rank, world))).to(dev)
+    counter = 0
+
+    def steps(n: int) -> None:
+        nonlocal counter
+        for _ in range(n):
+            algo.train_step(state, local, shard_draws(
+                Draws(SEED, counter, dev), rank, world, len(local)))
+            counter += 1
+        torch.cuda.synchronize(dev)
+
+    steps(DP_SCALING_WARMUP)
+    rates = []
+    for _ in range(DP_SCALING_WINDOWS):
+        start = time.perf_counter()
+        steps(DP_SCALING_STEPS)
+        rates.append(DP_SCALING_STEPS / (time.perf_counter() - start))
+    return rates
+
+
+def _dp_scaling(real, count: int) -> dict:
+    """:func:`_dp_step_loop` on one GPU in this process (no group, as a
+    one-GPU run trains) and on ``count`` GPUs over NCCL through the
+    library's launcher, in the order 1, count, count, 1: rank 0's rates
+    by launch, their median, least and most, and the medians' ratio."""
+    import statistics
+
+    from calciumgan_tpu_torch.parallel import launch as launch_lib
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    rates = {1: [], count: []}
+    for world in (1, count, count, 1):
+        layout = mesh_lib.create_mesh(world, devices=[
+            f"cuda:{i}" for i in range(world)])
+        if world == 1:
+            rates[1].append(_dp_step_loop(layout, real))
+        else:
+            rates[world].append(launch_lib.launch(
+                _dp_step_loop, layout.devices, "nccl", args=(layout, real),
+                timeout=DP_TIMEOUT_S)[0])
+    out = {}
+    for world, runs in rates.items():
+        flat = [r for run in runs for r in run]
+        out[str(world)] = dict(
+            steps_per_s_by_launch=runs, median=statistics.median(flat),
+            least=min(flat), most=max(flat),
+            timed_steps=len(flat) * DP_SCALING_STEPS,
+            rows_a_rank=len(real) // world)
+    out["speedup_of_medians"] = out[str(count)]["median"] / out["1"]["median"]
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _step_vs_one_process(one, ranks) -> dict:
+    """The ranks' flagship step (rank 0's moments) against the one-process
+    step on the same draws, held to phase 6's card-vs-CPU bounds: the logs
+    and each net's largest gradient difference over its largest moment."""
+    import numpy as np
+    step = {}
+    for name, (rtol, atol, grad_tol) in (
+            ("f32", (STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL,
+                     STEP_F32_GRAD_TOL)),
+            ("bf16", (STEP_BF16_LOSS_RTOL, STEP_BF16_LOSS_ATOL,
+                      STEP_BF16_GRAD_TOL))):
+        ref, got = one[name], ranks[0]["steps"][name]
+        loss_err = {k: abs(got["logs"][k] - v) for k, v in
+                    ref["logs"].items()}
+        grad_err = {}
+        for net, pairs in ref["moments"].items():
+            scale = max(float(np.abs(b).max()) for b in pairs)
+            grad_err[net] = max(float(np.abs(a - b).max()) for a, b in zip(
+                got["moments"][net], pairs)) / scale
+        check(all(r["steps"][name]["logs"] == got["logs"] for r in ranks),
+              f"{name} step: the ranks log differently")
+        check(all(err <= rtol * abs(ref["logs"][k]) + atol
+                  for k, err in loss_err.items()),
+              f"{name} step: {len(ranks)} ranks vs 1 process, losses "
+              f"{loss_err}")
+        check(all(err <= grad_tol for err in grad_err.values()),
+              f"{name} step: {len(ranks)} ranks vs 1 process, gradients "
+              f"{grad_err}")
+        step[name] = dict(logs_one_process=ref["logs"],
+                          logs_ranks=got["logs"], loss_abs_err=loss_err,
+                          grad_err=grad_err)
+    return step
+
+
+def _dp_launch(records, run, devices, backend, real) -> tuple:
+    """``main --data_parallelism len(devices) --save_generated last`` at
+    the flagship recipe for ``DP_EPOCHS`` epochs, one rank per entry of
+    ``devices`` over ``backend`` through the library's launcher, after each
+    rank's flagship step on its rows of ``real``; checked: the replicas
+    equal bit for bit, equal test metrics, one writer, a shard a rank whose
+    rows make the validation set, OASIS in rank 0's sampling epochs only.
+    The ranks' results and the findings."""
+    import glob
+
+    import numpy as np
+    from calciumgan_tpu_torch import main as train_main
+    from calciumgan_tpu_torch.parallel import launch as launch_lib
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    from calciumgan_tpu_torch.utils import h5
+    world = len(devices)
+    config, _ = train_main.parse_args(train_flags(
+        records, run, DP_EPOCHS, "--data_parallelism", str(world),
+        "--save_generated", "last"))
+    layout = mesh_lib.create_mesh(world, devices=devices)
+    start = time.perf_counter()
+    ranks = launch_lib.launch(_dp_rank, layout.devices, backend,
+                              args=(config, layout, real),
+                              timeout=DP_TIMEOUT_S)
+    launch_s = time.perf_counter() - start
+    first = ranks[0]
+    check(len({r["digest"] for r in ranks}) == 1,
+          f"{world} ranks: parameters, statistics or moments differ")
+    check(all(np.isfinite(list(r["metrics"].values())).all()
+              and r["metrics"] == first["metrics"] for r in ranks),
+          f"{world} ranks: test metrics {[r['metrics'] for r in ranks]}")
+    suffix = h5.default_suffix(verbose=False)
+    events = sorted(os.path.relpath(p, run) for p in glob.glob(
+        os.path.join(run, "**", "events.out.tfevents.*"), recursive=True))
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+    check(len(glob.glob(os.path.join(run, "hparams.json*"))) == 1
+          and len(events) == 2 and ckpts == [
+              f"epoch-{e:03d}.pt" for e in range(DP_EPOCHS)] + [
+              "latest.json"], f"{world} ranks' writers: events {events}, "
+                              f"checkpoints {ckpts}")
+    last = f"epoch{DP_EPOCHS - 1:03d}_signals{suffix}"
+    shards = sorted(n for n in os.listdir(os.path.join(run, "generated"))
+                    if n.startswith(last))
+    rows = [h5.get_shape(os.path.join(run, "generated", n), "signals")[0]
+            for n in shards]
+    named = [f"{last}.{r:03d}" for r in range(world)] if world > 1 \
+        else [last]
+    check(shards == named and sum(rows) == VAL_ROWS,
+          f"{world} ranks' epoch files {shards}: {rows}")
+    check(set(first["launches"]) == {"oasis_ar1/shared"}
+          and first["plain_calls"] == 0
+          and all(not r["launches"] and all(o is None for o in r["samples"])
+                  for r in ranks[1:]),
+          f"sampling launches by rank "
+          f"{[(r['launches'], r['plain_calls']) for r in ranks]}")
+    sampled = sampled_vs_golden([dict(out=o) for o in first["samples"]],
+                                (102, T), f"{world}-rank sampling epochs")
+    steps = TRAIN_ROWS // DP_BATCH
+    return ranks, dict(
+        devices=list(layout.devices), backend=backend, launch_s=launch_s,
+        replicas_equal=True, metrics=first["metrics"], events=events,
+        checkpoints=ckpts, shards=dict(zip(shards, rows)),
+        collectives_rank0=first["collectives"],
+        sampling_launches_rank0=first["launches"],
+        sampling_launches_other_ranks=[r["launches"] for r in ranks[1:]],
+        sampled_mismatches_vs_golden=sampled,
+        epoch_s_rank0=first["epoch_s"],
+        steps_per_s_rank0=[steps / s for s in first["epoch_s"]])
+
+
+def phase_data_parallel(smi, work, records, signals, one_process):
+    """Data parallelism: (a) two ranks on ``cuda:0`` over gloo (NCCL puts
+    no two ranks on one GPU) through the library's launcher: the flagship
+    step at the global batch 128 against the one-process step on the same
+    draws, then ``main --data_parallelism 2 --save_generated last`` for 2
+    epochs on phase 6's records (:func:`_dp_launch`'s checks; the kernel
+    held to its plain version on rank 0's last sampled traces; steps/s
+    beside phase 6's one-process run); (b) one rank through
+    ``--distributed`` in a ``torchrun`` environment of ``WORLD_SIZE=1``
+    over NCCL for 1 epoch, its collective calls counted; (c) on one GPU,
+    ``--data_parallelism 2 --device cuda`` refused; on several, the same
+    run over NCCL on every GPU and on one, for the steps/s of each."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from calciumgan_tpu_torch import main as train_main
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+
+    # (a) the step at the global batch, one process then two gloo ranks
+    real = np.ascontiguousarray(signals[:DP_BATCH])
+    one = _flagship_steps(real, torch.device("cuda"), 0, 1, moments=True)
+    ranks, gloo = _dp_launch(records, os.path.join(work, "dp_run"),
+                             ["cuda:0"] * DP_RANKS, "gloo", real)
+    gloo["step_vs_one_process"] = _step_vs_one_process(one, ranks)
+    last_sample = ranks[0]["samples"][-1][0]
+    gloo["kernel_vs_plain"] = hold_to_twin(
+        last_sample, rungs_climbed(last_sample), "2-rank sampling epoch")
+    gloo["steps_per_s_one_process_phase6"] = one_process
+    gloo["note"] = ("gloo through the host, two ranks on one card: a check "
+                    "of the data-parallel path, no speed figure")
+
+    # (b) one rank through --distributed over NCCL
+    run_b = os.path.join(work, "dp_distributed")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    mesh_lib.collectives.clear()
+    backends = []
+    train_and_validate = train.train_and_validate
+
+    def spied(*args, **kw):
+        backends.append(dist.get_backend())
+        return train_and_validate(*args, **kw)
+
+    train.train_and_validate = spied
+    try:
+        start = time.perf_counter()
+        train_main.cli(train_flags(records, run_b, 1, "--distributed"))
+        distributed_s = time.perf_counter() - start
+    finally:
+        train.train_and_validate = train_and_validate
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    nccl_launches = dict(oasis_cuda.launches)
+    counted = dict(mesh_lib.collectives)
+    # 7 all-reduces a step (6 gradient buffers, the logs), 9 a validation
+    # batch (8 masked means, the real-row count), one all-gather to join
+    expected = {"all_reduce": 7 * (TRAIN_ROWS // DP_BATCH)
+                + 9 * (VAL_ROWS // DP_BATCH), "all_gather_object": 1}
+    check(backends == ["nccl"] and counted == expected
+          and not dist.is_initialized()
+          and set(nccl_launches) == {"oasis_ar1/shared"},
+          f"--distributed: backend {backends}, collectives {counted} "
+          f"(expected {expected}), launches {nccl_launches}")
+
+    # (c) two GPUs asked of one; or every GPU over NCCL
+    count = torch.cuda.device_count()
+    refused, gpus, scaling = None, {}, None
+    if count == 1:
+        try:
+            train_main.cli(train_flags(records, os.path.join(
+                work, "dp_refused"), 1, "--data_parallelism", "2"))
+        except ValueError as exc:
+            refused = str(exc)
+        check(refused == "mesh needs 2 devices, have 1",
+              f"--data_parallelism 2 on one GPU: {refused}")
+    else:
+        for world in (1, count):
+            ranks_n, gpus[world] = _dp_launch(
+                records, os.path.join(work, f"dp_nccl_{world}"),
+                [f"cuda:{i}" for i in range(world)], "nccl", real)
+            gpus[world]["step_vs_one_process"] = _step_vs_one_process(
+                one, ranks_n)
+        scaling = _dp_scaling(real, count)
+    torch.cuda.synchronize()
+    report("phase 14 data parallelism", card=smi, global_batch=DP_BATCH,
+           epochs=DP_EPOCHS, two_ranks_gloo=gloo,
+           distributed_nccl=dict(world_size=1, seconds=distributed_s,
+                                 backend=backends, collectives=counted,
+                                 sampling_launches=nccl_launches),
+           refused_on_one_gpu=refused or f"not run: {count} GPUs",
+           nccl_by_world={str(w): v for w, v in gpus.items()},
+           step_loop_scaling=scaling)
+    return dict(launches=gloo["sampling_launches_rank0"],
+                nccl_launches=nccl_launches)
+
+
+def main(argv) -> int:
+    import torch
+    if argv not in ([], ["--phase", "14"]):
+        print("usage: chip_smoke.py [--phase 14]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3137,6 +3535,13 @@ def main() -> int:
         "calciumgan_tpu_torch is not the checkout's")
 
     smi = phase_device(root)
+    if argv:  # phase 14 alone, on a training set of its own
+        with tempfile.TemporaryDirectory() as work:
+            records = os.path.join(work, "records")
+            phase_data_parallel(smi, work, records,
+                                write_training_set(records), None)
+        print(smi)
+        return ok_line()
     max_err = phase_kernel()
     config = flagship_config()
     weights, _ = get_models(config, rng=torch.Generator().manual_seed(SEED))
@@ -3155,6 +3560,9 @@ def main() -> int:
                                       training["head"])
         in_graph = phase_in_graph(smi, config, variables)
         sweep = phase_sweep(smi, work, training["records"])
+        parallel = phase_data_parallel(
+            smi, work, training["records"], training["head_128"],
+            training["timing"]["steps_per_s_host"])
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
@@ -3176,7 +3584,9 @@ def main() -> int:
                          + collections.Counter(
                              batch_norm["train_launches"])
                          + collections.Counter(in_graph["launches"])
-                         + collections.Counter(sweep["launches"])),
+                         + collections.Counter(sweep["launches"])
+                         + collections.Counter(parallel["launches"])
+                         + collections.Counter(parallel["nccl_launches"])),
          "launches_by_path": {
              "generate --spikes": launched("oasis_ar1", serving_launches),
              "main (sampling epochs)": launched("oasis_ar1",
@@ -3200,7 +3610,11 @@ def main() -> int:
              "deconvolve_signals (in-graph)": launched(
                  "oasis_ar1", in_graph["launches"]),
              "search (sampling epochs)": launched("oasis_ar1",
-                                                  sweep["launches"])},
+                                                  sweep["launches"]),
+             "main --data_parallelism 2 (rank 0 sampling epochs)": launched(
+                 "oasis_ar1", parallel["launches"]),
+             "main --distributed (sampling epochs)": launched(
+                 "oasis_ar1", parallel["nccl_launches"])},
          "path": "generate --spikes; main (sampling epochs); "
                  "compute_metrics (one epoch file of 1000 x 2048 x 102); "
                  "the DG run's and the mlp run's sampling epochs; "
@@ -3209,7 +3623,8 @@ def main() -> int:
                  "2048 x 102) and generate --spikes; the BatchNorm run's "
                  "sampling epochs; deconvolve_signals (in-graph, 104,448 x "
                  "2048 at depth 128, merge budget 4); search (the two "
-                 "experiments' sampling epochs)",
+                 "experiments' sampling epochs); main --data_parallelism 2 "
+                 "(rank 0's sampling epochs) and main --distributed",
          "library_ms": None,
          **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"],
                                          in_graph["max_abs_err"]))},
@@ -3219,6 +3634,12 @@ def main() -> int:
         {"name": "oasis_ar1_long", "route": "cuda", "source": source,
          "replaces": "calciumgan_tpu/ops/oasis_pallas.py:513",
          "library_ms": None, **recordings["long"]}]}))
+    return ok_line()
+
+
+def ok_line() -> int:
+    """The last line: the device's platform, kind and count."""
+    import torch
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3227,7 +3648,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -1,16 +1,17 @@
 """The port imports nothing of the JAX package, and its copies of the JAX
 package's modules equal the originals.
 
-Every ``.py`` file of ``calciumgan_tpu_torch/`` and ``chip_smoke.py`` is
-walked as an AST (imports inside functions included) for imports of
-``calciumgan_tpu``, ``jax``, ``flax`` or ``optax`` and for paths into
-``calciumgan_tpu/``. The copies (``Config``, ``Registry``, ``ifft_signals``,
-the float64 golden and ``synth_ar1_traces``, the h5 functions, the array
-layouts, ``segments``, ``io``'s info file, the figure renderers, the C++
-float64 redo and crc32c, the TFRecord codec, the event writer, the signal
-metrics and the phase shuffle, the DG model's host helpers and the DG
-metrics' percentage errors) are held against the JAX package's modules on
-seeded inputs.
+Every ``.py`` file of ``calciumgan_tpu_torch/`` (the data-parallel
+package ``parallel/`` included) and ``chip_smoke.py`` is walked as an AST
+(imports inside functions included) for imports of ``calciumgan_tpu``,
+``jax``, ``flax`` or ``optax`` and for paths into ``calciumgan_tpu/``.
+The copies (``Config``, ``Registry``, ``ifft_signals``, the float64 golden
+and ``synth_ar1_traces``, the h5 functions, the array layouts,
+``segments``, ``io``'s info file, the figure renderers, the C++ float64
+redo and crc32c, the TFRecord codec, the event writer, the signal metrics
+and the phase shuffle, the DG model's host helpers and the DG metrics'
+percentage errors) are held against the JAX package's modules on seeded
+inputs. ``--model_parallelism`` above 1 is refused.
 """
 
 import argparse
@@ -156,12 +157,31 @@ def test_port_loads_no_jax_package_module():
         "import calciumgan_tpu_torch.dataset.generate_dg_data\n"
         "import calciumgan_tpu_torch.dataset.generate_surrogate_data\n"
         "import calciumgan_tpu_torch.dataset.get_coordinate\n"
+        "import calciumgan_tpu_torch.parallel.launch\n"
+        "import calciumgan_tpu_torch.parallel.mesh\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('calciumgan_tpu', 'jax', 'jaxlib', 'flax', 'optax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_walk_covers_the_parallel_package():
+    walked = _sources()
+    for name in ("__init__.py", "launch.py", "mesh.py"):
+        assert os.path.join("calciumgan_tpu_torch", "parallel",
+                            name) in walked
+
+
+def test_model_parallelism_above_one_raises(tmp_path):
+    # only the data axis is ported: the CLI refuses a model axis before
+    # it reads any data, where it was once ignored
+    from calciumgan_tpu_torch import main as port_main
+    with pytest.raises(NotImplementedError, match="model parallelism"):
+        port_main.cli(["--model_parallelism", "2", "--device", "cpu",
+                       "--input_dir", str(tmp_path),
+                       "--output_dir", str(tmp_path / "run")])
 
 
 # ---- Config ---------------------------------------------------------------

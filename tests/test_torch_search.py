@@ -125,18 +125,16 @@ def test_search_parallel_over_host_workers(tmp_path, dataset_dir,
 
 
 def test_device_slices(monkeypatch):
-    assert search.device_slices("cpu", 3) == ["cpu"] * 3
-    for count, parallel, expected in ((1, 1, ["cuda:0"]),
-                                      (2, 2, ["cuda:0", "cuda:1"])):
+    assert search.device_slices("cpu", 3) == [["cpu"]] * 3
+    for count, parallel, expected in (
+            (1, 1, [["cuda:0"]]), (2, 2, [["cuda:0"], ["cuda:1"]]),
+            (4, 2, [["cuda:0", "cuda:1"], ["cuda:2", "cuda:3"]])):
         monkeypatch.setattr(search.torch.cuda, "device_count",
                             lambda: count)
         assert search.device_slices("cuda", parallel) == expected
     monkeypatch.setattr(search.torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError,
                        match="1 devices not divisible by --parallel 2"):
-        search.device_slices("cuda", 2)
-    monkeypatch.setattr(search.torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="data parallelism"):
         search.device_slices("cuda", 2)
 
 

@@ -1,7 +1,9 @@
 """Shared by the port's step parity tests: the tiny configurations, the
 shared weights, and the capture and replay of the JAX package's random
 draws (see ``test_torch_train_step.py``, ``test_torch_mlp.py``,
-``test_torch_calciumgan2d.py`` and ``test_torch_batch_norm.py``)."""
+``test_torch_calciumgan2d.py``, ``test_torch_batch_norm.py`` and
+``test_torch_parallel.py``). The replaying object, :class:`Replay`, lives
+in ``torch_rank_helpers``, which a spawned rank imports without JAX."""
 
 import collections
 import contextlib
@@ -25,6 +27,7 @@ from calciumgan_tpu_torch import convert
 from calciumgan_tpu_torch.algorithms import get_algorithm
 from calciumgan_tpu_torch.config import Config
 from calciumgan_tpu_torch.models import get_models
+from torch_rank_helpers import Replay  # noqa: F401  (the steps' replay)
 
 
 def tiny(**kw):
@@ -66,32 +69,6 @@ class Recorder:
         jax.effects_barrier()
         draws, self.draws = dict(self.draws), collections.defaultdict(list)
         return draws
-
-
-class Replay:
-    """The methods of ``Draws``, returning recorded JAX draws."""
-
-    def __init__(self, draws):
-        self.queue = {k: list(v) for k, v in draws.items()}
-
-    def noise(self, n, noise_dim):
-        z = self.queue["noise"].pop(0)
-        assert z.shape == (n, noise_dim)
-        return torch.from_numpy(z)
-
-    def alpha(self, n):
-        return torch.from_numpy(self.queue["alpha"].pop(0).reshape(n))
-
-    def shifts(self, m, count):
-        return [int(self.queue["shift"].pop(0)) for _ in range(count)]
-
-    def dropout(self, shape, rate):
-        keep = self.queue["dropout"].pop(0)
-        assert keep.shape == tuple(shape) and keep.dtype == np.bool_
-        return torch.from_numpy(keep)
-
-    def left(self):
-        return {k: len(v) for k, v in self.queue.items() if v}
 
 
 def make_pair(rec, **kw):
