@@ -192,7 +192,7 @@ def bce_with_logits(logits: torch.Tensor, label: int,
 
 
 def _real_rows(real: torch.Tensor, mask) -> torch.Tensor:
-    """This batch's real-row count over every rank (the epoch mean's
+    """This batch's real-row count over the data axis (the epoch mean's
     weight)."""
     if mask is None:
         mask = torch.ones(real.shape[0], device=real.device)
@@ -209,11 +209,12 @@ def _eval_mask(real: torch.Tensor, mask):
 
 def global_logs(logs: dict) -> dict:
     """A train step's logs as the global batch's means: each rank's means
-    of equal local batches, averaged over the ranks (one all-reduce)."""
+    of equal local batches (and equal frames of them), averaged over the
+    ranks (one all-reduce)."""
     if mesh_lib.data_group() is None:
         return logs
     keys = list(logs)
-    mean, = mesh_lib.all_reduce_mean([torch.stack(
+    mean, = mesh_lib.world_mean([torch.stack(
         [logs[k].float() for k in keys])])
     return dict(zip(keys, mean.unbind()))
 

@@ -42,13 +42,16 @@ def make_net_state(module: nn.Module, learning_rate: float) -> NetState:
 
 def apply_updates(net: NetState, grads) -> None:
     """One Adam step of ``net`` with ``grads`` (one per parameter, in
-    ``parameters()`` order). In a data-parallel rank the gradients are
-    first averaged over the ranks, in one flattened all-reduce, so every
-    rank applies the same bytes and the replicas stay equal bit for bit.
+    ``parameters()`` order). In a parallel rank the gradients are first
+    averaged over the data axis (summed over a time axis first), in one
+    flattened all-reduce (:func:`~calciumgan_tpu_torch.parallel.mesh.
+    gradient_mean`), so every rank applies the same bytes and the replicas
+    stay equal bit for bit; a model-sharded parameter's gradient, Adam
+    moments and update are its shard's.
     (DDP's reducer would not see them: the steps take their gradients with
     ``torch.autograd.grad``, and the gradient penalty differentiates
     twice.)"""
-    grads = mesh_lib.all_reduce_mean(grads)
+    grads = mesh_lib.gradient_mean(grads)
     for p, g in zip(net.module.parameters(), grads):
         p.grad = g
     net.optimizer.step()

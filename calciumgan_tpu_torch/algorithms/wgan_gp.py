@@ -52,6 +52,12 @@ class WGAN_GP(GAN):
         if self.n_critic < 1:
             raise ValueError(f"n_critic must be >= 1, got {self.n_critic}")
 
+    def sequence_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, a per-sample sum over this process's frames, summed over
+        the whole sequence: itself here, where every frame is this
+        process's (a time-parallel run sums over its time group)."""
+        return x
+
     # ---- losses -------------------------------------------------------
     def generator_loss(self, fake_output, mask=None):
         return -signal_metrics.batch_weighted_mean(fake_output.float(), mask)
@@ -72,8 +78,8 @@ class WGAN_GP(GAN):
             out = self.dis(x_hat, draws, training=training)
             grad, = torch.autograd.grad(out.float().sum(), x_hat,
                                         create_graph=create_graph)
-        norm = torch.sqrt(grad.float().reshape(B, -1).square().sum(1)
-                          + 1e-12)
+        norm = torch.sqrt(self.sequence_sum(
+            grad.float().reshape(B, -1).square().sum(1)) + 1e-12)
         return signal_metrics.batch_weighted_mean((norm - 1.0).square(), mask)
 
     # ---- steps --------------------------------------------------------

@@ -84,6 +84,33 @@ def _mlp_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_param_path(net: str, name: str, model: str = "calciumgan"
+                    ) -> tuple:
+    """The Flax path (``("Dense_0", "kernel")``, ``("Norm_2",
+    "LayerNorm_0", "scale")``, ...) of the ``state_dict`` entry ``name`` of
+    a ``model`` run's ``net`` (``"generator"`` or ``"discriminator"``): the
+    name map of the functions below, for rules that read Flax names."""
+    _check_model(model)
+    module, field = name.rsplit(".", 1)
+    field = {"weight": "kernel"}.get(field, field)
+    parts = module.split(".")
+    if m := _DENSE_MODULE.match(module):
+        return (f"Dense_{m[1]}", field)
+    if net == "discriminator" and module == "dense":
+        return ("Dense_0", field)
+    if net == "discriminator" and parts[0] == "conv" and len(parts) == 2:
+        return (f"Conv_{parts[1]}", field)
+    if net == "generator" and parts[0] == "conv_transpose" \
+            and len(parts) == 2:
+        return (f"ConvTranspose_{parts[1]}", field)
+    if net == "generator" and parts[0] == "norm" and len(parts) == 2:
+        return (f"Norm_{parts[1]}", "LayerNorm_0", field)
+    if net == "generator" and parts[0] == "norm" \
+            and parts[2:] == ["batch_norm"]:
+        return (f"Norm_{parts[1]}", "BatchNorm_0", field)
+    raise KeyError(f"unexpected {net} state_dict entry {name!r}")
+
+
 def _flax_mlp_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """Inverse of :func:`_mlp_state_dict`."""
     params: dict = {}

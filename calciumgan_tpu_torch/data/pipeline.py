@@ -168,7 +168,7 @@ def load_tfrecord_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
         raise FileNotFoundError(
             f"input directory {config.input_dir} cannot be found")
     apply_dataset_info(config, load_info(config.input_dir))
-    rank = (mesh_lib.process_index(), mesh_lib.process_count())
+    rank = (mesh_lib.data_index(), mesh_lib.data_extent())
     train = _read_shards(config.train_files, config.signal_shape,
                          config.spike_shape, *rank)
     validation = _read_shards(config.validation_files, config.signal_shape,
@@ -197,8 +197,8 @@ def load_surrogate_datasets(config) -> Tuple[ArrayDataset, ArrayDataset]:
     train_size = min(8192, len(signals))
     config.train_size = train_size
     config.validation_size = len(signals) - train_size
-    # each rank keeps an interleaved share of the rows
-    pi, pc = mesh_lib.process_index(), mesh_lib.process_count()
+    # each data index keeps an interleaved share of the rows
+    pi, pc = mesh_lib.data_index(), mesh_lib.data_extent()
     train = ArrayDataset(signals[:train_size][pi::pc],
                          spikes[:train_size][pi::pc])
     validation = ArrayDataset(signals[train_size:][pi::pc],

@@ -13,20 +13,25 @@ all|last`` writes the validation cache, the epoch files and ``info.pkl``
 under ``<output_dir>/generated``, which ``python -m
 calciumgan_tpu_torch.compute_metrics`` evaluates.
 
-Data parallelism, one process (rank) per GPU, the global batch split
-between them:
+Parallelism, one process (rank) per GPU:
 
 - ``--data_parallelism N`` (default -1: every visible GPU) and
-  ``--dcn_slices S`` lay the ranks out as the JAX package's mesh does,
-  with its checks ("mesh needs 2 devices, have 1"); a layout of more than
-  one device is started on ``cuda:0..N-1`` over NCCL (``--device cpu``: N
-  host ranks over gloo), a layout of one trains in this process;
+  ``--dcn_slices S`` split the global batch between N ranks, laid out as
+  the JAX package's mesh does, with its checks ("mesh needs 2 devices,
+  have 1"); a layout of more than one device is started on
+  ``cuda:0..N-1`` over NCCL (``--device cpu``: host ranks over gloo), a
+  layout of one trains in this process;
+- ``--model_parallelism M`` gives each data index M ranks that share the
+  two sequence-sized Dense kernels (the generator's input projection by
+  output columns, the critic's head by input rows);
+- ``--time_parallelism T`` (``calciumgan``, ``wgan-gp``, no BatchNorm)
+  gives each data index T ranks that share every sequence's frames, with
+  halo exchanges between neighbours; ``--data_parallelism -1`` then takes
+  the devices T leaves;
 - ``--distributed`` joins the ranks ``torchrun`` started instead
   (``torchrun --nproc_per_node 8 -m calciumgan_tpu_torch.main ...
   --distributed``): rank i on ``cuda:LOCAL_RANK``, the layout over every
-  rank of the group;
-- ``--model_parallelism`` and ``--time_parallelism`` above 1 raise
-  ``NotImplementedError``: only the data axis is ported.
+  rank of the group.
 """
 
 import argparse
@@ -113,18 +118,16 @@ def parse_args(argv=None):
 
 def cli(argv=None):
     from calciumgan_tpu_torch import train
-    from calciumgan_tpu_torch.parallel import launch, mesh
+    from calciumgan_tpu_torch.parallel import launch
     config, device, distributed = _parse(argv)
     if not distributed:
         return train.run(config, device=device)
     devices = launch.join(device)
     try:
-        layout = mesh.create_mesh(config.data_parallelism,
-                                  config.model_parallelism, devices,
-                                  slices=config.dcn_slices)
-        if mesh.data_extent(layout) != len(devices):
+        layout = train.layout(config, devices)
+        if len(layout.devices) != len(devices):
             raise ValueError(f"--distributed: the layout takes "
-                             f"{mesh.data_extent(layout)} of the group's "
+                             f"{len(layout.devices)} of the group's "
                              f"{len(devices)} ranks")
         return train.main(config, mesh=layout)
     finally:

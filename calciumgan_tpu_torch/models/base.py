@@ -81,7 +81,14 @@ def glorot_uniform_(weight: torch.Tensor, fan_in: int, fan_out: int,
 
 
 class Dense(nn.Module):
-    """``nn.Dense`` over the last axis; weight stored ``(out, in)``."""
+    """``nn.Dense`` over the last axis; weight stored ``(out, in)``. A
+    model-parallel run cuts the weight of a sequence-sized layer into
+    shards (:func:`calciumgan_tpu_torch.parallel.mesh.shard_models`, which
+    sets :attr:`model_shard`), and the layer then computes through
+    :func:`~calciumgan_tpu_torch.parallel.mesh.sharded_dense`."""
+
+    # (weight dim the shards join on, the model group), or None
+    model_shard = None
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, rng: torch.Generator, device=None):
@@ -93,6 +100,9 @@ class Dense(nn.Module):
         glorot_uniform_(self.weight, in_features, out_features, rng)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.model_shard is not None:
+            return mesh_lib.sharded_dense(x, self.weight, self.bias,
+                                          self.dtype, *self.model_shard)
         # bias added after the product, as Flax does (two roundings in bf16)
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         return y + self.bias.to(self.dtype)

@@ -7,10 +7,12 @@ signals, as the reference's ``signals_metrics.py:9-28``), averaged over
 positions with optional per-row weights. The standard deviation is the
 population one (``correction=0``), as ``jnp.std`` computes it.
 
-In a data-parallel rank a masked mean is the global batch's, as JAX
-computes it over the sharded batch: the weighted sum and the weight are
-summed over the ranks first. An unmasked mean stays the rank's own (a train
-step's loss, whose gradient the step all-reduces instead).
+In a parallel rank a masked mean is the global batch's, as JAX computes it
+over the sharded batch: the weighted sum and the weight are summed over
+every rank first (:func:`~calciumgan_tpu_torch.parallel.mesh.metric_sum`:
+a time rank holds its frames of each row, model peers the same values). An
+unmasked mean stays the rank's own (a train step's loss, whose gradient
+the step all-reduces instead).
 """
 
 from __future__ import annotations
@@ -26,12 +28,13 @@ def batch_weighted_mean(x: torch.Tensor,
                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean of ``x`` with optional per-row (dim 0) weights: a ``(B,)`` mask
     makes padded validation rows weightless, so tail batches reduce exactly
-    over their real rows; over every rank's rows in a data-parallel run."""
+    over their real rows; over every rank's rows (and frames) in a
+    parallel run."""
     if mask is None:
         return x.mean()
     w = mask.reshape((mask.shape[0],) + (1,) * (x.ndim - 1)).float()
     per_row = x.numel() // x.shape[0]
-    total, weight = mesh_lib.all_reduce_sum(
+    total, weight = mesh_lib.metric_sum(
         torch.stack([(x.float() * w).sum(), w.sum()]))
     return total / (weight * per_row)
 

@@ -166,5 +166,6 @@ def join(device="cuda") -> list:
 
 def leave() -> None:
     """Leave the process group this process joined, if any."""
+    mesh_lib.forget_groups()
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -16,20 +16,31 @@ i)`` (``:191``). Eager PyTorch; steps return their logs as device
 tensors, which are read once per epoch.
 
 Data parallelism (``train.py:65-73,90-135,165-235,249-300,309-360``): a
-run of P ranks (:func:`run` starts them, or ``--distributed`` joins them)
-gives each rank its share of the records and a local batch of
+run of P data ranks (:func:`run` starts them, or ``--distributed`` joins
+them) gives each its share of the records and a local batch of
 ``batch_size / P`` rows. Steps per epoch come from the GLOBAL sizes
 (:func:`_epoch_steps`), so every rank makes the same collectives; the
 draws are the global batch's, each rank keeping its rows
 (:class:`~calciumgan_tpu_torch.algorithms.gan.ShardDraws`); validation
 pads and masks each rank's tail and weights its means globally. Rank 0
-alone samples, deconvolves and plots, and writes the checkpoints,
-``hparams.json``, the events and ``info.pkl``; every rank writes its shard
-of the epoch files and of the surrogate set.
+alone deconvolves and plots, and writes the checkpoints, ``hparams.json``,
+the events and ``info.pkl``; each data index writes its shard of the epoch
+files and of the surrogate set.
 
-Not ported: model parallelism and ``--time_parallelism`` (values above 1
-raise), the background ``DevicePrefetcher`` thread, the persistent compile
-cache and the backend probe.
+Model and time parallelism (``--model_parallelism``, ``--time_parallelism``,
+``train.py:408-442``): each data index has M model or T time peers, which
+read the same records and draw the same rows (the data index and extent,
+:mod:`~calciumgan_tpu_torch.parallel.mesh`). A model peer holds its shards
+of the two sequence-sized Dense layers (``mesh.shard_models``); a time
+peer holds its frames of every batch and trains
+:class:`~calciumgan_tpu_torch.parallel.long_context.LongContextWGAN_GP`.
+The peers of data index 0 all run the sampling epochs' generator pass
+(the time peers' frames gathered into whole sequences), and the first of
+each data index's peers writes its shard of the generated signals, whole
+sequences too.
+
+Not ported: the background ``DevicePrefetcher`` thread, the persistent
+compile cache and the backend probe.
 
 ``--save_generated`` keeps the validation pass's generated batches under the
 JAX package's policy (``calciumgan_tpu/train.py:165-209``): ``all`` on every
@@ -127,9 +138,9 @@ def _mean_logs(all_logs, weights=None) -> Dict[str, float]:
 def _epoch_steps(global_size: int, local_bs: int,
                  drop_remainder: bool) -> int:
     """Steps per epoch, the same on every rank: from the least number of
-    rows a rank holds (record ``i`` goes to rank ``i % P``, so each holds
-    ``floor(global / P)`` or one more), ``train.py:65-73``."""
-    min_local = global_size // mesh_lib.process_count()
+    rows a data index holds (record ``i`` goes to data index ``i % P``, so
+    each holds ``floor(global / P)`` or one more), ``train.py:65-73``."""
+    min_local = global_size // mesh_lib.data_extent()
     if drop_remainder:
         return min_local // local_bs
     return -(-min_local // local_bs)
@@ -138,11 +149,11 @@ def _epoch_steps(global_size: int, local_bs: int,
 def _draws(config, counter: int, device: torch.device, batch: int,
            seed=None):
     """The draws of one step (or evaluation batch): this rank's rows of the
-    global draws from ``(seed, counter)``, ``batch`` local rows."""
+    global draws from ``(seed, counter)``, ``batch`` local rows (its data
+    index's: model and time peers draw alike)."""
     seed = config.seed if seed is None else seed
-    return shard_draws(Draws(seed, counter, device),
-                       mesh_lib.process_index(), mesh_lib.process_count(),
-                       batch)
+    return shard_draws(Draws(seed, counter, device), mesh_lib.data_index(),
+                       mesh_lib.data_extent(), batch)
 
 
 def focus_neurons(config):
@@ -308,7 +319,8 @@ def validate_epoch(config, source, algo, state, summary: Summary, epoch: int,
             # tail batch are dropped
             _synchronize(device)
             saving = perf_counter()
-            io.save_fake_signals(config, epoch, fake[:real_count],
+            io.save_fake_signals(config, epoch,
+                                 mesh_lib.gather_time(fake[:real_count]),
                                  append=i > 0)
             save_s += perf_counter() - saving
     _synchronize(device)
@@ -335,13 +347,16 @@ def sample_and_plot(config, algo, state, summary: Summary, epoch: int,
     """Generate from the fixed test noise, deconvolve its traces where they
     lie (the OASIS kernel on the card) and plot them (reference
     ``main.py:141-156``). Returns the ``(neuron, time)`` signals and
-    spikes as host arrays; None off rank 0, which alone samples (an
-    evaluation pass calls no collective, so the other ranks need not
-    join it)."""
+    spikes as host arrays; None off rank 0, which alone deconvolves and
+    plots. The generator pass is data index 0's: its model or time peers
+    join it (their collectives), the time peers' frames gathered into the
+    whole sequence; no other rank calls a collective here."""
+    if mesh_lib.data_index() != 0:
+        return None
+    fake = mesh_lib.gather_time(algo.sample(state, test_noise))
     if mesh_lib.process_index() != 0:
         return None
-    fake = pipeline.reverse_preprocessing(config,
-                                          algo.sample(state, test_noise))
+    fake = pipeline.reverse_preprocessing(config, fake)
     signals = _traces(config, fake[0])
     spikes = deconvolve_traces(signals).astype(np.float32)
     signals = signals.cpu().numpy()
@@ -370,16 +385,18 @@ def plot_real_signals(config, summary: Summary, dataset) -> None:
 def make_batch_sources(config, train_ds, validation_ds,
                        device: torch.device):
     """The train and validation signals on the device (``--device_store``)
-    or streamed per batch from the host."""
-    total = train_ds.signals.nbytes + validation_ds.signals.nbytes
+    or streamed per batch from the host; a time rank's frames of them."""
+    train, validation = (mesh_lib.time_frames(ds.signals)
+                         for ds in (train_ds, validation_ds))
+    total = train.nbytes + validation.nbytes
     if pipeline.device_store_enabled(config, total, device):
         if config.verbose:
             print(f"device store: {total / 2**20:.0f} MB of signals on "
                   f"{device} (batches gather there)")
-        return (pipeline.DeviceStore(train_ds.signals, device),
-                pipeline.DeviceStore(validation_ds.signals, device))
-    return (pipeline.HostBatches(train_ds.signals, device),
-            pipeline.HostBatches(validation_ds.signals, device))
+        return (pipeline.DeviceStore(train, device),
+                pipeline.DeviceStore(validation, device))
+    return (pipeline.HostBatches(train, device),
+            pipeline.HostBatches(validation, device))
 
 
 def train_and_validate(config, train_ds, validation_ds, algo, state,
@@ -423,7 +440,8 @@ def test(config, validation_ds, algo, state, device: torch.device,
          source=None) -> Dict[str, float]:
     """Final metrics over the validation set (reference
     ``main.py:168-181``)."""
-    source = source or pipeline.HostBatches(validation_ds.signals, device)
+    source = source or pipeline.HostBatches(
+        mesh_lib.time_frames(validation_ds.signals), device)
     bs = mesh_lib.local_batch_size(config.batch_size)
     steps = _epoch_steps(config.validation_size, bs, drop_remainder=False)
     all_logs, weights = [], []
@@ -442,10 +460,11 @@ def generate_surrogate_dataset(config, algo, state, device: torch.device,
                                num_samples: int = 2 * 10**6) -> str:
     """A denormalised sample set in ``generated.pkl`` (reference
     ``utils.py:191-207``), generated about 1000 at a time: in a run of P
-    ranks ``ceil(1000 / P) * P`` rows a batch, each rank generating its
-    rows of it into its own shard ``generated.pkl.RRR``
-    (``train.py:332-364``)."""
-    world = mesh_lib.process_count()
+    data ranks ``ceil(1000 / P) * P`` rows a batch, each data index
+    generating its rows of it (its model or time peers with it, the time
+    peers' frames gathered) into its own shard ``generated.pkl.RRR``
+    (``train.py:332-364``), written by the first of its peers."""
+    world = mesh_lib.data_extent()
     batch_size = -(-1000 // world) * world
     num_samples = -(-num_samples // batch_size) * batch_size
     local_bs = batch_size // world
@@ -457,11 +476,14 @@ def generate_surrogate_dataset(config, algo, state, device: torch.device,
         noise = _draws(config, i, device, local_bs,
                        seed=config.seed + 999).noise(local_bs,
                                                      config.noise_dim)
-        rows = pipeline.denormalize(config, algo.sample(state, noise))
+        rows = pipeline.denormalize(config, mesh_lib.gather_time(
+            algo.sample(state, noise)))
         generated[step * local_bs:(step + 1) * local_bs] = \
             rows.cpu().numpy()
-    suffix = f".{mesh_lib.process_index():03d}" if world > 1 else ""
+    suffix = f".{mesh_lib.data_index():03d}" if world > 1 else ""
     filename = os.path.join(config.output_dir, f"generated.pkl{suffix}")
+    if not mesh_lib.writes_shard():
+        return filename
     with open(filename, "wb") as f:
         pickle.dump({"signals": generated}, f)
     if config.verbose:
@@ -473,24 +495,63 @@ def generate_surrogate_dataset(config, algo, state, device: torch.device,
 # main
 # ---------------------------------------------------------------------------
 
+def layout(config, devices) -> mesh_lib.Mesh:
+    """The layout ``config`` asks of ``devices``, with the JAX trainer's
+    checks (``train.py:408-442``): ``--time_parallelism T`` divides the
+    device count and ``--data_parallelism -1`` takes the rest, else
+    ``--data_parallelism``, ``--model_parallelism`` and ``--dcn_slices``."""
+    time_par = int(getattr(config, "time_parallelism", 1) or 1)
+    if time_par > 1:
+        n_dev = len(devices)
+        if time_par > n_dev or n_dev % time_par:
+            raise ValueError(
+                f"time_parallelism {time_par} must divide the device count "
+                f"({n_dev} device(s) visible)")
+        data_par = config.data_parallelism
+        if data_par in (-1, 0, None):
+            data_par = n_dev // time_par
+        return mesh_lib.create_time_mesh(data_par, time_par, devices)
+    return mesh_lib.create_mesh(config.data_parallelism,
+                                config.model_parallelism, devices,
+                                slices=config.dcn_slices)
+
+
+def build_algorithm(config, device: torch.device):
+    """The models and algorithm of one rank of the current layout: the two
+    sequence-sized Dense layers cut to this rank's shards on a model axis
+    (their names and shard shapes returned), the long-context WGAN-GP on a
+    time axis."""
+    from calciumgan_tpu_torch.parallel import long_context
+    # the weights are drawn whole from the seed on every rank, then cut
+    generator, discriminator = get_models(
+        config, rng=torch.Generator().manual_seed(int(config.seed)),
+        device=device)
+    shards = {}
+    if mesh_lib.model_group() is not None:
+        shards = mesh_lib.shard_models(
+            {"generator": generator, "discriminator": discriminator},
+            config.model, mesh_lib.model_group())
+    if mesh_lib.time_group() is not None:
+        algo = long_context.make_long_context_algorithm(
+            config, generator, discriminator)
+    else:
+        algo = get_algorithm(config, generator, discriminator)
+    return algo, shards
+
+
 def main(config, return_metrics: bool = False, device="cuda",
          mesh: Optional[mesh_lib.Mesh] = None) -> Optional[Dict[str, float]]:
     """End-to-end wiring (reference ``main.py:184-224``): one rank's part of
     a run over ``mesh``, whose ranks are the process group's, or without
     one the whole run on ``device``, whose one-device mesh must hold the
     configured layout."""
-    if int(getattr(config, "time_parallelism", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--time_parallelism is not ported: the port shards the batch "
-            "only")
     if mesh is None:
-        mesh = mesh_lib.create_mesh(
-            config.data_parallelism, config.model_parallelism,
-            [str(torch.device(device))], slices=config.dcn_slices)
-    world, rank = mesh_lib.data_extent(mesh), mesh_lib.process_index()
+        mesh = layout(config, [str(torch.device(device))])
+    world, rank = len(mesh.devices), mesh_lib.process_index()
     if mesh_lib.process_count() != world:
         raise ValueError(f"mesh of {world} ranks in a process group of "
                          f"{mesh_lib.process_count()}")
+    mesh_lib.init_groups(mesh)
     device = resolve_device(mesh.device)
     if rank:
         config.verbose = 0  # rank 0 speaks for the run
@@ -506,15 +567,17 @@ def main(config, return_metrics: bool = False, device="cuda",
     train_ds, validation_ds = pipeline.get_datasets(config)
     config.validate_model_shapes()
 
-    generator, discriminator = get_models(
-        config, rng=torch.Generator().manual_seed(int(config.seed)),
-        device=device)
-    algo = get_algorithm(config, generator, discriminator)
+    algo, shards = build_algorithm(config, device)
+    generator, discriminator = algo.generator, algo.discriminator
     state = algo.init_state()
     if config.verbose:
         print(f"device: {device}" + (f" (rank 0 of {world}: "
                                      f"{', '.join(mesh.devices)})"
                                      if world > 1 else ""))
+        if world > 1:
+            print(f"mesh: {mesh.shape}")
+        for name, shape in shards.items():
+            print(f"model-sharded: {name} {shape} a rank")
         print(f"generator parameters: {count_params(generator):,}")
         print(f"discriminator parameters: {count_params(discriminator):,}")
     if config.verbose >= 2:
@@ -549,23 +612,21 @@ def main(config, return_metrics: bool = False, device="cuda",
 
 def run(config, device="cuda", return_metrics: bool = False, devices=None
         ) -> Optional[Dict[str, float]]:
-    """Train ``config`` over the devices its layout takes
-    (``--data_parallelism``, ``--dcn_slices``) of ``devices`` (default:
-    every visible GPU for a CUDA ``device``, ``data_parallelism x
-    dcn_slices`` host ranks for the CPU): in this process when the layout
-    holds one device, else one rank per device through the launcher, over
-    NCCL for GPUs and gloo for the host. Returns rank 0's metrics (every
-    rank's are the same)."""
+    """Train ``config`` over the devices its layout (:func:`layout`) takes
+    of ``devices`` (default: every visible GPU for a CUDA ``device``, as
+    many host ranks as the layout's axes multiply to for the CPU): in this
+    process when the layout holds one device, else one rank per device
+    through the launcher, over NCCL for GPUs and gloo for the host.
+    Returns rank 0's metrics (every rank's are the same)."""
     resolve_device(device)  # a CUDA device without a card raises
     if devices is None:
         devices = mesh_lib.visible_devices(device, host_ranks=max(
-            1, config.data_parallelism) * max(1, config.dcn_slices))
-    layout = mesh_lib.create_mesh(config.data_parallelism,
-                                  config.model_parallelism, devices,
-                                  slices=config.dcn_slices)
-    if mesh_lib.data_extent(layout) == 1:
-        return main(config, return_metrics, mesh=layout)
-    backend = "nccl" if layout.device.type == "cuda" else "gloo"
-    return launch_lib.launch(main, layout.devices, backend,
-                             args=(config, return_metrics, device,
-                                   layout))[0]
+            1, config.data_parallelism) * max(1, config.dcn_slices)
+            * max(1, config.model_parallelism)
+            * max(1, int(config.time_parallelism or 1)))
+    mesh = layout(config, devices)
+    if len(mesh.devices) == 1:
+        return main(config, return_metrics, mesh=mesh)
+    backend = "nccl" if mesh.device.type == "cuda" else "gloo"
+    return launch_lib.launch(main, mesh.devices, backend,
+                             args=(config, return_metrics, device, mesh))[0]

@@ -8,7 +8,10 @@ and update counts, the generator EMA) with ``torch.save`` to
 ``latest.json``, each atomically (tmp + ``os.replace``), as the JAX package
 writes ``epoch-NNN.msgpack`` (``checkpoint.py:33-62``). :func:`resume`
 continues from the newest ``.pt`` (``start_epoch = epoch + 1``, the stored
-``global_step``), reconciling the EMA as ``_reconcile_ema`` does.
+``global_step``), reconciling the EMA as ``_reconcile_ema`` does. A
+model-parallel run's sharded parameters (their Adam moments and EMA too)
+are gathered into whole tensors before rank 0 writes, so the file is a
+one-process run's, and each rank keeps its block on restore.
 
 The JAX package's msgpack is decoded with ``msgpack`` alone (no Flax):
 arrays are msgpack ext type 1 (``npscalar`` 3) holding a packed ``(shape,
@@ -75,23 +78,52 @@ def _write_atomic(path: str, write) -> None:
     os.replace(tmp, path)  # a preempted save never corrupts a resume
 
 
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _reshard(net, params: dict, opt_state: dict, ema, fn) -> None:
+    """``fn(tensor, dim, group)`` in place of each model-sharded tensor of
+    ``net``'s ``params``, of its Adam moments in ``opt_state`` (keyed by
+    parameter order) and of ``ema`` (the generator's, or None)."""
+    shards = mesh_lib.sharded_parameters(net.module)
+    names = [n for n, _ in net.module.named_parameters()]
+    for i, name in enumerate(names):
+        if name not in shards:
+            continue
+        dim, group = shards[name]
+        params[name] = fn(params[name], dim, group)
+        moments = opt_state["state"].get(i)
+        if moments is not None:  # a copy: the optimizer's own dictionary
+            opt_state["state"][i] = dict(moments, **{
+                k: fn(moments[k], dim, group) for k in _MOMENTS})
+        if ema is not None and name in ema:
+            ema[name] = fn(ema[name], dim, group)
+
+
 def save(ckpt_dir: str, epoch: int, state: GANState, config=None,
          verbose: int = 1) -> str:
     """Write the whole train state of ``epoch`` to ``epoch-NNN.pt`` and
-    ``latest.json``. In a data-parallel run rank 0 is the one writer: every
-    rank holds the same state (``checkpoint.py:37-43``), and every rank
-    restores it."""
+    ``latest.json``. In a parallel run every rank calls it: model-sharded
+    tensors are gathered first, then rank 0 is the one writer (every other
+    tensor is the same on every rank, ``checkpoint.py:37-43``), and every
+    rank restores it."""
     path = port_checkpoint_path(ckpt_dir, epoch)
-    if mesh_lib.process_index() != 0:
-        return path
-    os.makedirs(ckpt_dir, exist_ok=True)
     global_step = None if config is None else int(config.global_step)
-    payload = {"epoch": epoch, "global_step": global_step, "ema": state.ema}
+    ema = None if state.ema is None else dict(state.ema)
+    payload = {"epoch": epoch, "global_step": global_step, "ema": ema}
     for name in ("generator", "discriminator"):
         net = getattr(state, name)
         payload[name] = {"params": net.module.state_dict(),
                          "opt_state": net.optimizer.state_dict(),
                          "step": net.step}
+        opt_state = payload[name]["opt_state"]
+        opt_state["state"] = dict(opt_state["state"])
+        _reshard(net, payload[name]["params"], opt_state,
+                 ema if name == "generator" else None,
+                 mesh_lib.gather_shard)
+    if mesh_lib.process_index() != 0:
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     _write_atomic(path, lambda tmp: torch.save(payload, tmp))
     meta = {"epoch": epoch}
     if global_step is not None:
@@ -139,6 +171,9 @@ def restore(ckpt_dir: str, state: GANState, epoch: Optional[int] = None,
     stored = torch.load(path, map_location=device, weights_only=True)
     for name in ("generator", "discriminator"):
         net, saved = getattr(state, name), stored[name]
+        _reshard(net, saved["params"], saved["opt_state"],
+                 stored["ema"] if name == "generator" else None,
+                 mesh_lib.shard_of)
         net.module.load_state_dict(saved["params"])
         net.optimizer.load_state_dict(saved["opt_state"])
         net.step = int(saved["step"])

@@ -10,10 +10,13 @@ metrics CLI follows. The files are ``.h5`` where ``h5py`` is installed and
 ``config.validation_cache`` record the names, so a reader needs no rule of
 its own.
 
-In a data-parallel run each rank appends its rows to its own shard,
-``epoch{E:03d}_signals<suffix>.RRR``, and rank 0 alone keeps ``info.pkl``
-(which names rank 0's shard, as the JAX package's does) and the validation
-cache (of rank 0's share of the records), ``io.py:26-48``.
+In a data-parallel run each data index appends its rows to its own shard,
+``epoch{E:03d}_signals<suffix>.RRR``, written by the first of its model or
+time peers (which hold the same rows; a time-parallel run hands in whole
+sequences, gathered from the time peers), and rank 0 alone keeps
+``info.pkl`` (which names rank 0's shard, as the JAX package's does) and
+the validation cache (of rank 0's share of the records),
+``io.py:26-48``.
 """
 
 from __future__ import annotations
@@ -41,12 +44,14 @@ def save_fake_signals(config, epoch: int, signals, append: bool = True) -> str:
     re-validates an already-saved epoch must replace the file, since
     ``h5.write`` appends to existing datasets, which would silently double
     every row."""
-    shard = (f".{mesh_lib.process_index():03d}"
-             if mesh_lib.process_count() > 1 else "")
+    shard = (f".{mesh_lib.data_index():03d}"
+             if mesh_lib.data_extent() > 1 else "")
     filename = os.path.join(
         config.generated_dir,
         f"epoch{epoch:03d}_signals{h5.default_suffix(config.verbose)}"
         f"{shard}")
+    if not mesh_lib.writes_shard():
+        return filename
     if not append:
         h5.remove(filename)
     h5.write(filename, {"signals": _recording_units(config, signals)})

@@ -2,13 +2,15 @@
 """Drive the PyTorch/CUDA port's serving path, whole-recording spike
 inference, dataset preparation, training, evaluation, the DG experiments,
 the conv2d model, BatchNorm, the in-graph ``deconvolve_signals``, the
-sweep and data-parallel training once on one NVIDIA GPU.
+sweep and data-, model- and time-parallel training once on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 14   # phases 1 and 14 alone
+    python3 chip_smoke.py --phase 15   # phases 1 and 15 alone
+    python3 chip_smoke.py --phase 15-nccl  # phases 1 and 15 (c) alone
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs fourteen phases, printing one line of findings per phase.
+``nvcc`` and runs fifteen phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
@@ -42,7 +44,10 @@ every (machine, storage) pair the plan can choose is compared:
    edge cases; the precise mode's public entry
    with its own launch count (no production path runs that mode); the
    dispatch's long route against
-   the float64 golden (256 rows) and the C++ float64 kernel (all rows);
+   the float64 golden (256 rows) and the C++ float64 kernel (all rows)
+   (every time taken first; the long kernel's comparisons with its plain
+   version, minutes at these frames, then run in two spawned processes
+   while the host makes the float64 checks);
    ``python -m calciumgan_tpu_torch.dataset.spike_train_inference
    --device cuda`` in-process on four 102 x 20,000 pickles, with its
    launch counts, against the dispatch and the golden; the timings, beside
@@ -178,7 +183,34 @@ every (machine, storage) pair the plan can choose is compared:
    group and on every GPU over NCCL, launched in the order 1, P, P, 1,
    each launch timing ``DP_SCALING_WINDOWS`` windows of
    ``DP_SCALING_STEPS`` steps after ``DP_SCALING_WARMUP``: the median
-   steps/s of each, their spread and the speed-up).
+   steps/s of each, their spread and the speed-up);
+15. model and time parallelism on one card, two gloo ranks on ``cuda:0``
+   each: (a) ``main --model_parallelism 2 --save_generated last`` at the
+   flagship recipe on phase 6's records for 2 epochs: the two
+   sequence-sized Dense layers' shards (the critic head's 10,240 input
+   rows and the generator projection's 1024 output columns a rank), the
+   flagship step at learning rate 0 against the one-process step in
+   float32 and bfloat16, the whole state equal bit for bit on both ranks,
+   one writer, a checkpoint of whole tensors that ``generate.generate``
+   serves, ``oasis_ar1/shared`` in rank 0's sampling epochs only, held to
+   its plain version on the last sampled traces, their spikes against the
+   float64 golden; (b) ``main --time_parallelism 2 --save_generated
+   last`` on 32 + 16 seeded windows of 102 x 16,384 frames at batch 16:
+   the step at m 0 against the one-process standard step at 16,384 frames
+   (float32 losses and gradients), 2 epochs at m 10 whose epoch file holds
+   whole 16,384-frame rows, ``oasis_ar1_long_precise`` in rank 0's
+   sampling epochs (depth 384 with shared-memory rings, deeper rungs with
+   device-memory rings where a batch climbs), timed and held to its plain
+   version at every rung the dispatch climbs on the last 102 x 16,384
+   sampled traces, their spikes against the golden (the comparisons in
+   spawned processes, one a rung, since the plain version takes one to
+   two minutes a rung at these frames: on one GPU they run beside phase
+   14 and (a), whose lines say so; on several, they end before phase 14).
+   (c) On a machine of four GPUs or more (``--phase 15-nccl`` runs (c)
+   alone), data 2 x model 2, time 4 and data 2 x time 2 over NCCL, one
+   launch each: the step against the one process, then the step loop
+   with every rank's peak memory against one GPU, a line each as it ends;
+   then the model-parallel run over NCCL, then the one-GPU loop again.
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
@@ -324,6 +356,22 @@ SWEEP_EPOCHS = 2
 # phase 14: two gloo ranks on one card, the flagship batch split between them
 DP_RANKS, DP_BATCH, DP_EPOCHS = 2, 128, 2
 DP_TIMEOUT_S = 300
+# phase 15: model and time parallelism, two gloo ranks on one card each:
+# the flagship recipe with its two sequence-sized Dense layers sharded
+# (MP_SHARDS a rank, in the port's (out, in) layout), and the same widths
+# on 32 + 16 seeded windows of 16,384 frames at batch 16 (16 x 16,384
+# frames a step, as many as the recipe's 128 x 2048; w0 512, a deepest
+# shard of 256 frames at 4 time ranks), their frames split between ranks;
+# 32 training rows, not 64, keep the script's time
+MP_RANKS = TP_RANKS = 2
+LC_T, LC_TRAIN_ROWS, LC_VAL_ROWS, LC_BATCH = 16384, 32, 16, 16
+PAR_EPOCHS, PAR_TIMEOUT_S = 2, 600
+MP_SHARDS = {"generator/dense_0.weight": (1024, 32),
+             "generator/dense_0.bias": (1024,),
+             "discriminator/dense.weight": (1, 10240)}
+# phase 15 on four GPUs: the step loop's steps a timed window, windows a
+# launch, and untimed steps before them
+PAR_LOOP_STEPS, PAR_LOOP_WINDOWS, PAR_LOOP_WARMUP = 15, 3, 3
 # phase 14 on several GPUs: steps a timed window, windows a launch, and
 # untimed steps before them
 DP_SCALING_STEPS, DP_SCALING_WINDOWS, DP_SCALING_WARMUP = 50, 4, 10
@@ -748,10 +796,36 @@ def phase_timings(config, variables, smi):
                 max_abs_err=generated["max_abs_err"], **bound(B, T, False))
 
 
+def _held_long(traces, prod: dict, variant: str, what: str) -> dict:
+    """:func:`compare_kernel` of the long entry on host ``traces`` uploaded
+    in this process, with ``prod``'s arguments, checked equal bit for bit
+    and launched as ``variant``: the findings. The plain version launches a
+    few hundred small kernels a frame, minutes at tens of thousands of
+    frames, so the script runs this in spawned processes beside its host
+    work."""
+    import numpy as np
+    import torch
+    y = torch.from_numpy(np.ascontiguousarray(traces, np.float32)).cuda()
+    found = compare_kernel(y, long=True, **prod)
+    check_equal(found, what)
+    check_variant(found, variant, what)
+    return found
+
+
+def _spawned_pool(workers: int):
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+
+
 def phase_recordings(smi):
     """Whole recordings: the long kernel and the precise machine against
     their plain versions, the dispatch's long route against the float64
-    references, and the spike-inference CLI on seeded pickles."""
+    references, and the spike-inference CLI on seeded pickles. Every time
+    is taken first; then the long kernel's comparisons with its plain
+    version run in two spawned processes while this one checks the
+    dispatch and the CLI against the float64 references."""
     import pickle
     import tempfile
 
@@ -770,22 +844,9 @@ def phase_recordings(smi):
                 merge_attempts=dispatch._MERGE_BUDGET, precise=True,
                 flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD, precise=True))
 
-    # 1. the long kernel vs its plain version, production arguments
-    long_main = compare_kernel(y, long=True, **prod)
-    check_equal(long_main, "long kernel, depth 512")
-    check_variant(long_main, "oasis_ar1_long_precise/shared",
-                  "long kernel, depth 512")
+    # 1. the long kernel's times, production arguments (its comparisons
+    # with its plain version run in spawned processes below)
     long_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(y, **prod), reps=3)
-    # the ladder's deeper rungs keep their rings in device memory
-    deep = torch.from_numpy(golden.synth_ar1_traces(
-        np.random.default_rng(SEED + 7), DEVICE_RING_TRACES,
-        DEVICE_RING_T)).to(dev)
-    device_rungs = {}
-    for d in ladder[1:]:
-        device_rungs[d] = compare_kernel(deep, long=True, **dict(prod, depth=d))
-        check_equal(device_rungs[d], f"long kernel, depth {d}")
-        check_variant(device_rungs[d], "oasis_ar1_long_precise/device",
-                      f"long kernel, depth {d}")
     device_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(
         y, **dict(prod, depth=ladder[1])), reps=1)
 
@@ -856,15 +917,6 @@ def phase_recordings(smi):
         torch.from_numpy(host).to(dev))
     dispatch_s = time.perf_counter() - start
     check(np.array_equal(spikes, spikes_again), "dispatch not repeatable")
-    pick = np.sort(np.random.default_rng(SEED).choice(
-        REC_TRACES, REC_GOLDEN_TRACES, replace=False))
-    golden_ref = golden_spikes(host[pick])
-    vs_golden = int((spikes[pick] != golden_ref).sum())
-    check(vs_golden == 0,
-          f"long dispatch: {vs_golden} mismatches vs oasis_ref")
-    exact = dispatch._exact_spikes_host(host, G, S_MIN, THRESHOLD)
-    vs_cxx = int((spikes != exact).sum())
-    check(vs_cxx == 0, f"long dispatch: {vs_cxx} mismatches vs the C++ redo")
     _, _, redo = oasis_cuda.oasis_ar1_long(y, **prod)
     flagged = np.nonzero(redo.cpu().numpy())[0]
     start = time.perf_counter()
@@ -891,6 +943,34 @@ def phase_recordings(smi):
               f"the shared-memory long kernel was not launched: "
               f"{cli_launches}")
         check(cli_calls == 0, f"the plain OASIS version ran {cli_calls} times")
+        one = torch.from_numpy(recordings[0]).to(dev)  # one recording
+        cli_kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(one, **prod),
+                                reps=3)
+
+        # the long kernel against its plain version at depth 512 (shared
+        # rings) and at the ladder's deeper rungs (device rings) on 256 x
+        # 8192, in spawned processes, while this one checks the dispatch
+        # and the CLI against the float64 references
+        pool = _spawned_pool(2)
+        held = pool.submit(_held_long, host, prod,
+                           "oasis_ar1_long_precise/shared",
+                           "long kernel, depth 512")
+        deep = golden.synth_ar1_traces(np.random.default_rng(SEED + 7),
+                                       DEVICE_RING_TRACES, DEVICE_RING_T)
+        held_rungs = {d: pool.submit(_held_long, deep, dict(prod, depth=d),
+                                     "oasis_ar1_long_precise/device",
+                                     f"long kernel, depth {d}")
+                      for d in ladder[1:]}
+        pick = np.sort(np.random.default_rng(SEED).choice(
+            REC_TRACES, REC_GOLDEN_TRACES, replace=False))
+        golden_ref = golden_spikes(host[pick])
+        vs_golden = int((spikes[pick] != golden_ref).sum())
+        check(vs_golden == 0,
+              f"long dispatch: {vs_golden} mismatches vs oasis_ref")
+        exact = dispatch._exact_spikes_host(host, G, S_MIN, THRESHOLD)
+        vs_cxx = int((spikes != exact).sum())
+        check(vs_cxx == 0,
+              f"long dispatch: {vs_cxx} mismatches vs the C++ redo")
         cli_golden = 0
         for i, sig in enumerate(recordings):
             with open(os.path.join(tmp, f"rec{i}.pkl"), "rb") as f:
@@ -909,13 +989,15 @@ def phase_recordings(smi):
         check(cli_golden == 0, f"CLI: {cli_golden} mismatches vs oasis_ref")
         with open(os.path.join(tmp, "rec0.pkl"), "rb") as f:
             recording = pickle.load(f)  # with its oasis key, for phase 7
-        one = torch.from_numpy(recordings[0]).to(dev)  # one recording
-        cli_kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(one, **prod),
-                                reps=3)
         cli.main(["--input_dir", tmp, "--device", "cuda", "--clean"])
         for i in range(CLI_FILES):
             with open(os.path.join(tmp, f"rec{i}.pkl"), "rb") as f:
                 check("oasis" not in pickle.load(f), "--clean kept oasis")
+    try:
+        long_main = held.result()
+        device_rungs = {d: f.result() for d, f in held_rungs.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
     torch.cuda.synchronize()
 
     report("phase 5 recordings", card=smi, shape=[REC_TRACES, REC_T],
@@ -952,7 +1034,7 @@ def phase_recordings(smi):
     precise_err = max(precise_main["max_abs_err"],
                       band["resolved"]["max_abs_err"])
     return dict(
-        recording=recording,
+        recording=recording, long_counts=cli_launches,
         precise=dict(**path_launches("oasis_ar1_precise", precise_launches),
                      path=f"oasis_cuda.oasis_ar1(precise=True), "
                           f"{KERNEL_TRACES} x {T}",
@@ -999,39 +1081,41 @@ class FixedDraws:
         return torch.from_numpy(keep).to(self.device)
 
 
-def write_training_set(root):
+def write_training_set(root, train_rows=TRAIN_ROWS, val_rows=VAL_ROWS,
+                       frames=T, seed=SEED + 11):
     """A flagship-shaped TFRecord dataset written by the port's writer:
-    ``TRAIN_ROWS`` + ``VAL_ROWS`` rows of T x 102 seeded synthetic calcium
-    (``golden.synth_ar1_traces``), min-max normalised, with float32 OASIS
-    spikes by the port's C++ float64 kernel, and its ``info.pkl``."""
+    ``train_rows`` + ``val_rows`` rows of ``frames`` x 102 seeded synthetic
+    calcium (``golden.synth_ar1_traces``), min-max normalised, with float32
+    OASIS spikes by the port's C++ float64 kernel, and its ``info.pkl``."""
     import pickle
 
     import numpy as np
     from calciumgan_tpu_torch.data import tfrecord
     from calciumgan_tpu_torch.ops import golden
     from calciumgan_tpu_torch.ops import oasis as dispatch
-    rows, C = TRAIN_ROWS + VAL_ROWS, 102
-    traces = golden.synth_ar1_traces(np.random.default_rng(SEED + 11),
-                                     rows * C, T)
+    rows, C = train_rows + val_rows, 102
+    traces = golden.synth_ar1_traces(np.random.default_rng(seed),
+                                     rows * C, frames)
     spikes = dispatch._exact_spikes_host(traces, G, S_MIN, THRESHOLD)
     lo, hi = float(traces.min()), float(traces.max())
     signals = np.ascontiguousarray(
-        ((traces - lo) / (hi - lo)).reshape(rows, C, T).transpose(0, 2, 1))
-    spikes = np.ascontiguousarray(spikes.reshape(rows, C, T).transpose(
+        ((traces - lo) / (hi - lo)).reshape(rows, C, frames).transpose(0, 2, 1))
+    spikes = np.ascontiguousarray(spikes.reshape(rows, C, frames).transpose(
         0, 2, 1).astype(np.float32))
     os.makedirs(root, exist_ok=True)
-    shards = {"train": np.array_split(np.arange(TRAIN_ROWS), 4),
-              "validation": [np.arange(TRAIN_ROWS, rows)]}
+    shards = {"train": np.array_split(np.arange(train_rows), 4),
+              "validation": [np.arange(train_rows, rows)]}
     for split, parts in shards.items():
         for i, idx in enumerate(parts):
             tfrecord.write_signal_records(os.path.join(
                 root, f"{split}-{i + 1:03d}-of-{len(parts):03d}.record"),
                 signals, spikes, idx)
-    info = {"train_size": TRAIN_ROWS, "validation_size": VAL_ROWS,
-            "signal_shape": (T, C), "spike_shape": (T, C),
-            "sequence_length": T, "num_neurons": C, "num_channels": C,
+    info = {"train_size": train_rows, "validation_size": val_rows,
+            "signal_shape": (frames, C), "spike_shape": (frames, C),
+            "sequence_length": frames, "num_neurons": C, "num_channels": C,
             "num_train_shards": 4, "num_validation_shards": 1,
-            "buffer_size": TRAIN_ROWS // 4, "normalize": True, "stride": T,
+            "buffer_size": train_rows // 4, "normalize": True,
+            "stride": frames,
             "fft": False, "conv2d": False, "fft_norm": "global",
             "signals_min": lo, "signals_max": hi}
     with open(os.path.join(root, "info.pkl"), "wb") as f:
@@ -2430,10 +2514,11 @@ def conv2d_config(frames=T, **kw):
         mixed_precision=True, seed=SEED), **kw))
 
 
-def rungs_climbed(traces) -> int:
-    """The launches the dispatch makes on host ``traces`` (N, T) on the
-    card: the rungs of the depth ladder their batch climbs, as on the path
-    that deconvolved them (the climb depends on the traces alone)."""
+def rungs_climbed(traces, machine: str = "oasis_ar1") -> int:
+    """The launches of ``machine`` the dispatch makes on host ``traces``
+    (N, T) on the card: the rungs of the depth ladder their batch climbs,
+    as on the path that deconvolved them (the climb depends on the traces
+    alone; ``oasis_ar1_long_precise`` for T > 4096)."""
     import numpy as np
     import torch
     from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
@@ -2441,7 +2526,7 @@ def rungs_climbed(traces) -> int:
     before = collections.Counter(oasis_cuda.launches)
     deconvolve_traces(torch.from_numpy(np.ascontiguousarray(
         traces, np.float32)).cuda())
-    return launched("oasis_ar1", oasis_cuda.launches - before)
+    return launched(machine, oasis_cuda.launches - before)
 
 
 def file_spikes_vs_references(filename, what: str) -> dict:
@@ -3305,17 +3390,19 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _step_vs_one_process(one, ranks) -> dict:
+def _step_vs_one_process(one, ranks, precisions=("f32", "bf16")) -> dict:
     """The ranks' flagship step (rank 0's moments) against the one-process
     step on the same draws, held to phase 6's card-vs-CPU bounds: the logs
-    and each net's largest gradient difference over its largest moment."""
+    and each net's largest gradient difference over its largest moment, in
+    each of ``precisions``."""
     import numpy as np
+    bounds = {"f32": (STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL,
+                      STEP_F32_GRAD_TOL),
+              "bf16": (STEP_BF16_LOSS_RTOL, STEP_BF16_LOSS_ATOL,
+                       STEP_BF16_GRAD_TOL)}
     step = {}
-    for name, (rtol, atol, grad_tol) in (
-            ("f32", (STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL,
-                     STEP_F32_GRAD_TOL)),
-            ("bf16", (STEP_BF16_LOSS_RTOL, STEP_BF16_LOSS_ATOL,
-                      STEP_BF16_GRAD_TOL))):
+    for name in precisions:
+        rtol, atol, grad_tol = bounds[name]
         ref, got = one[name], ranks[0]["steps"][name]
         loss_err = {k: abs(got["logs"][k] - v) for k, v in
                     ref["logs"].items()}
@@ -3409,7 +3496,8 @@ def _dp_launch(records, run, devices, backend, real) -> tuple:
         steps_per_s_rank0=[steps / s for s in first["epoch_s"]])
 
 
-def phase_data_parallel(smi, work, records, signals, one_process):
+def phase_data_parallel(smi, work, records, signals, one_process,
+                        beside="none"):
     """Data parallelism: (a) two ranks on ``cuda:0`` over gloo (NCCL puts
     no two ranks on one GPU) through the library's launcher: the flagship
     step at the global batch 128 against the one-process step on the same
@@ -3420,7 +3508,8 @@ def phase_data_parallel(smi, work, records, signals, one_process):
     ``--distributed`` in a ``torchrun`` environment of ``WORLD_SIZE=1``
     over NCCL for 1 epoch, its collective calls counted; (c) on one GPU,
     ``--data_parallelism 2 --device cuda`` refused; on several, the same
-    run over NCCL on every GPU and on one, for the steps/s of each."""
+    run over NCCL on every GPU and on one, for the steps/s of each.
+    ``beside`` says what else ran on ``cuda:0`` meanwhile."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3509,15 +3598,529 @@ def phase_data_parallel(smi, work, records, signals, one_process):
                                  sampling_launches=nccl_launches),
            refused_on_one_gpu=refused or f"not run: {count} GPUs",
            nccl_by_world={str(w): v for w, v in gpus.items()},
-           step_loop_scaling=scaling)
+           step_loop_scaling=scaling,
+           timed_beside_the_plain_versions=beside)
     return dict(launches=gloo["sampling_launches_rank0"],
                 nccl_launches=nccl_launches)
 
 
-def main(argv) -> int:
+# ---------------------------------------------------------------------------
+# phase 15: model and time parallelism
+# ---------------------------------------------------------------------------
+
+def _layout_steps(real, dev, frames: int, m: int, precisions):
+    """One flagship-width WGAN-GP step at learning rate 0 on ``frames``-
+    frame sequences with phase shuffle ``m``, in each of ``precisions``
+    (``"f32"``: TF32 off, ``"bf16"``), in this process's place on the
+    layout its groups hold (without groups, the one-process step): its rows
+    and frames of the global batch ``real``, its data index's share of
+    ``Draws(SEED, 0)``. The logs, the step's collective calls and bytes
+    and, on rank 0, Adam's first moments (model shards gathered whole);
+    the shard shapes."""
+    import dataclasses
+
+    import numpy as np
     import torch
-    if argv not in ([], ["--phase", "14"]):
-        print("usage: chip_smoke.py [--phase 14]", file=sys.stderr)
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.algorithms.gan import Draws, shard_draws
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    di, de = mesh_lib.data_index(), mesh_lib.data_extent()
+    local = torch.from_numpy(np.ascontiguousarray(mesh_lib.time_frames(
+        mesh_lib.rows_of(real, di, de)))).to(dev)
+    found, shards = {}, {}
+    for name in precisions:
+        cfg = dataclasses.replace(
+            flagship_config(), mixed_precision=name == "bf16",
+            batch_size=len(real), learning_rate=0.0, m=m,
+            sequence_length=frames, signal_shape=(frames, 102))
+        algo, shards = train.build_algorithm(cfg, dev)
+        state = algo.init_state()
+        mesh_lib.collectives.clear()
+        mesh_lib.collective_bytes.clear()
+        logs = algo.train_step(state, local, shard_draws(
+            Draws(SEED, 0, dev), di, de, len(local)))
+        counted = dict(calls=dict(mesh_lib.collectives),
+                       bytes=dict(mesh_lib.collective_bytes))
+        moments = {}
+        for net in ("generator", "discriminator"):
+            ns = getattr(state, net)
+            cut = mesh_lib.sharded_parameters(ns.module)
+            moments[net] = []
+            for n, p in ns.module.named_parameters():
+                moment = ns.optimizer.state[p]["exp_avg"]
+                if n in cut:
+                    moment = mesh_lib.gather_shard(moment, *cut[n])
+                moments[net].append(moment.cpu().numpy())
+        found[name] = dict(logs={k: float(v) for k, v in logs.items()},
+                           collectives_a_step=counted,
+                           moments=moments if mesh_lib.process_index() == 0
+                           else None)
+        del algo, state
+    torch.cuda.empty_cache()
+    return found, shards
+
+
+def _whole_digest(state) -> str:
+    """sha256 of a state's parameters, buffers and Adam moments, model
+    shards gathered whole (a collective on every model peer)."""
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    digest = hashlib.sha256()
+    for net in (state.generator, state.discriminator):
+        cut = mesh_lib.sharded_parameters(net.module)
+        for n, p in net.module.named_parameters():
+            for t in (p, *(net.optimizer.state[p][k]
+                           for k in ("exp_avg", "exp_avg_sq"))):
+                if n in cut:
+                    t = mesh_lib.gather_shard(t, *cut[n])
+                digest.update(t.detach().cpu().numpy().tobytes())
+        for b in net.module.buffers():
+            digest.update(b.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _par_rank(config, layout, real, frames: int, m: int):
+    """One of phase 15's ranks: the step at learning rate 0
+    (:func:`_layout_steps`; float32 alone on a time axis), then
+    ``train.main`` over ``layout`` with its sampling epochs' OASIS
+    launches, sampled traces, epoch seconds, collective calls, peak device
+    memory and the digest of its whole state."""
+    import torch
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.init_groups(layout)
+    precisions = ("f32",) if layout.time_parallelism > 1 else ("f32", "bf16")
+    steps, shards = _layout_steps(real, layout.device, frames, m, precisions)
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    mesh_lib.collectives.clear()
+    torch.cuda.reset_peak_memory_stats(layout.device)
+    with Spy(train, "sample_and_plot", "train_epoch", "test") as spy:
+        metrics = train.main(config, return_metrics=True, mesh=layout)
+    torch.cuda.synchronize()
+    return dict(rank=mesh_lib.process_index(), steps=steps, shards=shards,
+                metrics=metrics, launches=dict(oasis_cuda.launches),
+                plain_calls=oasis_torch.calls,
+                collectives=dict(mesh_lib.collectives),
+                peak_bytes=torch.cuda.max_memory_allocated(layout.device),
+                digest=_whole_digest(spy.calls["test"][0]["args"][3]),
+                samples=[c["out"] for c in spy.calls["sample_and_plot"]],
+                epoch_s=[c["s"] for c in spy.calls["train_epoch"]])
+
+
+def _par_launch(records, run, layout, backend, real, frames: int, m: int,
+                kernel: str, rows: tuple, *flags) -> tuple:
+    """``main`` with ``flags`` for ``PAR_EPOCHS`` epochs at the flagship
+    recipe on ``records`` of ``rows`` (train, validation) rows of
+    ``frames`` frames, one rank per device of ``layout`` over ``backend``,
+    after each rank's step (:func:`_par_rank`); checked: every rank's
+    whole state equal bit for bit, equal test metrics, one writer, a shard
+    a data index whose rows make the validation set in whole
+    ``frames``-frame rows, OASIS (``kernel``, the sampling epochs'
+    machine) in rank 0's sampling epochs only. The ranks' results (rank
+    0's sampled traces and spikes among them) and the findings."""
+    import glob
+
+    import numpy as np
+    from calciumgan_tpu_torch import main as train_main
+    from calciumgan_tpu_torch.parallel import launch as launch_lib
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    from calciumgan_tpu_torch.utils import h5
+    config, _ = train_main.parse_args(train_flags(records, run, PAR_EPOCHS,
+                                                  *flags))
+    start = time.perf_counter()
+    ranks = launch_lib.launch(_par_rank, layout.devices, backend,
+                              args=(config, layout, real, frames, m),
+                              timeout=PAR_TIMEOUT_S)
+    launch_s = time.perf_counter() - start
+    first, what = ranks[0], f"{backend} ranks of {layout.shape}"
+    check(len({r["digest"] for r in ranks}) == 1,
+          f"{what}: whole parameters, statistics or moments differ")
+    check(all(np.isfinite(list(r["metrics"].values())).all()
+              and r["metrics"] == first["metrics"] for r in ranks),
+          f"{what}: test metrics {[r['metrics'] for r in ranks]}")
+    events = sorted(os.path.relpath(p, run) for p in glob.glob(
+        os.path.join(run, "**", "events.out.tfevents.*"), recursive=True))
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+    check(len(glob.glob(os.path.join(run, "hparams.json*"))) == 1
+          and len(events) == 2 and ckpts == [
+              f"epoch-{e:03d}.pt" for e in range(PAR_EPOCHS)] + [
+              "latest.json"], f"{what}'s writers: events {events}, "
+                              f"checkpoints {ckpts}")
+    last = f"epoch{PAR_EPOCHS - 1:03d}_signals{h5.default_suffix(False)}"
+    shards = sorted(n for n in os.listdir(os.path.join(run, "generated"))
+                    if n.startswith(last))
+    shapes = [h5.get_shape(os.path.join(run, "generated", n), "signals")
+              for n in shards]
+    data = mesh_lib.data_extent(layout)
+    named = [f"{last}.{r:03d}" for r in range(data)] if data > 1 else [last]
+    check(shards == named and sum(s[0] for s in shapes) == rows[1]
+          and all(tuple(s[1:]) == (frames, 102) for s in shapes),
+          f"{what}: epoch files {shards}: {shapes}")
+    # a batch whose flagged share is large climbs the ladder: the deeper
+    # rungs of the long one keep their rings in device memory
+    check(f"{kernel}/shared" in first["launches"]
+          and set(first["launches"]) <= {f"{kernel}/shared",
+                                         f"{kernel}/device"}
+          and first["plain_calls"] == 0
+          and all(not r["launches"] and all(o is None for o in r["samples"])
+                  for r in ranks[1:]),
+          f"{what}: sampling launches by rank "
+          f"{[(r['launches'], r['plain_calls']) for r in ranks]}")
+    steps = rows[0] // int(config.batch_size)
+    return ranks, dict(
+        devices=list(layout.devices), backend=backend, layout=layout.shape,
+        launch_s=launch_s, replicas_equal=True, metrics=first["metrics"],
+        events=events, checkpoints=ckpts,
+        epoch_files={n: list(s) for n, s in zip(shards, shapes)},
+        shards_rank0=first["shards"], collectives_rank0=first["collectives"],
+        step_collectives_rank0={name: found["collectives_a_step"]
+                                for name, found in first["steps"].items()},
+        peak_gb_by_rank=[r["peak_bytes"] / 2**30 for r in ranks],
+        sampling_launches_rank0=first["launches"],
+        epoch_s_rank0=first["epoch_s"],
+        steps_per_s_rank0=[steps / s for s in first["epoch_s"]])
+
+
+def long_rungs(traces) -> dict:
+    """Each rung of the long ladder that the dispatch climbs on host
+    ``traces`` (N, T > 4096), as on the path that deconvolved them (every
+    rung takes every trace): by depth, the dispatch's production
+    arguments, the launch counter's key (rings in shared memory at the
+    first rung, in device memory deeper), the kernel's time by CUDA events
+    on a card that runs nothing else, and its bound."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.ops import oasis_cuda
+    y = torch.from_numpy(np.ascontiguousarray(traces, np.float32)).cuda()
+    climbed = rungs_climbed(traces, "oasis_ar1_long_precise")
+    found = {}
+    for depth in dispatch._long_ladder(y.shape[-1])[:climbed]:
+        prod = dict(g=G, lam=0.0, s_min=S_MIN, depth=depth,
+                    merge_attempts=dispatch._MERGE_BUDGET, precise=True,
+                    flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD,
+                                                precise=True))
+        storage = oasis_cuda.launch_plan(depth, True).storage
+        found[depth] = dict(
+            prod=prod, variant=f"oasis_ar1_long_precise/{storage}",
+            kernel_ms=cuda_ms(lambda: oasis_cuda.oasis_ar1_long(y, **prod),
+                              reps=3), **bound(*y.shape, True))
+    check(len(found) == climbed, f"long ladder: {climbed} launches on "
+                                 f"{dispatch._long_ladder(y.shape[-1])}")
+    return found
+
+
+def _par_step_loop(dev, real, frames: int, m: int) -> dict:
+    """Steps/s of the recipe's step (bfloat16) on ``frames``-frame
+    sequences, this process's rows and frames of ``real`` on the layout its
+    groups hold (none: one GPU), each step's draws its data index's share
+    of ``Draws(SEED, step)``: one rate per timed window, and the peak
+    device memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.algorithms.gan import Draws, shard_draws
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = dataclasses.replace(flagship_config(), batch_size=len(real), m=m,
+                              sequence_length=frames,
+                              signal_shape=(frames, 102))
+    algo, _ = train.build_algorithm(cfg, dev)
+    state = algo.init_state()
+    di, de = mesh_lib.data_index(), mesh_lib.data_extent()
+    local = torch.from_numpy(np.ascontiguousarray(mesh_lib.time_frames(
+        mesh_lib.rows_of(real, di, de)))).to(dev)
+    counter = 0
+
+    def steps(n: int) -> None:
+        nonlocal counter
+        for _ in range(n):
+            algo.train_step(state, local, shard_draws(
+                Draws(SEED, counter, dev), di, de, len(local)))
+            counter += 1
+        torch.cuda.synchronize(dev)
+
+    steps(PAR_LOOP_WARMUP)
+    rates = []
+    for _ in range(PAR_LOOP_WINDOWS):
+        start = time.perf_counter()
+        steps(PAR_LOOP_STEPS)
+        rates.append(PAR_LOOP_STEPS / (time.perf_counter() - start))
+    peak = torch.cuda.max_memory_allocated(dev)
+    del algo, state, local
+    torch.cuda.empty_cache()
+    return dict(rates=rates, peak_gb=peak / 2**30)
+
+
+def _nccl_rank(layout, real, frames: int, m: int, precisions):
+    """A rank of ``layout`` over NCCL: the step at learning rate 0 in
+    ``precisions`` (:func:`_layout_steps`), then the step loop at m 10
+    (:func:`_par_step_loop`)."""
+    import torch
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.init_groups(layout)
+    steps, shards = _layout_steps(real, layout.device, frames, m, precisions)
+    return dict(steps=steps, shards=shards,
+                **_par_step_loop(layout.device, real, frames, 10))
+
+
+def _median_rates(runs) -> dict:
+    import statistics
+    flat = [r for run in runs for r in run]
+    return dict(steps_per_s_by_launch=runs, median=statistics.median(flat),
+                least=min(flat), most=max(flat))
+
+
+def phase_parallel_nccl(smi, work, records, real, one, lc_real, lc_one):
+    """Phase 15 (c), on four GPUs or more: data 2 x model 2 at the
+    flagship batch ``real`` (``one``: its one-process step), time 4 and
+    data 2 x time 2 at 16 x 16,384 frames (``lc_real``, ``lc_one``), over
+    NCCL in one launch each: the step at learning rate 0 against the one
+    process (the time layouts in float32), then the step loop (bfloat16, m
+    10) with every rank's peak memory, against the same loop on one GPU
+    without a group. One line a layout as it ends, with its speed-up over
+    the one-GPU loop run before the layouts; then ``main
+    --model_parallelism 2 --data_parallelism 2`` for 2 epochs over NCCL
+    (:func:`_par_launch`'s checks, its spikes against the golden); then
+    the one-GPU loop again, and the speed-ups over both one-GPU runs."""
+    import torch
+    from calciumgan_tpu_torch.parallel import launch as launch_lib
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    gpus = [f"cuda:{i}" for i in range(4)]
+    batches = {"flagship": (real, T), "long": (lc_real, LC_T)}
+    one_gpu = {key: [] for key in batches}
+
+    def loop_one_gpu():
+        for key, (batch, frames) in batches.items():
+            found = _par_step_loop(torch.device("cuda:0"), batch, frames, 10)
+            one_gpu[key].append(found)
+
+    loop_one_gpu()
+    layouts = {"data2_model2": (mesh_lib.create_mesh(2, 2, gpus), "flagship",
+                                10, ("f32", "bf16"), one),
+               "time4": (mesh_lib.create_time_mesh(1, 4, gpus), "long", 0,
+                         ("f32",), lc_one),
+               "data2_time2": (mesh_lib.create_time_mesh(2, 2, gpus), "long",
+                               0, ("f32",), lc_one)}
+    found = {}
+    for name, (layout, key, m, precisions, ref) in layouts.items():
+        batch, frames = batches[key]
+        ranks = launch_lib.launch(_nccl_rank, layout.devices, "nccl",
+                                  args=(layout, batch, frames, m, precisions),
+                                  timeout=PAR_TIMEOUT_S)
+        found[name] = dict(
+            layout=layout.shape, global_batch=[len(batch), frames],
+            step_vs_one_process=_step_vs_one_process(ref, ranks, precisions),
+            step_loop=_median_rates([ranks[0]["rates"]]),
+            peak_gb_by_rank=[r["peak_gb"] for r in ranks])
+        before = _median_rates([one_gpu[key][0]["rates"]])
+        report(f"phase 15 nccl {name}", card=smi, **found[name],
+               one_gpu_before=dict(before, peak_gb=one_gpu[key][0]["peak_gb"]),
+               speedup_over_before=found[name]["step_loop"]["median"]
+               / before["median"])
+    ranks, run = _par_launch(
+        records, os.path.join(work, "mp_nccl"), layouts["data2_model2"][0],
+        "nccl", real, T, 10, "oasis_ar1", (TRAIN_ROWS, VAL_ROWS),
+        "--model_parallelism", "2", "--data_parallelism", "2",
+        "--save_generated", "last")
+    run["sampled_mismatches_vs_golden"] = _golden_of_samples(
+        ranks[0]["samples"], (102, T), "data 2 x model 2 sampling epochs")
+    report("phase 15 nccl main", card=smi, data2_model2_run=run)
+    loop_one_gpu()
+    for name in layouts:
+        key = layouts[name][1]
+        base = _median_rates([r["rates"] for r in one_gpu[key]])
+        found[name]["one_gpu"] = dict(
+            base, peak_gb=[r["peak_gb"] for r in one_gpu[key]])
+        found[name]["speedup_of_medians"] = (
+            found[name]["step_loop"]["median"] / base["median"])
+    report("phase 15 nccl", card=smi, layouts=found)
+
+
+def _golden_of_samples(samples, shape, what: str) -> int:
+    """:func:`sampled_vs_golden` on ``train.sample_and_plot``'s results."""
+    return sampled_vs_golden([dict(out=o) for o in samples], shape, what)
+
+
+def _long_windows(work):
+    """Phase 15's seeded windows of 102 x 16,384 frames, written by the
+    port's writer: their records, the global batch of the time layouts'
+    step, the one-process standard step on it at m 0 (float32), and the
+    seconds the writing took."""
+    import numpy as np
+    import torch
+    start = time.perf_counter()
+    records = os.path.join(work, "lc_records")
+    signals = write_training_set(records, LC_TRAIN_ROWS, LC_VAL_ROWS, LC_T,
+                                 seed=SEED + 15)
+    write_s = time.perf_counter() - start
+    real = np.ascontiguousarray(signals[:LC_BATCH])
+    one, _ = _layout_steps(real, torch.device("cuda"), LC_T, 0, ("f32",))
+    return records, real, one, write_s
+
+
+def phase_time_parallel(work):
+    """Phase 15 (b), time parallelism on one card: ``main
+    --time_parallelism 2`` in two gloo ranks on ``cuda:0`` on seeded
+    windows of 102 x 16,384 frames, the step at m 0 against the
+    one-process standard step at 16,384 frames (float32), 2 epochs at m 10
+    (:func:`_par_launch`'s checks). The long kernel is timed at each rung
+    that the dispatch climbs on rank 0's last sampled traces
+    (:func:`long_rungs`); its plain version takes one to two minutes a
+    rung at these frames, the float64 golden most of one, so each runs in
+    a spawned process of its own while the script goes on, and
+    :func:`await_time_parallel` waits for them. Returns the findings, the
+    global batch, the one-process step and the pending results."""
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    start = time.perf_counter()
+    records, real, one, write_s = _long_windows(work)
+    layout = mesh_lib.create_time_mesh(1, TP_RANKS, ["cuda:0"] * TP_RANKS)
+    ranks, tp = _par_launch(
+        records, os.path.join(work, "tp_run"), layout, "gloo", real, LC_T, 0,
+        "oasis_ar1_long_precise", (LC_TRAIN_ROWS, LC_VAL_ROWS),
+        "--time_parallelism", str(TP_RANKS), "--batch_size", str(LC_BATCH),
+        "--save_generated", "last")
+    tp["step_vs_one_process_m0"] = _step_vs_one_process(
+        one, ranks, ("f32",))
+    tp["write_records_s"] = write_s
+    samples = ranks[0]["samples"]
+    last = samples[-1][0]
+    rungs = long_rungs(last)
+    pool = _spawned_pool(len(rungs) + 1)
+    pending = dict(
+        pool=pool, rungs=rungs,
+        kernel_vs_plain={depth: pool.submit(
+            _held_long, last, rung["prod"], rung["variant"],
+            f"time-parallel sampling epoch, depth {depth}")
+            for depth, rung in rungs.items()},
+        sampled_mismatches_vs_golden=pool.submit(
+            _golden_of_samples, samples, (102, LC_T),
+            "time-parallel sampling epochs"))
+    tp["seconds_before_the_twin"] = time.perf_counter() - start
+    return dict(findings=tp, real=real, one=one, pending=pending)
+
+
+def await_time_parallel(time_part) -> dict:
+    """:func:`phase_time_parallel`'s findings once its spawned comparisons
+    have ended (waited for at the first call): the long kernel held to its
+    plain version bit for bit at each rung climbed, with its time and
+    bound, and the sampled spikes against the golden."""
+    tp, pending = time_part["findings"], time_part.pop("pending", None)
+    if pending is None:
+        return tp
+    waited = time.perf_counter()
+    try:
+        held = {d: f.result() for d, f in pending["kernel_vs_plain"].items()}
+        tp["sampled_mismatches_vs_golden"] = pending[
+            "sampled_mismatches_vs_golden"].result()
+    finally:
+        pending["pool"].shutdown(cancel_futures=True)
+    tp["kernel_vs_plain"] = {
+        depth: dict(strip(held[depth]), shape=[102, LC_T], depth=depth,
+                    **{k: v for k, v in rung.items()
+                       if k not in ("prod", "variant")})
+        for depth, rung in pending["rungs"].items()}
+    tp["waited_for_the_twin_s"] = time.perf_counter() - waited
+    return tp
+
+
+def phase_model_time_parallel(smi, work, records, signals, time_part):
+    """Model and time parallelism on one card, two gloo ranks on
+    ``cuda:0`` each (NCCL puts no two ranks on one GPU), through the
+    library's launcher. (a) ``main --model_parallelism 2`` at the flagship
+    recipe on phase 6's records: the shards, the step at learning rate 0
+    against the one-process step (float32 and bfloat16), 2 epochs
+    (:func:`_par_launch`'s checks), the sampled spikes against the float64
+    golden, the checkpoint whole and served by ``generate.generate``, the
+    classic kernel held to its plain version on rank 0's last sampled
+    traces. (b) ``time_part`` (:func:`phase_time_parallel`): its long
+    kernel held to its plain version on rank 0's last sampled traces and
+    their spikes against the golden, awaited here. Its line, then on a
+    machine of four GPUs or more :func:`phase_parallel_nccl`'s."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import generate as generate_mod
+    from calciumgan_tpu_torch.models import get_models
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    from calciumgan_tpu_torch.utils import checkpoint
+
+    # (a) model parallelism at the flagship recipe
+    start = time.perf_counter()
+    real = np.ascontiguousarray(signals[:DP_BATCH])
+    one, _ = _layout_steps(real, torch.device("cuda"), T, 10,
+                           ("f32", "bf16"))
+    mp_layout = mesh_lib.create_mesh(1, MP_RANKS, ["cuda:0"] * MP_RANKS)
+    mp_run = os.path.join(work, "mp_run")
+    ranks, mp = _par_launch(records, mp_run, mp_layout, "gloo", real, T, 10,
+                            "oasis_ar1", (TRAIN_ROWS, VAL_ROWS),
+                            "--model_parallelism", str(MP_RANKS),
+                            "--save_generated", "last")
+    check(all(r["shards"] == MP_SHARDS for r in ranks),
+          f"model shards {[r['shards'] for r in ranks]}")
+    mp["step_vs_one_process"] = _step_vs_one_process(one, ranks)
+    mp["sampled_mismatches_vs_golden"] = _golden_of_samples(
+        ranks[0]["samples"], (102, T), "model-parallel sampling epochs")
+    last = ranks[0]["samples"][-1][0]
+    mp["kernel_vs_plain"] = hold_to_twin(last, rungs_climbed(last),
+                                         "model-parallel sampling epoch")
+    ckpt_dir = os.path.join(mp_run, "checkpoints")
+    stored = torch.load(checkpoint.port_checkpoint_path(
+        ckpt_dir, PAR_EPOCHS - 1), map_location="cpu", weights_only=True)
+    nets = dict(zip(("generator", "discriminator"), get_models(
+        flagship_config(), rng=torch.Generator().manual_seed(SEED))))
+    whole, expected = ({k: list(sd(k.split("/")[0])[k.split("/", 1)[1]].shape)
+                        for k in MP_SHARDS} for sd in (
+        lambda net: stored[net]["params"],
+        lambda net: nets[net].state_dict()))
+    check(whole == expected, f"model-parallel checkpoint holds {whole}, "
+                             f"a one-process run {expected}")
+    variables, epoch = checkpoint.restore_generator_params(ckpt_dir)
+    served = next(generate_mod.generate(
+        flagship_config(), variables, 4, batch_size=4, device="cuda"))
+    check(served["signals"].shape == (4, T, 102)
+          and bool(np.isfinite(served["signals"]).all()),
+          f"served from the model-parallel checkpoint: "
+          f"{served['signals'].shape}")
+    mp["checkpoint"] = dict(epoch=epoch, whole_shapes=whole,
+                            served=list(served["signals"].shape))
+    mp["seconds"] = time.perf_counter() - start
+
+    # (b) the time-parallel run's pending comparisons
+    beside = "none" if "pending" not in time_part else (
+        "(a): the plain versions of (b) ran beside it on cuda:0")
+    tp = await_time_parallel(time_part)
+    torch.cuda.synchronize()
+
+    count = torch.cuda.device_count()
+    report("phase 15 model and time parallelism", card=smi,
+           model_parallel_gloo=mp, time_parallel_gloo=tp,
+           timed_beside_the_plain_versions=beside,
+           nccl=(f"not run: {count} GPU(s)" if count < 4
+                 else "on four GPUs: the phase 15 nccl lines"),
+           note="gloo through the host, two ranks on one card: a check of "
+                "the layouts, no speed figure")
+    if count >= 4:
+        phase_parallel_nccl(smi, work, records, real, one,
+                            time_part["real"], time_part["one"])
+    return dict(mp_launches=mp["sampling_launches_rank0"],
+                tp_launches=tp["sampling_launches_rank0"])
+
+
+def main(argv) -> int:
+    import numpy as np
+    import torch
+    if argv not in ([], ["--phase", "14"], ["--phase", "15"],
+                    ["--phase", "15-nccl"]):
+        print("usage: chip_smoke.py [--phase 14|15|15-nccl]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3535,11 +4138,25 @@ def main(argv) -> int:
         "calciumgan_tpu_torch is not the checkout's")
 
     smi = phase_device(root)
-    if argv:  # phase 14 alone, on a training set of its own
+    if argv:  # phase 14 or 15 alone, on a training set of its own
         with tempfile.TemporaryDirectory() as work:
             records = os.path.join(work, "records")
-            phase_data_parallel(smi, work, records,
-                                write_training_set(records), None)
+            signals = write_training_set(records)
+            if argv[1] == "14":
+                phase_data_parallel(smi, work, records, signals, None)
+            elif argv[1] == "15-nccl":
+                check(torch.cuda.device_count() >= 4,
+                      f"--phase 15-nccl needs four GPUs, have "
+                      f"{torch.cuda.device_count()}")
+                real = np.ascontiguousarray(signals[:DP_BATCH])
+                one, _ = _layout_steps(real, torch.device("cuda"), T, 10,
+                                       ("f32", "bf16"))
+                _, lc_real, lc_one, _ = _long_windows(work)
+                phase_parallel_nccl(smi, work, records, real, one, lc_real,
+                                    lc_one)
+            else:
+                phase_model_time_parallel(smi, work, records, signals,
+                                          phase_time_parallel(work))
         print(smi)
         return ok_line()
     max_err = phase_kernel()
@@ -3560,14 +4177,27 @@ def main(argv) -> int:
                                       training["head"])
         in_graph = phase_in_graph(smi, config, variables)
         sweep = phase_sweep(smi, work, training["records"])
+        # phase 15's time-parallel run first: on one GPU its long kernel's
+        # plain versions run beside phase 14 and phase 15's model-parallel
+        # run (no speed figure there); on several, they end before phase
+        # 14's step loops are timed
+        time_part = phase_time_parallel(work)
+        beside = "phase 15 (b)'s plain versions, on cuda:0"
+        if torch.cuda.device_count() > 1:
+            await_time_parallel(time_part)
+            beside = "none"
         parallel = phase_data_parallel(
             smi, work, training["records"], training["head_128"],
-            training["timing"]["steps_per_s_host"])
+            training["timing"]["steps_per_s_host"], beside)
+        model_time = phase_model_time_parallel(
+            smi, work, training["records"], training["head_128"], time_part)
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
     print(smi)
     source = "calciumgan_tpu_torch/csrc/oasis_ar1.cu"
+    long_counts = (collections.Counter(recordings["long_counts"])
+                   + collections.Counter(model_time["tp_launches"]))
     # no single PyTorch call computes OASIS: library_ms is null
     print(json.dumps({"kernels": [
         {"name": "oasis_ar1", "route": "cuda", "source": source,
@@ -3586,7 +4216,8 @@ def main(argv) -> int:
                          + collections.Counter(in_graph["launches"])
                          + collections.Counter(sweep["launches"])
                          + collections.Counter(parallel["launches"])
-                         + collections.Counter(parallel["nccl_launches"])),
+                         + collections.Counter(parallel["nccl_launches"])
+                         + collections.Counter(model_time["mp_launches"])),
          "launches_by_path": {
              "generate --spikes": launched("oasis_ar1", serving_launches),
              "main (sampling epochs)": launched("oasis_ar1",
@@ -3614,7 +4245,9 @@ def main(argv) -> int:
              "main --data_parallelism 2 (rank 0 sampling epochs)": launched(
                  "oasis_ar1", parallel["launches"]),
              "main --distributed (sampling epochs)": launched(
-                 "oasis_ar1", parallel["nccl_launches"])},
+                 "oasis_ar1", parallel["nccl_launches"]),
+             "main --model_parallelism 2 (rank 0 sampling epochs)": launched(
+                 "oasis_ar1", model_time["mp_launches"])},
          "path": "generate --spikes; main (sampling epochs); "
                  "compute_metrics (one epoch file of 1000 x 2048 x 102); "
                  "the DG run's and the mlp run's sampling epochs; "
@@ -3624,7 +4257,8 @@ def main(argv) -> int:
                  "sampling epochs; deconvolve_signals (in-graph, 104,448 x "
                  "2048 at depth 128, merge budget 4); search (the two "
                  "experiments' sampling epochs); main --data_parallelism 2 "
-                 "(rank 0's sampling epochs) and main --distributed",
+                 "(rank 0's sampling epochs), main --distributed and main "
+                 "--model_parallelism 2 (rank 0's sampling epochs)",
          "library_ms": None,
          **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"],
                                          in_graph["max_abs_err"]))},
@@ -3633,7 +4267,18 @@ def main(argv) -> int:
          "library_ms": None, **recordings["precise"]},
         {"name": "oasis_ar1_long", "route": "cuda", "source": source,
          "replaces": "calciumgan_tpu/ops/oasis_pallas.py:513",
-         "library_ms": None, **recordings["long"]}]}))
+         "library_ms": None, **dict(
+             recordings["long"],
+             path="spike_train_inference --device cuda; main "
+                  "--time_parallelism 2 (rank 0's sampling epochs, 102 x "
+                  f"{LC_T})",
+             **path_launches("oasis_ar1_long_precise", long_counts),
+             launches_by_path={
+                 "spike_train_inference --device cuda": launched(
+                     "oasis_ar1_long_precise", recordings["long_counts"]),
+                 "main --time_parallelism 2 (rank 0 sampling epochs)":
+                     launched("oasis_ar1_long_precise",
+                              model_time["tp_launches"])})}]}))
     return ok_line()
 
 

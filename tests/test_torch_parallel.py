@@ -151,9 +151,15 @@ def test_create_mesh_refuses_as_jax_does(dp, slices, n):
     assert str(ours.value) == str(theirs.value)
 
 
-def test_model_parallelism_is_not_ported():
-    with pytest.raises(NotImplementedError, match="model parallelism"):
-        mesh_lib.create_mesh(-1, 2, devices=["cpu"] * 4)
+def test_model_parallelism_refuses_as_jax_does():
+    # the model axis is ported (tests/test_torch_model_parallel.py): a
+    # layout the devices cannot hold raises JAX's error
+    with pytest.raises(ValueError) as theirs:
+        jax_mesh.create_mesh(-1, 3, devices=jax.devices()[:4])
+    with pytest.raises(ValueError) as ours:
+        mesh_lib.create_mesh(-1, 3, devices=["cpu"] * 4)
+    assert str(ours.value) == str(theirs.value) == \
+        "4 devices/slice not divisible by model_parallelism 3"
 
 
 def test_local_batch_size_and_padding_equal_jax(monkeypatch):

@@ -1,8 +1,8 @@
 """The port imports nothing of the JAX package, and its copies of the JAX
 package's modules equal the originals.
 
-Every ``.py`` file of ``calciumgan_tpu_torch/`` (the data-parallel
-package ``parallel/`` included) and ``chip_smoke.py`` is walked as an AST
+Every ``.py`` file of ``calciumgan_tpu_torch/`` (the parallel package
+``parallel/`` included, its model and time axes too) and ``chip_smoke.py`` is walked as an AST
 (imports inside functions included) for imports of ``calciumgan_tpu``,
 ``jax``, ``flax`` or ``optax`` and for paths into ``calciumgan_tpu/``.
 The copies (``Config``, ``Registry``, ``ifft_signals``, the float64 golden
@@ -11,7 +11,7 @@ and ``synth_ar1_traces``, the h5 functions, the array layouts,
 redo and crc32c, the TFRecord codec, the event writer, the signal metrics
 and the phase shuffle, the DG model's host helpers and the DG metrics'
 percentage errors) are held against the JAX package's modules on seeded
-inputs. ``--model_parallelism`` above 1 is refused.
+inputs. ``--model_parallelism`` reaches the layout.
 """
 
 import argparse
@@ -159,6 +159,9 @@ def test_port_loads_no_jax_package_module():
         "import calciumgan_tpu_torch.dataset.get_coordinate\n"
         "import calciumgan_tpu_torch.parallel.launch\n"
         "import calciumgan_tpu_torch.parallel.mesh\n"
+        "import calciumgan_tpu_torch.parallel.halo_conv\n"
+        "import calciumgan_tpu_torch.parallel.seq_parallel\n"
+        "import calciumgan_tpu_torch.parallel.long_context\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('calciumgan_tpu', 'jax', 'jaxlib', 'flax', 'optax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -169,19 +172,25 @@ def test_port_loads_no_jax_package_module():
 
 def test_walk_covers_the_parallel_package():
     walked = _sources()
-    for name in ("__init__.py", "launch.py", "mesh.py"):
+    for name in ("__init__.py", "launch.py", "mesh.py", "halo_conv.py",
+                 "seq_parallel.py", "long_context.py"):
         assert os.path.join("calciumgan_tpu_torch", "parallel",
                             name) in walked
 
 
-def test_model_parallelism_above_one_raises(tmp_path):
-    # only the data axis is ported: the CLI refuses a model axis before
-    # it reads any data, where it was once ignored
+def test_model_parallelism_flag_reaches_the_layout(tmp_path):
+    # the CLI's --model_parallelism lays out a model axis (it was once
+    # ignored, then refused); one device cannot hold two model ranks
     from calciumgan_tpu_torch import main as port_main
-    with pytest.raises(NotImplementedError, match="model parallelism"):
-        port_main.cli(["--model_parallelism", "2", "--device", "cpu",
-                       "--input_dir", str(tmp_path),
-                       "--output_dir", str(tmp_path / "run")])
+    from calciumgan_tpu_torch import train as port_train
+    config, device = port_main.parse_args([
+        "--model_parallelism", "2", "--device", "cpu",
+        "--input_dir", str(tmp_path), "--output_dir", str(tmp_path / "run")])
+    layout = port_train.layout(config, ["cpu"] * 2)
+    assert (layout.data_parallelism, layout.model_parallelism) == (1, 2)
+    with pytest.raises(ValueError, match="1 devices/slice not divisible by "
+                                         "model_parallelism 2"):
+        port_train.main(config, device=device)
 
 
 # ---- Config ---------------------------------------------------------------

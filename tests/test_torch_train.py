@@ -242,7 +242,10 @@ def test_trainer_refuses_what_it_cannot_run(records, tmp_path):
     config, device = port_main.parse_args(
         flags(records, str(tmp_path / "x"), 1, "--time_parallelism", "2"))
     assert device == "cpu"
-    with pytest.raises(NotImplementedError):
+    # one device cannot hold two time ranks: the JAX trainer's message
+    with pytest.raises(ValueError, match=r"time_parallelism 2 must divide "
+                                         r"the device count \(1 device\(s\) "
+                                         r"visible\)"):
         port_train.main(config, device=device)
 
 

@@ -154,3 +154,200 @@ def rank_fail(which):
     if mesh_lib.process_index() == which:
         raise ValueError(f"rank {which} fails")
     time.sleep(3600)
+
+
+# ---- model and time axes ---------------------------------------------------
+
+def layout(model: int = 1, time: int = 1):
+    """The ``(data, model)`` or ``(data, time)`` layout of this group's
+    ranks on the host, the data axis taking the rest."""
+    world = mesh_lib.process_count()
+    if time > 1:
+        return mesh_lib.create_time_mesh(world // time, time, ["cpu"] * world)
+    return mesh_lib.create_mesh(world // model, model, ["cpu"] * world)
+
+
+def whole_tensors(state) -> dict:
+    """:func:`_tensors` with every model-sharded parameter and moment
+    gathered whole (a collective over the model group)."""
+    out = {}
+    for name in ("generator", "discriminator"):
+        net = getattr(state, name)
+        shards = mesh_lib.sharded_parameters(net.module)
+        for n, p in net.module.named_parameters():
+            moment = net.optimizer.state[p]["exp_avg"]
+            if n in shards:
+                p, moment = (mesh_lib.gather_shard(t, *shards[n])
+                             for t in (p, moment))
+            out[f"{name}/{n}"] = p.detach().numpy().copy()
+            out[f"{name}/moment/{n}"] = moment.numpy().copy()
+    return out
+
+
+def _parallel_setup(sizes, real, model, time, recorded, seed, counter):
+    mesh_lib.init_groups(layout(model, time))
+    cfg = Config(**dict(sizes, seed=0))
+    algo, shards = train.build_algorithm(cfg, torch.device("cpu"))
+    di, de = mesh_lib.data_index(), mesh_lib.data_extent()
+    local = mesh_lib.time_frames(mesh_lib.rows_of(real, di, de))
+    base = (Replay(recorded) if recorded is not None
+            else Draws(seed, counter, "cpu"))
+    return (algo, shards, torch.from_numpy(np.ascontiguousarray(local)),
+            base, ShardDraws(base, di, de, len(local)))
+
+
+def rank_parallel_step(sizes: dict, real: np.ndarray, model: int = 1,
+                       time: int = 1, recorded=None, seed: int = 0,
+                       counter: int = 0) -> dict:
+    """In a rank of a ``(data, model)`` or ``(data, time)`` layout: one
+    train step of the seeded weights on its rows (and frames) of ``real``
+    with its share of the draws; the logs, whole tensors, shard shapes and
+    collective calls."""
+    torch.set_num_threads(1)
+    mesh_lib.collectives.clear()
+    algo, shards, local, base, draws = _parallel_setup(
+        sizes, real, model, time, recorded, seed, counter)
+    state = algo.init_state()
+    logs = algo.train_step(state, local, draws)
+    out = dict(logs={k: float(v) for k, v in logs.items()},
+               collectives=dict(mesh_lib.collectives), shards=shards,
+               left=base.left() if recorded is not None else {})
+    out["tensors"] = whole_tensors(state)
+    return out
+
+
+def rank_parallel_eval(sizes: dict, real: np.ndarray, mask: np.ndarray,
+                       model: int = 1, time: int = 1, recorded=None,
+                       seed: int = 0, counter: int = 0) -> dict:
+    """In a rank: one evaluation step of the seeded weights (as
+    :func:`rank_parallel_step`) under ``mask``; its logs and the whole
+    generated batch."""
+    torch.set_num_threads(1)
+    algo, _, local, base, draws = _parallel_setup(
+        sizes, real, model, time, recorded, seed, counter)
+    di, de = mesh_lib.data_index(), mesh_lib.data_extent()
+    fake, logs = algo.eval_step(algo.init_state(), local, draws,
+                                torch.from_numpy(np.ascontiguousarray(
+                                    mesh_lib.rows_of(mask, di, de))))
+    return dict(logs={k: float(v) for k, v in logs.items()},
+                fake=mesh_lib.gather_time(fake).numpy())
+
+
+# ---- the time axis's primitives --------------------------------------------
+
+def _time_group():
+    """The whole group as one time axis (data 1 x time P)."""
+    mesh_lib.init_groups(layout(time=mesh_lib.process_count()))
+    return mesh_lib.time_group()
+
+
+def _my_frames(x: np.ndarray, axis: int = 1) -> torch.Tensor:
+    index, extent = mesh_lib.process_index(), mesh_lib.process_count()
+    moved = np.moveaxis(x, axis, 1)
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+        mesh_lib.frames_of(moved, index, extent), 1, axis)))
+
+
+def _whole(t: torch.Tensor, axis: int = 1) -> np.ndarray:
+    """Every rank's frames (``axis``) of ``t`` joined; the frames are the
+    time axis of the layout :func:`_time_group` made."""
+    t = t.detach().movedim(axis, 1).contiguous()
+    return mesh_lib.gather_time(t).movedim(1, axis).numpy()
+
+
+def rank_halo_conv(x: np.ndarray, weight: np.ndarray, stride: int,
+                   transpose: bool, cotangent: np.ndarray) -> dict:
+    """In a rank: the halo conv (or transposed conv) of its frames of the
+    NCW ``x`` with the port's ``weight``, and the gradient of ``sum(out *
+    cotangent)`` with respect to ``x`` and the weight (the weight's summed
+    over the ranks); the outputs and input gradients whole."""
+    from calciumgan_tpu_torch.parallel import halo_conv
+    torch.set_num_threads(1)
+    group = _time_group()
+    local = _my_frames(x, axis=2).requires_grad_(True)
+    w = torch.from_numpy(weight).requires_grad_(True)
+    fn = (halo_conv.halo_conv_transpose1d_local if transpose
+          else halo_conv.halo_conv1d_local)
+    out = fn(local, w, stride, group)
+    (out * _my_frames(cotangent, axis=2)).sum().backward()
+    w_grad = mesh_lib.all_reduce_sum(w.grad, group=group)
+    return dict(out=_whole(out, 2), x_grad=_whole(local.grad, 2),
+                w_grad=w_grad.numpy())
+
+
+def rank_phase_shuffle(x: np.ndarray, shift: int, m: int,
+                       cotangent: np.ndarray) -> dict:
+    """In a rank: the halo phase shuffle of its frames of the NCW ``x``,
+    and its input gradient under ``cotangent``, both whole."""
+    from calciumgan_tpu_torch.parallel import seq_parallel
+    torch.set_num_threads(1)
+    group = _time_group()
+    local = _my_frames(x, axis=2).requires_grad_(True)
+    out = seq_parallel.halo_phase_shuffle_local(local, shift, m, group)
+    (out * _my_frames(cotangent, axis=2)).sum().backward()
+    return dict(out=_whole(out, 2), x_grad=_whole(local.grad, 2))
+
+
+def _calciumgan(sizes: dict, net: str, state_dict):
+    cfg = Config(**sizes)
+    nets = dict(zip(("generator", "discriminator"), get_models(
+        cfg, rng=torch.Generator().manual_seed(0))))
+    module = nets[net]
+    module.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                            for k, v in state_dict.items()})
+    return module
+
+
+def rank_seq_discriminator(sizes: dict, state_dict, x: np.ndarray,
+                           shifts) -> np.ndarray:
+    """In a rank: the sequence-parallel critic's scores of ``x`` (its
+    frames of it) with ``shifts`` (None: no phase shuffle)."""
+    from calciumgan_tpu_torch.parallel import seq_parallel
+    torch.set_num_threads(1)
+    group = _time_group()
+    dis = _calciumgan(sizes, "discriminator", state_dict)
+    with torch.no_grad():
+        return seq_parallel.seq_parallel_discriminator(
+            dis, _my_frames(x), shifts, group).numpy()
+
+
+def rank_seq_generator(sizes: dict, state_dict, z: np.ndarray
+                       ) -> np.ndarray:
+    """In a rank: the sequence-parallel generator's output for ``z``,
+    whole."""
+    from calciumgan_tpu_torch.parallel import seq_parallel
+    torch.set_num_threads(1)
+    group = _time_group()
+    gen = _calciumgan(sizes, "generator", state_dict)
+    with torch.no_grad():
+        out = seq_parallel.seq_parallel_generator(
+            gen, torch.from_numpy(z), group)
+    return _whole(out)
+
+
+def rank_critic_loss(sizes: dict, state_dict, real: np.ndarray,
+                     fake: np.ndarray, alpha: np.ndarray) -> dict:
+    """In a rank: ``-mean D(real) + mean D(fake) + 10 gp`` through the
+    sequence-parallel critic, the penalty's gradient norm over the whole
+    sequence, and every parameter's gradient summed over the ranks."""
+    from calciumgan_tpu_torch.parallel import seq_parallel
+    torch.set_num_threads(1)
+    group = _time_group()
+    dis = _calciumgan(sizes, "discriminator", state_dict)
+
+    def apply(x):
+        return seq_parallel.seq_parallel_discriminator(dis, x, None, group)
+
+    real_l, fake_l = _my_frames(real), _my_frames(fake)
+    a = torch.from_numpy(alpha)
+    x_hat = (a * real_l + (1 - a) * fake_l).requires_grad_(True)
+    g, = torch.autograd.grad(apply(x_hat).sum(), x_hat, create_graph=True)
+    norm = torch.sqrt(mesh_lib.sum_over(
+        g.reshape(g.shape[0], -1).square().sum(1), group) + 1e-12)
+    gp = ((norm - 1.0) ** 2).mean()
+    loss = -apply(real_l).mean() + apply(fake_l).mean() + 10.0 * gp
+    names = [n for n, _ in dis.named_parameters()]
+    grads = torch.autograd.grad(loss, list(dis.parameters()))
+    summed = mesh_lib.gradient_mean(grads)  # data extent 1: the time sum
+    return dict(loss=float(loss), grads={
+        n: t.numpy().copy() for n, t in zip(names, summed)})
