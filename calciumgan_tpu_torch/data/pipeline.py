@@ -13,17 +13,22 @@ config's sizes stay global.
 :class:`DeviceStore` is the counterpart of the JAX ``DeviceStore``: the
 signals go to the card once and each batch is gathered there by index. Where
 they do not fit (``--device_store``), :class:`HostBatches` copies each batch
-from pinned host memory.
+from pinned host memory, and in a training epoch
+:class:`DevicePrefetcher` (the JAX package's, ``pipeline.py:328-374``)
+gathers and copies the next batches from a background thread while the
+current step runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import pickle
+import queue
 import threading
 from math import ceil
-from typing import Iterator, Optional, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -267,12 +272,88 @@ class HostBatches:
     def __len__(self):
         return len(self.signals)
 
-    def batch(self, idx: np.ndarray) -> torch.Tensor:
+    def host_rows(self, idx: np.ndarray) -> torch.Tensor:
+        """``signals[idx]`` on the host, pinned when the device is a GPU."""
         rows = torch.from_numpy(np.ascontiguousarray(
             self.signals[np.asarray(idx)], np.float32))
-        if self.device.type == "cuda":
-            return rows.pin_memory().to(self.device, non_blocking=True)
-        return rows.to(self.device)
+        return rows.pin_memory() if self.device.type == "cuda" else rows
+
+    def batch(self, idx: np.ndarray) -> torch.Tensor:
+        rows = self.host_rows(idx)
+        return rows.to(self.device, non_blocking=rows.is_pinned())
+
+
+class DevicePrefetcher:
+    """The batches of ``source`` (a :class:`HostBatches`) at each index
+    array of ``batches``, in that order, staged by a background thread up
+    to ``depth`` batches ahead (counterpart of the JAX package's
+    ``DevicePrefetcher``, ``pipeline.py:328-374``: a daemon worker, a queue
+    of ``depth``, an error in the worker raised at the consumer after the
+    batches before it, a sentinel that ends the iteration; the thread is
+    joined at the sentinel).
+
+    On a GPU the worker gathers and pins the rows, then copies them on a
+    side stream of the source's device (a copy from the worker on the
+    default stream would queue behind the step's kernels) and records an
+    event; the consumer's current stream waits on that event, and the
+    batch is recorded on that stream so the caching allocator keeps its
+    memory until the step has read it. The worker enters the source's
+    device, since a new thread starts on ``cuda:0``. On the CPU the worker
+    gathers on the host and no stream is used (:attr:`stream`, the side
+    stream, is None)."""
+
+    def __init__(self, source: HostBatches, batches: Iterable[np.ndarray],
+                 depth: int = 2):
+        self._source = source
+        self._batches = batches
+        self.stream = None
+        if source.device.type == "cuda":
+            index = source.device.index
+            device = torch.device("cuda", torch.cuda.current_device()
+                                  if index is None else index)
+            self.stream = torch.cuda.Stream(device)
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="DevicePrefetcher")
+        self._thread.start()
+
+    def _stage(self, idx):
+        rows = self._source.host_rows(idx)
+        if self.stream is None:
+            return rows, None
+        with torch.cuda.stream(self.stream):
+            batch = rows.to(self.stream.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return batch, ready
+
+    def _worker(self):
+        try:
+            with (contextlib.nullcontext() if self.stream is None
+                  else torch.cuda.device(self.stream.device)):
+                for idx in self._batches:
+                    self._q.put(self._stage(idx))
+        except Exception as e:  # surface worker errors to the consumer
+            self._q.put(e)
+        finally:
+            self._q.put(None)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> torch.Tensor:
+        item = self._q.get()
+        if item is None:
+            self._thread.join()
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        batch, ready = item
+        if ready is not None:
+            current = torch.cuda.current_stream(batch.device)
+            current.wait_event(ready)
+            batch.record_stream(current)
+        return batch
 
 
 def device_store_enabled(config, nbytes: int, device) -> bool:

@@ -624,6 +624,30 @@ def sharded_parameters(module: torch.nn.Module) -> Dict[str, tuple]:
     return out
 
 
+def whole_shapes(module: torch.nn.Module) -> Dict[str, tuple]:
+    """``name`` -> the shape of each parameter of ``module`` in the whole
+    model: a shard's (:func:`sharded_parameters`) with the axis its shards
+    join on times its group's size. No collective."""
+    cut = sharded_parameters(module)
+    out = {}
+    for name, p in module.named_parameters():
+        shape = list(p.shape)
+        if name in cut:
+            dim, group = cut[name]
+            shape[dim] *= dist.get_world_size(group)
+        out[name] = tuple(shape)
+    return out
+
+
+def whole_parameters(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``name`` -> each parameter of ``module`` whole and detached, a shard
+    gathered over its group (:func:`gather_shard`: a collective that every
+    peer of the group joins, whether it writes or not)."""
+    cut = sharded_parameters(module)
+    return {name: gather_shard(p, *cut[name]) if name in cut
+            else p.detach() for name, p in module.named_parameters()}
+
+
 def gather_shard(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The whole tensor of a shard cut by :func:`shard_models`."""
     return torch.cat(_all_gather(t.detach(), group), dim=dim)
@@ -640,12 +664,16 @@ def sharded_dense(x: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor, dtype: torch.dtype, dim: int,
                   group) -> torch.Tensor:
     """A Dense layer over a model-sharded weight, in the module's compute
-    ``dtype``. Output columns (``dim`` 0 of the ``(out, in)`` weight): this
-    rank's columns, all-gathered. Input rows (``dim`` 1): the replicated
-    ``x``'s block of this rank times its rows, the float32 partial products
-    summed over the group, then the (replicated) bias."""
+    ``dtype``. Output columns (``dim`` 0 of the ``(out, in)`` weight): the
+    replicated ``x`` times this rank's columns, all-gathered; ``x``'s
+    gradient, this rank's partial product, is summed over the group (the
+    mlp critic's first layer: the penalty and the generator take their
+    gradients through it). Input rows (``dim`` 1): the replicated ``x``'s
+    block of this rank times its rows, the float32 partial products summed
+    over the group, then the (replicated) bias."""
     if dim == 0:
-        y = torch.nn.functional.linear(x.to(dtype), weight.to(dtype))
+        y = torch.nn.functional.linear(
+            _SumBackward.apply(x, group).to(dtype), weight.to(dtype))
         return gather_last(y + bias.to(dtype), group)
     part = torch.nn.functional.linear(slice_last(x, group).to(dtype),
                                       weight.to(dtype))

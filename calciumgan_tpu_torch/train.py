@@ -39,8 +39,7 @@ The peers of data index 0 all run the sampling epochs' generator pass
 each data index's peers writes its shard of the generated signals, whole
 sequences too.
 
-Not ported: the background ``DevicePrefetcher`` thread, the persistent
-compile cache and the backend probe.
+Not ported: the persistent compile cache and the backend probe.
 
 ``--save_generated`` keeps the validation pass's generated batches under the
 JAX package's policy (``calciumgan_tpu/train.py:165-209``): ``all`` on every
@@ -91,25 +90,29 @@ def _progress(iterable, desc, total, verbose):
 
 
 def count_params(module: torch.nn.Module) -> int:
-    return sum(p.numel() for p in module.parameters())
+    """The parameters of the whole net, model shards counted whole (as the
+    JAX package counts its global arrays, ``train.py:456-473``)."""
+    return sum(int(np.prod(s)) for s in mesh_lib.whole_shapes(module).values())
 
 
 def layer_table(module: torch.nn.Module) -> str:
     """The ``--verbose 2`` table of a net (the JAX package prints Flax's
     ``tabulate``, ``train.py:460-469``): one row per module that holds
     parameters or buffers of its own, with its class, parameter count and
-    their shapes (buffers, the BatchNorm running statistics, marked and not
-    counted), then the total."""
+    their whole shapes (buffers, the BatchNorm running statistics, marked
+    and not counted), then the total."""
+    whole = mesh_lib.whole_shapes(module)
     rows = [f"{type(module).__name__}"]
     for name, sub in module.named_modules():
-        params = dict(sub.named_parameters(recurse=False))
+        params = {k: whole[f"{name}.{k}" if name else k]
+                  for k, _ in sub.named_parameters(recurse=False)}
         buffers = dict(sub.named_buffers(recurse=False))
         if not params and not buffers:
             continue
-        shapes = [f"{k} {tuple(v.shape)}" for k, v in params.items()]
+        shapes = [f"{k} {v}" for k, v in params.items()]
         shapes += [f"{k} {tuple(v.shape)} (buffer)"
                    for k, v in buffers.items()]
-        count = sum(p.numel() for p in params.values())
+        count = sum(int(np.prod(s)) for s in params.values())
         rows.append(f"  {name:<24} {type(sub).__name__:<14} {count:>12,}  "
                     + ", ".join(shapes))
     rows.append(f"  {'total':<24} {'':<14} {count_params(module):>12,}")
@@ -163,6 +166,25 @@ def focus_neurons(config):
     return idx or list(range(min(9, config.num_neurons)))
 
 
+def device_events(prof) -> list:
+    """The device's events (kernels and copies) that ``prof``, a finished
+    ``torch.profiler.profile``, traced."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_seconds(events) -> float:
+    """The seconds in which the device ran any of ``events``: the union of
+    their intervals."""
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in events):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return busy_us * 1e-6
+
+
 class _ProfileWindow:
     """``torch.profiler`` over a few steps: writes the Chrome trace, and to
     ``window.json`` the window's host seconds, device-busy seconds (union
@@ -187,25 +209,17 @@ class _ProfileWindow:
         self._prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self._prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
-        kernels = [e for e in self._prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels)
-        busy_us, reach = 0.0, float("-inf")
-        for start, end in spans:  # union of the kernels' intervals
-            if end > reach:
-                busy_us += end - max(start, reach)
-                reach = end
+        kernels = device_events(self._prof)
+        busy = busy_seconds(kernels) if kernels else None
         by_name = collections.defaultdict(lambda: [0.0, 0])
         for e in kernels:
             by_name[e.name][0] += e.time_range.end - e.time_range.start
             by_name[e.name][1] += 1
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         window = {"steps": self.steps, "wall_s": wall,
-                  "device_busy_s": busy_us * 1e-6 if spans else None,
-                  "device_busy_share": (busy_us * 1e-6 / wall
-                                        if spans else None),
-                  "device_events": len(spans),
+                  "device_busy_s": busy,
+                  "device_busy_share": None if busy is None else busy / wall,
+                  "device_events": len(kernels),
                   "top_kernels": [{"name": n[:100], "ms": us * 1e-3,
                                    "count": c}
                                   for n, (us, c) in top]}
@@ -235,20 +249,27 @@ def epoch_batches(config, epoch: int, rows: Optional[int] = None,
 
 def train_epoch(config, source, algo, state, summary: Summary, epoch: int,
                 device: torch.device) -> Dict[str, float]:
-    """One pass over the training set (reference ``main.py:33-75``)."""
+    """One pass over the training set (reference ``main.py:33-75``). A
+    :class:`~calciumgan_tpu_torch.data.pipeline.HostBatches` source streams
+    its batches through a
+    :class:`~calciumgan_tpu_torch.data.pipeline.DevicePrefetcher`, as the
+    JAX training epoch does (``train.py:108-113``); the same batches in
+    the same order."""
     local_bs = mesh_lib.local_batch_size(config.batch_size)
     batches = epoch_batches(config, epoch, len(source), _epoch_steps(
         config.train_size, local_bs, drop_remainder=True))
+    reals = (pipeline.DevicePrefetcher(source, batches)
+             if isinstance(source, pipeline.HostBatches)
+             else map(source.batch, batches))
     all_logs = []
     window = None
     start = time()
-    for batch_count, idx in enumerate(_progress(batches, "Train",
-                                                len(batches),
-                                                config.verbose)):
+    for batch_count, real in enumerate(_progress(reals, "Train",
+                                                 len(batches),
+                                                 config.verbose)):
         if (config.profile and epoch == 1 and batch_count == 2
                 and summary.profiler_dir is not None):
             window = _ProfileWindow(summary.profiler_dir, device)
-        real = source.batch(idx)
         draws = _draws(config, config.global_step, device, local_bs)
         all_logs.append(algo.train_step(state, real, draws))
         config.global_step += 1
@@ -263,8 +284,19 @@ def train_epoch(config, source, algo, state, summary: Summary, epoch: int,
     elapse = time() - start
 
     logs = _mean_logs(all_logs)
-    summary.log(logs, elapse=elapse, state=state, step=epoch, training=True)
+    summary.log(logs, elapse=elapse, weights=plotted_weights(config, state),
+                step=epoch, training=True)
     return logs
+
+
+def plotted_weights(config, state) -> Optional[Dict[str, dict]]:
+    """Both nets' whole parameters for ``--plot_weights``, else None. Every
+    rank calls it: a model shard is gathered over its model group, which
+    every peer joins, writer or not (rank 0 alone writes them)."""
+    if not config.plot_weights:
+        return None
+    return {net: mesh_lib.whole_parameters(getattr(state, net).module)
+            for net in ("generator", "discriminator")}
 
 
 def _validation_batches(source, n: int, bs: int, steps: int):

@@ -237,26 +237,28 @@ class Summary:
         self.scalar(f"{name}/3_max", v.max(), step, training)
         self.histogram(name, v, step, training)
 
-    def plot_weights(self, state, step=0, training=True):
-        """Per-parameter statistics of both nets
-        (reference ``summary_helper.py:542-557``)."""
-        for prefix, net in (("plots_generator", state.generator),
-                            ("plots_discriminator", state.discriminator)):
-            for i, (name, p) in enumerate(net.module.named_parameters()):
+    def plot_weights(self, weights: dict, step=0, training=True):
+        """Per-parameter statistics of both nets (reference
+        ``summary_helper.py:542-557``): ``weights`` holds each net's whole
+        parameters by name (``train.plotted_weights``)."""
+        for net in ("generator", "discriminator"):
+            for i, (name, p) in enumerate(weights[net].items()):
                 self.variable_summary(
-                    p.detach().float().cpu().numpy(),
-                    f"{prefix}/{i + 1:02d}/{name}", step=step,
+                    p.float().cpu().numpy(),
+                    f"plots_{net}/{i + 1:02d}/{name}", step=step,
                     training=training)
 
-    def log(self, logs: dict, elapse: Optional[float] = None, state=None,
-            step: int = 0, training: bool = True):
+    def log(self, logs: dict, elapse: Optional[float] = None,
+            weights: Optional[dict] = None, step: int = 0,
+            training: bool = True):
         """An epoch half's scalars (reference
-        ``summary_helper.py:559-588``)."""
+        ``summary_helper.py:559-588``), and :meth:`plot_weights` of
+        ``weights`` under ``--plot_weights``."""
         for tag, value in logs.items():
             self.scalar(tag, value, step=step, training=training)
         if elapse is not None:
             self.scalar("elapse", elapse, step=step, training=training)
-        if state is not None and self._plot_weights:
-            self.plot_weights(state, step=step, training=training)
+        if weights is not None and self._plot_weights:
+            self.plot_weights(weights, step=step, training=training)
         self.flush()
 

@@ -68,7 +68,14 @@ every (machine, storage) pair the plan can choose is compared:
    batch 128 by CUDA events (critic and generator steps), its FLOPs by
    ``FlopCounterMode`` against the bf16 peak, steps/s over an epoch, the
    profile window's device-busy share, ``sample_and_plot`` and a checkpoint
-   save, beside the card's name and power limit;
+   save, beside the card's name and power limit; ``train.train_epoch`` on
+   one state with each of its batch sources: ``DeviceStore``,
+   ``HostBatches`` through ``DevicePrefetcher`` and ``HostBatches`` inline
+   on the training thread, ``PREFETCH_EPOCHS`` timed epochs a mode (steps/s
+   median and spread, and the device-busy share of one more epoch under
+   ``torch.profiler``), after holding an epoch's prefetched batches to the
+   inline ones bit for bit and checking that they were copied on a side
+   stream;
 7. dataset preparation: one of phase 5's 102 x 20,000 pickles, with the
    ``oasis`` key the spike-inference CLI wrote, through ``python -m
    calciumgan_tpu_torch.dataset.generate_tfrecords`` in-process
@@ -190,7 +197,11 @@ every (machine, storage) pair the plan can choose is compared:
    sequence-sized Dense layers' shards (the critic head's 10,240 input
    rows and the generator projection's 1024 output columns a rank), the
    flagship step at learning rate 0 against the one-process step in
-   float32 and bfloat16, the whole state equal bit for bit on both ranks,
+   float32 and bfloat16 with its model-axis collectives (18 all-reduces
+   and 17 all-gathers), the mlp's step likewise (wgan-gp, dropout 0.2, the
+   surrogate set's widths at batch 64: the critic's first layer cut by
+   output columns, its input taking gradients), the whole state equal bit
+   for bit on both ranks,
    one writer, a checkpoint of whole tensors that ``generate.generate``
    serves, ``oasis_ar1/shared`` in rank 0's sampling epochs only, held to
    its plain version on the last sampled traces, their spikes against the
@@ -202,7 +213,8 @@ every (machine, storage) pair the plan can choose is compared:
    sampling epochs (depth 384 with shared-memory rings, deeper rungs with
    device-memory rings where a batch climbs), timed and held to its plain
    version at every rung the dispatch climbs on the last 102 x 16,384
-   sampled traces, their spikes against the golden (the comparisons in
+   sampled traces, their spikes against the golden with its seconds a
+   trace (the comparisons in
    spawned processes, one a rung, since the plain version takes one to
    two minutes a rung at these frames: on one GPU they run beside phase
    14 and (a), whose lines say so; on several, they end before phase 14).
@@ -353,6 +365,8 @@ WHILE_TIMED_ROWS = (64, 1024)
 SWEEP_GRID = {"noise_dim": [4, 16], "num_units": [32], "kernel_size": [4],
               "phase_shuffle": [1]}
 SWEEP_EPOCHS = 2
+# phase 6's batch sources: timed training epochs a mode (4 steps each)
+PREFETCH_EPOCHS = 3
 # phase 14: two gloo ranks on one card, the flagship batch split between them
 DP_RANKS, DP_BATCH, DP_EPOCHS = 2, 128, 2
 DP_TIMEOUT_S = 300
@@ -369,6 +383,21 @@ PAR_EPOCHS, PAR_TIMEOUT_S = 2, 600
 MP_SHARDS = {"generator/dense_0.weight": (1024, 32),
              "generator/dense_0.bias": (1024,),
              "discriminator/dense.weight": (1, 10240)}
+# a flagship step's model-axis collectives at model 2: the input
+# projection's noise takes no gradient, so its column shards add no
+# all-reduce
+MP_STEP_CALLS = {"all_reduce": 18, "all_gather": 17}
+# phase 15 (a)'s mlp at model 2: the surrogate set's widths (6 frames x 2
+# neurons, noise 32, units 32, dropout 0.2) under WGAN-GP at the surrogate
+# run's batch; the critic's first layer is cut by output columns, its input
+# taking the penalty's and the generator's gradients
+MLP_FIELDS = dict(model="mlp", sequence_length=6, num_neurons=2,
+                  num_channels=2, signal_shape=(6, 2), num_units=32,
+                  noise_dim=32, dropout=0.2)
+MLP_BATCH = 64
+MLP_MP_SHARDS = {"discriminator/dense_0.weight": (64, 2),
+                 "discriminator/dense_0.bias": (64,),
+                 "discriminator/dense_4.weight": (1, 96)}
 # phase 15 on four GPUs: the step loop's steps a timed window, windows a
 # launch, and untimed steps before them
 PAR_LOOP_STEPS, PAR_LOOP_WINDOWS, PAR_LOOP_WARMUP = 15, 3, 3
@@ -1348,6 +1377,119 @@ def time_train_step(signals, smi) -> dict:
                 checkpoint_save_s=save_s, checkpoint_mb=size_mb)
 
 
+class _InlineBatches:
+    """A ``HostBatches`` that the training epoch does not recognise: it
+    gathers, pins and copies each batch on its own thread between steps
+    (the streaming path without the prefetcher)."""
+
+    def __init__(self, host):
+        self.host = host
+
+    def __len__(self):
+        return len(self.host)
+
+    def batch(self, idx):
+        return self.host.batch(idx)
+
+
+class _NoSummary:
+    """What ``train.train_epoch`` asks of a summary, writing nothing."""
+
+    profiler_dir = None
+
+    def log(self, *args, **kwargs):
+        pass
+
+
+def _device_busy(fn) -> float:
+    """The share of ``fn``'s host seconds in which the card ran a kernel or
+    a copy that ``torch.profiler`` traced (``train.busy_seconds``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from calciumgan_tpu_torch import train
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    events = train.device_events(prof)
+    check(bool(events), "the profiler traced nothing on the card")
+    return train.busy_seconds(events) / wall
+
+
+def batch_source_modes(smi, records) -> dict:
+    """``train.train_epoch`` at the flagship recipe on phase 6's records in
+    three modes on one state: the signals on the card (``DeviceStore``),
+    streamed from the host through ``DevicePrefetcher`` (the training
+    epoch's own choice for a ``HostBatches``), and streamed inline on the
+    training thread (:class:`_InlineBatches`). First the prefetched batches
+    of an epoch against the inline ones, bit for bit, and the side stream
+    of their copies; then one untimed epoch a mode, ``PREFETCH_EPOCHS``
+    timed epochs a mode taken in turn (steps/s each: median, spread) and
+    one more a mode under ``torch.profiler`` for its device-busy share."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch import main as train_main
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.data import pipeline
+    with tempfile.TemporaryDirectory() as out:
+        config, _ = train_main.parse_args(train_flags(records, out, 1))
+    train_ds, _ = pipeline.get_datasets(config)
+    config.validate_model_shapes()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    algo, _ = train.build_algorithm(config, dev)
+    state = algo.init_state()
+    host = pipeline.HostBatches(train_ds.signals, dev)
+    sources = {"device_store": pipeline.DeviceStore(train_ds.signals, dev),
+               "prefetcher": host, "inline": _InlineBatches(host)}
+
+    batches = train.epoch_batches(config, 0, len(host))
+    prefetcher = pipeline.DevicePrefetcher(host, batches)
+    side = prefetcher.stream
+    got = list(prefetcher)
+    check(len(got) == len(batches) and all(
+        torch.equal(a, host.batch(idx)) for a, idx in zip(got, batches)),
+        "prefetched batches differ from the inline ones")
+    check(side is not None and side.device == dev
+          and side != torch.cuda.default_stream(dev)
+          and side != torch.cuda.current_stream(dev),
+          f"prefetcher copies on {side}, not a side stream of {dev}")
+    batch_mb = got[0].numel() * got[0].element_size() / 2**20
+    del got
+
+    quiet = _NoSummary()
+
+    def epoch(mode, n):
+        train.train_epoch(config, sources[mode], algo, state, quiet, n, dev)
+
+    for mode in sources:
+        epoch(mode, 0)
+    seconds = {mode: [] for mode in sources}
+    for n in range(1, PREFETCH_EPOCHS + 1):
+        for mode in sources:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            epoch(mode, n)
+            seconds[mode].append(time.perf_counter() - start)
+    steps = len(batches)
+    modes = {}
+    for mode in sources:
+        rates = [steps / s for s in seconds[mode]]
+        modes[mode] = dict(
+            steps_per_s=rates, median=float(np.median(rates)),
+            spread=[min(rates), max(rates)],
+            device_busy_share=_device_busy(
+                lambda: epoch(mode, PREFETCH_EPOCHS + 1)))
+    store = modes["device_store"]["median"]
+    return dict(card=smi, steps_per_epoch=steps, epochs=PREFETCH_EPOCHS,
+                batch_mb=batch_mb, prefetched_equal_inline=True,
+                side_stream=str(side), modes=modes,
+                vs_device_store={m: modes[m]["median"] / store
+                                 for m in modes})
+
+
 def phase_training(smi, work):
     """The training slice: ``python -m calciumgan_tpu_torch.main
     --save_generated all`` at the flagship recipe on a written dataset,
@@ -1477,6 +1619,8 @@ def phase_training(smi, work):
     epoch_s = spy.calls["train_epoch"][-1]["s"]
     sample_s = [round(c["s"], 4) for c in samples]
 
+    # the training epoch's three batch sources on the same state
+    prefetch = batch_source_modes(smi, records)
     # step on the card vs the CPU, and the step's times
     torch.cuda.synchronize()
     versus = step_card_vs_cpu(signals)
@@ -1499,7 +1643,7 @@ def phase_training(smi, work):
                                validate_epoch_s=validate_s,
                                of_which_saving_s=save_s,
                                mb_per_epoch=fake.nbytes / 2**20),
-           card_vs_cpu=versus,
+           card_vs_cpu=versus, prefetch=prefetch,
            step=dict(timing, steps_per_s_host=steps / epoch_s,
                      epoch_host_s=epoch_s, steps_per_epoch=steps,
                      sample_and_plot_s=sample_s,
@@ -3390,11 +3534,12 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _step_vs_one_process(one, ranks, precisions=("f32", "bf16")) -> dict:
-    """The ranks' flagship step (rank 0's moments) against the one-process
-    step on the same draws, held to phase 6's card-vs-CPU bounds: the logs
-    and each net's largest gradient difference over its largest moment, in
-    each of ``precisions``."""
+def _step_vs_one_process(one, ranks, precisions=("f32", "bf16"),
+                         key="steps") -> dict:
+    """The ranks' step under ``key`` (rank 0's moments; the flagship step
+    by default) against the one-process step on the same draws, held to
+    phase 6's card-vs-CPU bounds: the logs and each net's largest gradient
+    difference over its largest moment, in each of ``precisions``."""
     import numpy as np
     bounds = {"f32": (STEP_F32_LOSS_RTOL, STEP_F32_LOSS_ATOL,
                       STEP_F32_GRAD_TOL),
@@ -3403,7 +3548,7 @@ def _step_vs_one_process(one, ranks, precisions=("f32", "bf16")) -> dict:
     step = {}
     for name in precisions:
         rtol, atol, grad_tol = bounds[name]
-        ref, got = one[name], ranks[0]["steps"][name]
+        ref, got = one[name], ranks[0][key][name]
         loss_err = {k: abs(got["logs"][k] - v) for k, v in
                     ref["logs"].items()}
         grad_err = {}
@@ -3411,7 +3556,7 @@ def _step_vs_one_process(one, ranks, precisions=("f32", "bf16")) -> dict:
             scale = max(float(np.abs(b).max()) for b in pairs)
             grad_err[net] = max(float(np.abs(a - b).max()) for a, b in zip(
                 got["moments"][net], pairs)) / scale
-        check(all(r["steps"][name]["logs"] == got["logs"] for r in ranks),
+        check(all(r[key][name]["logs"] == got["logs"] for r in ranks),
               f"{name} step: the ranks log differently")
         check(all(err <= rtol * abs(ref["logs"][k]) + atol
                   for k, err in loss_err.items()),
@@ -3608,15 +3753,16 @@ def phase_data_parallel(smi, work, records, signals, one_process,
 # phase 15: model and time parallelism
 # ---------------------------------------------------------------------------
 
-def _layout_steps(real, dev, frames: int, m: int, precisions):
+def _layout_steps(real, dev, frames: int, m: int, precisions, **fields):
     """One flagship-width WGAN-GP step at learning rate 0 on ``frames``-
-    frame sequences with phase shuffle ``m``, in each of ``precisions``
-    (``"f32"``: TF32 off, ``"bf16"``), in this process's place on the
-    layout its groups hold (without groups, the one-process step): its rows
-    and frames of the global batch ``real``, its data index's share of
-    ``Draws(SEED, 0)``. The logs, the step's collective calls and bytes
-    and, on rank 0, Adam's first moments (model shards gathered whole);
-    the shard shapes."""
+    frame sequences with phase shuffle ``m`` (the flagship configuration
+    with ``fields`` over it), in each of ``precisions`` (``"f32"``: TF32
+    off, ``"bf16"``), in this process's place on the layout its groups
+    hold (without groups, the one-process step): its rows and frames of
+    the global batch ``real``, its data index's share of ``Draws(SEED,
+    0)``. The logs, the step's collective calls and bytes and, on rank 0,
+    Adam's first moments (model shards gathered whole); the shard
+    shapes."""
     import dataclasses
 
     import numpy as np
@@ -3629,10 +3775,10 @@ def _layout_steps(real, dev, frames: int, m: int, precisions):
         mesh_lib.rows_of(real, di, de)))).to(dev)
     found, shards = {}, {}
     for name in precisions:
-        cfg = dataclasses.replace(
-            flagship_config(), mixed_precision=name == "bf16",
-            batch_size=len(real), learning_rate=0.0, m=m,
-            sequence_length=frames, signal_shape=(frames, 102))
+        cfg = dataclasses.replace(flagship_config(), **dict(dict(
+            mixed_precision=name == "bf16", batch_size=len(real),
+            learning_rate=0.0, m=m, sequence_length=frames,
+            signal_shape=(frames, 102)), **fields))
         algo, shards = train.build_algorithm(cfg, dev)
         state = algo.init_state()
         mesh_lib.collectives.clear()
@@ -3678,12 +3824,20 @@ def _whole_digest(state) -> str:
     return digest.hexdigest()
 
 
+def mlp_batch():
+    """Phase 15 (a)'s seeded batch of the mlp's data shape."""
+    import numpy as np
+    return np.random.default_rng(SEED + 61).random(
+        (MLP_BATCH,) + MLP_FIELDS["signal_shape"]).astype(np.float32)
+
+
 def _par_rank(config, layout, real, frames: int, m: int):
     """One of phase 15's ranks: the step at learning rate 0
-    (:func:`_layout_steps`; float32 alone on a time axis), then
-    ``train.main`` over ``layout`` with its sampling epochs' OASIS
-    launches, sampled traces, epoch seconds, collective calls, peak device
-    memory and the digest of its whole state."""
+    (:func:`_layout_steps`; float32 alone on a time axis; on a model axis
+    the mlp's too, ``mlp_steps``), then ``train.main`` over ``layout``
+    with its sampling epochs' OASIS launches, sampled traces, epoch
+    seconds, collective calls, peak device memory and the digest of its
+    whole state."""
     import torch
     from calciumgan_tpu_torch import train
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
@@ -3693,6 +3847,11 @@ def _par_rank(config, layout, real, frames: int, m: int):
     mesh_lib.init_groups(layout)
     precisions = ("f32",) if layout.time_parallelism > 1 else ("f32", "bf16")
     steps, shards = _layout_steps(real, layout.device, frames, m, precisions)
+    mlp_steps = mlp_shards = None
+    if layout.model_parallelism > 1:
+        mlp_steps, mlp_shards = _layout_steps(
+            mlp_batch(), layout.device, MLP_FIELDS["sequence_length"], 0,
+            precisions, **MLP_FIELDS)
     oasis_cuda.launches.clear()
     oasis_torch.calls = 0
     mesh_lib.collectives.clear()
@@ -3701,7 +3860,7 @@ def _par_rank(config, layout, real, frames: int, m: int):
         metrics = train.main(config, return_metrics=True, mesh=layout)
     torch.cuda.synchronize()
     return dict(rank=mesh_lib.process_index(), steps=steps, shards=shards,
-                metrics=metrics, launches=dict(oasis_cuda.launches),
+                mlp_steps=mlp_steps, mlp_shards=mlp_shards, metrics=metrics, launches=dict(oasis_cuda.launches),
                 plain_calls=oasis_torch.calls,
                 collectives=dict(mesh_lib.collectives),
                 peak_bytes=torch.cuda.max_memory_allocated(layout.device),
@@ -3950,6 +4109,15 @@ def _golden_of_samples(samples, shape, what: str) -> int:
     return sampled_vs_golden([dict(out=o) for o in samples], shape, what)
 
 
+def _timed_golden_of_samples(samples, shape, what: str) -> tuple:
+    """:func:`_golden_of_samples` and its host seconds a trace (what
+    holding an evaluation of these traces to the golden would cost)."""
+    start = time.perf_counter()
+    mismatches = _golden_of_samples(samples, shape, what)
+    return mismatches, (time.perf_counter() - start) / (
+        len(samples) * shape[0])
+
+
 def _long_windows(work):
     """Phase 15's seeded windows of 102 x 16,384 frames, written by the
     port's writer: their records, the global batch of the time layouts'
@@ -4001,8 +4169,8 @@ def phase_time_parallel(work):
             _held_long, last, rung["prod"], rung["variant"],
             f"time-parallel sampling epoch, depth {depth}")
             for depth, rung in rungs.items()},
-        sampled_mismatches_vs_golden=pool.submit(
-            _golden_of_samples, samples, (102, LC_T),
+        sampled_vs_golden=pool.submit(
+            _timed_golden_of_samples, samples, (102, LC_T),
             "time-parallel sampling epochs"))
     tp["seconds_before_the_twin"] = time.perf_counter() - start
     return dict(findings=tp, real=real, one=one, pending=pending)
@@ -4019,8 +4187,8 @@ def await_time_parallel(time_part) -> dict:
     waited = time.perf_counter()
     try:
         held = {d: f.result() for d, f in pending["kernel_vs_plain"].items()}
-        tp["sampled_mismatches_vs_golden"] = pending[
-            "sampled_mismatches_vs_golden"].result()
+        (tp["sampled_mismatches_vs_golden"],
+         tp["golden_s_per_trace"]) = pending["sampled_vs_golden"].result()
     finally:
         pending["pool"].shutdown(cancel_futures=True)
     tp["kernel_vs_plain"] = {
@@ -4057,6 +4225,9 @@ def phase_model_time_parallel(smi, work, records, signals, time_part):
     real = np.ascontiguousarray(signals[:DP_BATCH])
     one, _ = _layout_steps(real, torch.device("cuda"), T, 10,
                            ("f32", "bf16"))
+    mlp_one, _ = _layout_steps(mlp_batch(), torch.device("cuda"),
+                               MLP_FIELDS["sequence_length"], 0,
+                               ("f32", "bf16"), **MLP_FIELDS)
     mp_layout = mesh_lib.create_mesh(1, MP_RANKS, ["cuda:0"] * MP_RANKS)
     mp_run = os.path.join(work, "mp_run")
     ranks, mp = _par_launch(records, mp_run, mp_layout, "gloo", real, T, 10,
@@ -4066,6 +4237,21 @@ def phase_model_time_parallel(smi, work, records, signals, time_part):
     check(all(r["shards"] == MP_SHARDS for r in ranks),
           f"model shards {[r['shards'] for r in ranks]}")
     mp["step_vs_one_process"] = _step_vs_one_process(one, ranks)
+    calls = {name: found["collectives_a_step"]["calls"]
+             for name, found in ranks[0]["steps"].items()}
+    check(all({k: c.get(k) for k in MP_STEP_CALLS} == MP_STEP_CALLS
+              for c in calls.values()),
+          f"model-parallel step's collectives {calls}, expected "
+          f"{MP_STEP_CALLS}")
+    check(all(r["mlp_shards"] == MLP_MP_SHARDS for r in ranks),
+          f"mlp model shards {[r['mlp_shards'] for r in ranks]}")
+    mp["mlp"] = dict(fields=MLP_FIELDS, batch=MLP_BATCH,
+                     shards_rank0=ranks[0]["mlp_shards"],
+                     step_vs_one_process=_step_vs_one_process(
+                         mlp_one, ranks, key="mlp_steps"),
+                     collectives_a_step={
+                         name: found["collectives_a_step"]
+                         for name, found in ranks[0]["mlp_steps"].items()})
     mp["sampled_mismatches_vs_golden"] = _golden_of_samples(
         ranks[0]["samples"], (102, T), "model-parallel sampling epochs")
     last = ranks[0]["samples"][-1][0]

@@ -330,3 +330,17 @@ def test_main_metrics_and_surrogate_set(records, tmp_path):
     assert generated.shape == (2000, 64, 6)  # whole batches of 1000
     lo, hi = config.signals_min, config.signals_max
     assert lo <= generated.min() and generated.max() <= hi
+
+
+def test_busy_seconds_is_the_union_of_device_intervals():
+    """The profile window's device-busy seconds: overlapping and nested
+    intervals count once, gaps not at all (microseconds in, seconds
+    out)."""
+    class Event:
+        def __init__(self, start, end):
+            self.time_range = type("Range", (), dict(start=start, end=end))
+
+    events = [Event(30, 40), Event(0, 10), Event(5, 20), Event(6, 8),
+              Event(50, 50)]
+    assert port_train.busy_seconds(events) == pytest.approx(30e-6)
+    assert port_train.busy_seconds([]) == 0.0

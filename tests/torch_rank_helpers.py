@@ -168,8 +168,9 @@ def layout(model: int = 1, time: int = 1):
 
 
 def whole_tensors(state) -> dict:
-    """:func:`_tensors` with every model-sharded parameter and moment
-    gathered whole (a collective over the model group)."""
+    """:func:`_tensors` and the generator's EMA (``ema/<name>``) with
+    every model-sharded parameter, moment and average gathered whole (a
+    collective over the model group)."""
     out = {}
     for name in ("generator", "discriminator"):
         net = getattr(state, name)
@@ -181,6 +182,13 @@ def whole_tensors(state) -> dict:
                              for t in (p, moment))
             out[f"{name}/{n}"] = p.detach().numpy().copy()
             out[f"{name}/moment/{n}"] = moment.numpy().copy()
+        for n, b in net.module.named_buffers():
+            out[f"{name}/buffer/{n}"] = b.numpy().copy()
+    shards = mesh_lib.sharded_parameters(state.generator.module)
+    for n, t in (state.ema or {}).items():
+        if n in shards:
+            t = mesh_lib.gather_shard(t, *shards[n])
+        out[f"ema/{n}"] = t.detach().numpy().copy()
     return out
 
 
@@ -214,6 +222,18 @@ def rank_parallel_step(sizes: dict, real: np.ndarray, model: int = 1,
                left=base.left() if recorded is not None else {})
     out["tensors"] = whole_tensors(state)
     return out
+
+
+def rank_layer_tables(sizes: dict):
+    """In a rank of a model-2 layout: ``train.layer_table`` and
+    ``train.count_params`` of both nets of the seeded weights, cut to this
+    rank's shards; the shard shapes."""
+    mesh_lib.init_groups(layout(model=2))
+    algo, shards = train.build_algorithm(Config(**dict(sizes, seed=0)),
+                                         torch.device("cpu"))
+    return {name: (train.layer_table(net), train.count_params(net))
+            for name, net in (("generator", algo.generator),
+                              ("discriminator", algo.discriminator))}, shards
 
 
 def rank_parallel_eval(sizes: dict, real: np.ndarray, mask: np.ndarray,

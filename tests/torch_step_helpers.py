@@ -71,14 +71,20 @@ class Recorder:
         return draws
 
 
+def sizes_of(**kw):
+    """The tiny sizes of ``kw``'s model: :func:`tiny_mlp`'s for
+    ``model="mlp"``, :func:`tiny_2d`'s for ``model="calciumgan2d"``, else
+    :func:`tiny`'s, updated with ``kw``."""
+    return {"mlp": tiny_mlp, "calciumgan2d": tiny_2d}.get(
+        kw.get("model"), tiny)(**kw)
+
+
 def make_pair(rec, **kw):
     """The port's algorithm and state, and the JAX algorithm (its noise and
     alpha draws recorded) with a state holding the same weights and
     BatchNorm running statistics; the weights are the port's glorot draws,
-    so no Flax ``init`` is compiled. ``model="mlp"`` takes
-    :func:`tiny_mlp`'s sizes, ``model="calciumgan2d"`` :func:`tiny_2d`'s."""
-    sizes = {"mlp": tiny_mlp, "calciumgan2d": tiny_2d}.get(
-        kw.get("model"), tiny)(**kw)
+    so no Flax ``init`` is compiled. The sizes are :func:`sizes_of`'s."""
+    sizes = sizes_of(**kw)
     cfg = Config(**sizes)
     algo = get_algorithm(cfg, *get_models(
         cfg, rng=torch.Generator().manual_seed(0)))
