@@ -159,8 +159,15 @@ def _upper(matrices: torch.Tensor) -> torch.Tensor:
 
 
 def _firing_rates_nwc(spikes_nwc: torch.Tensor) -> torch.Tensor:
-    """(N, W, C) -> (N, C) rates in Hz."""
-    return sm.mean_firing_rate(spikes_nwc.transpose(1, 2))
+    """(N, W, C) -> (N, C) rates in Hz: each spike count times the float32
+    reciprocal of the duration, as XLA compiles the JAX package's jitted
+    ``count / duration``. Where that reciprocal is inexact (4608 frames:
+    1/192 s; 20,000 frames) the quotient of :func:`sm.mean_firing_rate`
+    differs by an ulp, which moves a rate on a histogram edge and its KL."""
+    duration = torch.tensor(spikes_nwc.shape[1] / sm.FRAMERATE,
+                            dtype=torch.float32, device=spikes_nwc.device)
+    counts = spikes_nwc.to(torch.float32).sum(dim=1)
+    return counts * torch.reciprocal(duration)
 
 
 def _per_trial_upper_corr(spikes_nwc: torch.Tensor) -> torch.Tensor:
@@ -177,6 +184,13 @@ def _per_trial_upper_van_rossum(spikes_nwc: torch.Tensor,
     """(N, W, C) -> (N, P) upper-triangle pairwise van Rossum per trial."""
     return _upper(sm.van_rossum_distance(
         spikes_nwc.transpose(1, 2).contiguous(), tau=tau))
+
+
+def _per_trial_upper_vp(spikes_nwc: torch.Tensor) -> torch.Tensor:
+    """(N, W, C) -> (N, P) upper-triangle pairwise Victor-Purpura distance
+    per trial, where the spikes lie."""
+    return _upper(sm.victor_purpura_distance_batch(
+        spikes_nwc.transpose(1, 2), device=spikes_nwc.device))
 
 
 def chunked(fn, array, chunk: int = 128) -> np.ndarray:
@@ -302,18 +316,13 @@ def victor_purpura_metrics(config, summary, real_spikes, fake_spikes,
     if config.verbose:
         print("\tComputing Victor-Purpura distance")
     device = fake_spikes.device
-    # (trials, T, neurons) NWC -> (trials, neurons, T); trials chunked so
-    # each call carries chunk x N x N DP lanes and a dense outlier only
-    # pads its own chunk; one trial at a time on the CPU, where the DP
-    # rows of a larger chunk leave the cache (the JAX package's sizes)
+    # trials chunked so each call carries chunk x N x N DP lanes and a
+    # dense outlier only pads its own chunk; one trial at a time on the
+    # CPU, where the DP rows of a larger chunk leave the cache (the JAX
+    # package's sizes)
     chunk = 16 if device.type == "cuda" else 1
-
-    def upper_vp(spikes_nwc):
-        return _upper(sm.victor_purpura_distance_batch(
-            spikes_nwc.transpose(1, 2), device=device))
-
-    real = chunked(upper_vp, real_spikes, chunk)
-    fake = chunked(upper_vp, fake_spikes, chunk)
+    real = chunked(_per_trial_upper_vp, real_spikes, chunk)
+    fake = chunked(_per_trial_upper_vp, fake_spikes, chunk)
     pairs = [(arrays.remove_nan(real[i]), arrays.remove_nan(fake[i]))
              for i in range(len(real))]
     kl = _plot_pairs_and_kl(config, summary, pairs, epoch, "victor_purpura",

@@ -256,11 +256,19 @@ def _global_moments(x32: torch.Tensor, dims, count: int):
     """The batch mean and fast biased variance over every rank's rows, as
     XLA takes a float32 mean (the sum times the float32 ``1/n``): one
     all-reduce of ``(sum, sum of squares, row count)``, differentiable when
-    the pass records a graph, and none in a process without a group."""
+    the pass records a graph, and none in a process without a group.
+
+    The all-reduce spans every rank, not the data group: model peers hold
+    the same rows, so each row is counted once by each peer in the sums
+    and the counts alike, which leaves the moments (and, the counts being
+    summed too, their gradients) the data group's; but every rank then
+    gets the same bytes. Over the data group alone, model peers whose
+    activations differ in the last bit (cuDNN's algorithm choice on
+    another GPU) would keep diverging running statistics."""
     c = x32.shape[1]
     local = torch.cat([x32.sum(dims), (x32 * x32).sum(dims),
                        torch.full((1,), float(count), device=x32.device)])
-    total = mesh_lib.all_reduce_sum(
+    total = mesh_lib.metric_sum(
         local, differentiable=torch.is_grad_enabled())
     inv = torch.reciprocal(total[2 * c:])
     mean = total[:c] * inv
@@ -286,9 +294,10 @@ class BatchNorm(nn.Module):
 
     In a data-parallel rank the statistics are the global batch's, as
     Flax's are over a batch sharded on a JAX mesh: the float32 sums, sums
-    of squares and row counts are summed over the ranks, through autograd
-    where the pass backpropagates. Every rank makes the same training
-    passes in the same order, so each one's all-reduce meets its peers'."""
+    of squares and row counts are summed over every rank (model peers
+    included: :func:`_global_moments`), through autograd where the pass
+    backpropagates. Every rank makes the same training passes in the same
+    order, so each one's all-reduce meets its peers'."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  device=None):

@@ -325,13 +325,15 @@ def all_reduce_sum(x: torch.Tensor, differentiable: bool = False,
     return x
 
 
-def metric_sum(x: torch.Tensor) -> torch.Tensor:
-    """A masked mean's ``(sum, weight)`` over every rank. A value held by
-    model or time peers alike is then counted by each of them, and so is
-    its weight; a time rank's frames of a row are counted once each, with
-    the row's weight counted once per time rank, so dividing by the weight
-    and the rank's frames a row gives the global mean either way."""
-    return all_reduce_sum(x, group=dist.group.WORLD
+def metric_sum(x: torch.Tensor, differentiable: bool = False
+               ) -> torch.Tensor:
+    """A masked mean's ``(sum, weight)`` over every rank (through autograd
+    where ``differentiable``). A value held by model or time peers alike
+    is then counted by each of them, and so is its weight; a time rank's
+    frames of a row are counted once each, with the row's weight counted
+    once per time rank, so dividing by the weight and the rank's frames a
+    row gives the global mean either way, the same bytes on every rank."""
+    return all_reduce_sum(x, differentiable, group=dist.group.WORLD
                           if dist.is_initialized() else None)
 
 

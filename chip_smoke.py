@@ -2,15 +2,17 @@
 """Drive the PyTorch/CUDA port's serving path, whole-recording spike
 inference, dataset preparation, training, evaluation, the DG experiments,
 the conv2d model, BatchNorm, the in-graph ``deconvolve_signals``, the
-sweep and data-, model- and time-parallel training once on one NVIDIA GPU.
+sweep, data-, model- and time-parallel training and the evaluation of a
+long-sequence run once on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 14   # phases 1 and 14 alone
     python3 chip_smoke.py --phase 15   # phases 1 and 15 alone
     python3 chip_smoke.py --phase 15-nccl  # phases 1 and 15 (c) alone
+    python3 chip_smoke.py --phase 16   # phases 1 and 16 alone
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
-``nvcc`` and runs fifteen phases, printing one line of findings per phase.
+``nvcc`` and runs sixteen phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
@@ -189,8 +191,9 @@ every (machine, storage) pair the plan can choose is compared:
    on one instead, and the flagship step loop timed on one GPU without a
    group and on every GPU over NCCL, launched in the order 1, P, P, 1,
    each launch timing ``DP_SCALING_WINDOWS`` windows of
-   ``DP_SCALING_STEPS`` steps after ``DP_SCALING_WARMUP``: the median
-   steps/s of each, their spread and the speed-up);
+   ``DP_SCALING_STEPS`` steps after ``DP_SCALING_WARMUP`` through phase
+   15's step loop: the median steps/s of each, their spread and the
+   speed-up);
 15. model and time parallelism on one card, two gloo ranks on ``cuda:0``
    each: (a) ``main --model_parallelism 2 --save_generated last`` at the
    flagship recipe on phase 6's records for 2 epochs: the two
@@ -208,7 +211,8 @@ every (machine, storage) pair the plan can choose is compared:
    float64 golden; (b) ``main --time_parallelism 2 --save_generated
    last`` on 32 + 16 seeded windows of 102 x 16,384 frames at batch 16:
    the step at m 0 against the one-process standard step at 16,384 frames
-   (float32 losses and gradients), 2 epochs at m 10 whose epoch file holds
+   (float32 losses and gradients; again with cuDNN's deterministic
+   algorithms on both sides), 2 epochs at m 10 whose epoch file holds
    whole 16,384-frame rows, ``oasis_ar1_long_precise`` in rank 0's
    sampling epochs (depth 384 with shared-memory rings, deeper rungs with
    device-memory rings where a batch climbs), timed and held to its plain
@@ -219,10 +223,31 @@ every (machine, storage) pair the plan can choose is compared:
    two minutes a rung at these frames: on one GPU they run beside phase
    14 and (a), whose lines say so; on several, they end before phase 14).
    (c) On a machine of four GPUs or more (``--phase 15-nccl`` runs (c)
-   alone), data 2 x model 2, time 4 and data 2 x time 2 over NCCL, one
-   launch each: the step against the one process, then the step loop
-   with every rank's peak memory against one GPU, a line each as it ends;
-   then the model-parallel run over NCCL, then the one-GPU loop again.
+   alone), data 2 x model 2, time 4, data 2 x time 2 and model 4 over
+   NCCL, one launch each: the step against the one process, then the step
+   loop with every rank's peak memory against one GPU, a line each as it
+   ends; the recipe with BatchNorm at data 2 x model 2: its step against
+   the one process, its running statistics equal on every rank; then the
+   model-parallel run over NCCL, then the one-GPU loop again;
+16. a long-sequence run evaluated: a run directory of 160 trials x 16,384
+   frames x 102 (recorded side seeded synthetic calcium drawn on the card,
+   with spikes by the C++ float64 kernel; generated side
+   ``generate.generate`` on phase 15 (b)'s time-parallel checkpoint, or
+   seeded random weights under ``--phase 16``), so that ``deconvolve_file`` takes one full chunk of
+   16,320 traces a launch, through ``compute_metrics --device cuda
+   --covariance`` on an idle card: ``metrics.json``, the long kernel's
+   launches by rung and ring storage, the seconds by stage and statistic,
+   the flag share per bit and peak memory; the long kernel on the whole
+   chunk at every rung of the 16,384-frame ladder (384 shared, 768 and
+   1536 device), timed, its flags asking for exactly the rungs climbed,
+   256 rows of each launch held to the plain version bit for bit in
+   spawned processes (which run beside phases 14 and 15 (a) in the whole
+   script); every spike of the file against the C++ float64 kernel, 256
+   traces against the numpy golden (spawned); each statistic's seconds
+   and peak memory over every trial, and the card against the CPU on 8
+   trials (Victor-Purpura on 1 trial of 16 neurons; the covariance held
+   per pair to the correlation's bound times sigma_i sigma_j); a resumed
+   ``deconvolve_file`` (one staged chunk) ending with the same spikes.
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
@@ -383,6 +408,10 @@ PAR_EPOCHS, PAR_TIMEOUT_S = 2, 600
 MP_SHARDS = {"generator/dense_0.weight": (1024, 32),
              "generator/dense_0.bias": (1024,),
              "discriminator/dense.weight": (1, 10240)}
+# the same at model 4 (phase 15 (c), four GPUs)
+MP4_SHARDS = {"generator/dense_0.weight": (512, 32),
+              "generator/dense_0.bias": (512,),
+              "discriminator/dense.weight": (1, 5120)}
 # a flagship step's model-axis collectives at model 2: the input
 # projection's noise takes no gradient, so its column shards add no
 # all-reduce
@@ -400,10 +429,28 @@ MLP_MP_SHARDS = {"discriminator/dense_0.weight": (64, 2),
                  "discriminator/dense_4.weight": (1, 96)}
 # phase 15 on four GPUs: the step loop's steps a timed window, windows a
 # launch, and untimed steps before them
-PAR_LOOP_STEPS, PAR_LOOP_WINDOWS, PAR_LOOP_WARMUP = 15, 3, 3
+PAR_LOOP = PAR_LOOP_STEPS, PAR_LOOP_WINDOWS, PAR_LOOP_WARMUP = 15, 3, 3
 # phase 14 on several GPUs: steps a timed window, windows a launch, and
 # untimed steps before them
-DP_SCALING_STEPS, DP_SCALING_WINDOWS, DP_SCALING_WARMUP = 50, 4, 10
+DP_SCALING = DP_SCALING_STEPS, DP_SCALING_WINDOWS, DP_SCALING_WARMUP = (
+    50, 4, 10)
+# phase 16: a long-sequence run evaluated by compute_metrics. One full chunk
+# of deconvolve_file on the card (16,384 // 102 = 160 trials, 16,320 traces
+# a launch) at phase 15 (b)'s frames; of each rung's launch on the whole
+# chunk, these rows are held to the plain version (one to two minutes a
+# rung at these frames, whatever the rows); of the epoch file's traces,
+# these against the numpy float64 golden (0.15-0.19 s a trace), split over
+# spawned processes; the statistics on the card against the CPU on these
+# trials (Victor-Purpura on fewer, of fewer neurons: its DP grows with the
+# square of the spike count and of the neurons; on the H100 machine's host
+# the CPU took 105 s for 2 trials of 102 neurons at up to 471 spikes a
+# train, 88.7 s for 2 trials of 32 neurons at up to 2478, phase 15 (b)'s
+# generator's, and 15.6-19.1 s for 2 trials of 16); generated in batches
+# of LE_BATCH
+LE_TRIALS, LE_NEURONS, LE_T, LE_BATCH = 160, 102, LC_T, 32
+LE_PLAIN_ROWS = 256
+LE_GOLDEN_TRACES, LE_GOLDEN_WORKERS = 256, 2
+LE_CPU_TRIALS, LE_VP_TRIALS, LE_VP_NEURONS = 8, 1, 16
 # the H100 SXM data sheet's dense bfloat16 tensor-core rate
 BF16_FLOPS_PER_S = 989e12
 # the bound of a kernel row: the bytes the function must move at the card's
@@ -520,8 +567,17 @@ def compare_kernel(y, long=False, **kw):
     else:
         kernel, plain = oasis_cuda.oasis_ar1_cuda, oasis_torch.oasis_ar1_torch
     before = collections.Counter(oasis_cuda.launches)
-    c, s, redo = kernel(y, **kw)
+    found = kernel(y, **kw)
     variant = list(oasis_cuda.launches - before)
+    return dict(variant=variant, **_held_to_plain(found, plain, y, kw))
+
+
+def _held_to_plain(found, plain, y, kw) -> dict:
+    """The kernel's ``found`` (c, s, redo) on the CUDA traces ``y`` against
+    ``plain(y, **kw)``, timed by CUDA events: the findings of
+    :func:`compare_kernel` but its ``variant``."""
+    import torch
+    c, s, redo = found
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -530,7 +586,7 @@ def compare_kernel(y, long=False, **kw):
     torch.cuda.synchronize()
     same = _same(c, c_p) & _same(s, s_p) & (redo == redo_p).reshape(-1)
     flags = redo.reshape(-1)
-    return dict(variant=variant, lanes=int(redo.numel()),
+    return dict(lanes=int(redo.numel()),
                 lanes_differ=int((~same).sum()),
                 bits_differ=int((redo != redo_p).sum()),
                 flagged=int(redo.ne(0).sum()),
@@ -838,6 +894,23 @@ def _held_long(traces, prod: dict, variant: str, what: str) -> dict:
     found = compare_kernel(y, long=True, **prod)
     check_equal(found, what)
     check_variant(found, variant, what)
+    return found
+
+
+def _plain_vs_launch(traces, launched_rows, prod: dict, what: str) -> dict:
+    """The long kernel's plain version on host ``traces``, rows of a larger
+    launch uploaded in this process, held bit for bit to
+    ``launched_rows``, that launch's (c, s, redo) on those rows as host
+    arrays (a trace's lane depends on that trace alone): the findings.
+    Spawned beside the script's host work, as :func:`_held_long`."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.ops import oasis_torch
+    y = torch.from_numpy(np.ascontiguousarray(traces, np.float32)).cuda()
+    found = _held_to_plain([torch.from_numpy(x).cuda()
+                            for x in launched_rows],
+                           oasis_torch.oasis_ar1_long_torch, y, prod)
+    check_equal(found, what)
     return found
 
 
@@ -1732,22 +1805,50 @@ def phase_prepare(smi, work, recording):
     shutil.rmtree(out)
 
 
-def write_eval_run(root, train_run):
-    """A run directory of ``EVAL_TRIALS`` x T x ``EVAL_NEURONS`` for
+def synth_ar1_on_card(n: int, frames: int, seed: int):
+    """``golden.synth_ar1_traces``' calcium drawn on the card: Bernoulli
+    spikes of 0.02 a frame, the AR(1) ``c[t] = G c[t-1] + s[t]`` by the
+    log-depth scan of ``spike_metrics.first_order_recurrence``, Gaussian
+    noise of scale 0.3, from a generator seeded with ``seed``; host
+    float32 ``(n, frames)``."""
+    import torch
+    from calciumgan_tpu_torch.ops.spike_metrics import first_order_recurrence
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spikes = (torch.rand((n, frames), generator=gen, device=dev)
+              < 0.02).float()
+    _, calcium = first_order_recurrence(torch.full_like(spikes, G), spikes)
+    del spikes
+    calcium += 0.3 * torch.randn((n, frames), generator=gen, device=dev)
+    return calcium.cpu().numpy()
+
+
+def write_eval_run(root, train_run, trials=EVAL_TRIALS, frames=T,
+                   batch_size=125, neurons=EVAL_NEURONS, on_card=False):
+    """A run directory of ``trials`` x ``frames`` x ``neurons`` for
     ``compute_metrics``: the recorded side is seeded synthetic calcium with
     spikes by the port's C++ float64 kernel, written by
     ``io.cache_validation_set``; the generated side comes from
-    ``generate.generate`` on ``train_run``'s newest checkpoint, written by
-    ``io.save_fake_signals``. The data are in recording units
+    ``generate.generate`` on ``train_run``'s newest checkpoint (without
+    one, the flagship generator at ``frames`` frames with seeded random
+    weights), written by ``io.save_fake_signals``, ``batch_size`` rows a
+    batch. ``on_card``: the recorded side's calcium is drawn on the card
+    (:func:`synth_ar1_on_card`) rather than by the numpy loop, which takes
+    20-27 s at 16,320 x 16,384. The data are in recording units
     (``normalize`` off). Returns its config, the epoch and the seconds."""
+    import dataclasses
+
     import numpy as np
+    import torch
+    from calciumgan_tpu_torch import convert
     from calciumgan_tpu_torch import generate as generate_mod
     from calciumgan_tpu_torch.config import Config
     from calciumgan_tpu_torch.data import pipeline
+    from calciumgan_tpu_torch.models import get_models
     from calciumgan_tpu_torch.ops import golden
     from calciumgan_tpu_torch.ops import oasis as dispatch
     from calciumgan_tpu_torch.utils import checkpoint, io
-    N, C = EVAL_TRIALS, EVAL_NEURONS
+    N, C = trials, neurons
     seconds, clock = {}, time.perf_counter()
 
     def lap(name):
@@ -1755,24 +1856,39 @@ def write_eval_run(root, train_run):
         now = time.perf_counter()
         seconds[name], clock = now - clock, now
 
-    cfg = Config(output_dir=root, save_generated="all", batch_size=125,
-                 sequence_length=T, num_neurons=C, num_channels=C,
-                 signal_shape=(T, C), spike_shape=(T, C), validation_size=N,
+    cfg = Config(output_dir=root, save_generated="all",
+                 batch_size=batch_size, sequence_length=frames,
+                 num_neurons=C, num_channels=C, signal_shape=(frames, C),
+                 spike_shape=(frames, C), validation_size=N,
                  normalize=False, seed=SEED, verbose=0)
     pipeline.set_generated_paths(cfg)
-    traces = golden.synth_ar1_traces(np.random.default_rng(SEED + 31),
-                                     N * C, T)
+    if on_card:
+        traces = synth_ar1_on_card(N * C, frames, SEED + 31)
+    else:
+        traces = golden.synth_ar1_traces(np.random.default_rng(SEED + 31),
+                                         N * C, frames)
     lap("synthesise")
     spikes = dispatch._exact_spikes_host(traces, G, S_MIN, THRESHOLD)
     lap("cxx_spikes")
-    nwc = [np.ascontiguousarray(x.reshape(N, C, T).transpose(0, 2, 1))
+    nwc = [np.ascontiguousarray(x.reshape(N, C, frames).transpose(0, 2, 1))
            for x in (traces, spikes.astype(np.float32))]
+    del traces, spikes
     io.cache_validation_set(cfg, pipeline.ArrayDataset(*nwc))
+    del nwc
     lap("cache_validation_set")
 
-    train_cfg = Config(output_dir=train_run, verbose=0).load()
-    params, epoch = checkpoint.restore_generator_params(
-        os.path.join(train_run, "checkpoints"), ema=False)
+    if train_run is None:
+        train_cfg = dataclasses.replace(
+            flagship_config(), sequence_length=frames, num_neurons=C,
+            num_channels=C, signal_shape=(frames, C))
+        weights, _ = get_models(train_cfg,
+                                rng=torch.Generator().manual_seed(SEED))
+        params = convert.flax_generator_variables(weights.state_dict())
+        epoch = 0
+    else:
+        train_cfg = Config(output_dir=train_run, verbose=0).load()
+        params, epoch = checkpoint.restore_generator_params(
+            os.path.join(train_run, "checkpoints"), ema=False)
     cfg.global_step = 12
     for i, payload in enumerate(generate_mod.generate(
             train_cfg, params, N, cfg.batch_size, with_spikes=False,
@@ -1783,31 +1899,56 @@ def write_eval_run(root, train_run):
     return cfg, epoch, seconds
 
 
-def stats_card_vs_cpu(real, fake):
-    """The statistics of ``EVAL_CPU_TRIALS`` trials of NWC spikes (tensors
-    on the card) against the same functions on the CPU."""
+def stats_card_vs_cpu(real, fake, trials=EVAL_CPU_TRIALS, extra=()):
+    """The statistics of ``trials`` trials of NWC spikes (tensors on the
+    card) against the same functions on the CPU. ``extra``: more ``(name,
+    fn, trials, reference)`` per-trial statistics. Without a
+    ``reference``, one is held as van Rossum's d**2 is, relative to its
+    largest value (STAT_VR_RTOL: Victor-Purpura's DP sums the same float32
+    costs in the same order on both). A ``reference`` gives, from host NWC
+    spikes, the statistic in float64 and a scale per value: the error over
+    the scale is held to STAT_CORR_TOL, and both devices' errors against
+    float64 are reported (a covariance over ``sigma_i sigma_j`` is a
+    correlation's error in covariance's units; over its largest value it
+    would measure the cancellation of near-zero pairs instead)."""
     import numpy as np
     from calciumgan_tpu_torch.eval import spike_eval
     from calciumgan_tpu_torch.ops import spike_metrics as sm
-    n = EVAL_CPU_TRIALS
     found = {}
-    for name, fn in (("firing_rate", spike_eval._firing_rates_nwc),
-                     ("correlation", spike_eval._per_trial_upper_corr),
-                     ("van_rossum", spike_eval._per_trial_upper_van_rossum)):
-        sides = {}
+    references = {e[0]: e[3] for e in extra}
+    for name, fn, n in (
+            ("firing_rate", spike_eval._firing_rates_nwc, trials),
+            ("correlation", spike_eval._per_trial_upper_corr, trials),
+            ("van_rossum", spike_eval._per_trial_upper_van_rossum, trials),
+            *(e[:3] for e in extra)):
+        sides, seconds = {}, {"card": 0.0, "cpu": 0.0}
+        errs, vs_float64 = [], {}
         for side, spikes in (("real", real[:n]), ("fake", fake[:n])):
-            sides[side] = (fn(spikes).cpu().numpy(),
-                           fn(spikes.cpu()).numpy())
-        errs, kls = [], {"card": [], "cpu": []}
-        for card, cpu in sides.values():
+            start = time.perf_counter()
+            card = fn(spikes).cpu().numpy()
+            middle = time.perf_counter()
+            cpu = fn(spikes.cpu()).numpy()
+            seconds["card"] += middle - start
+            seconds["cpu"] += time.perf_counter() - middle
+            sides[side] = card, cpu
             check(np.array_equal(np.isnan(card), np.isnan(cpu)),
                   f"{name}: NaN masks differ between the card and the CPU")
             if name == "van_rossum":  # on d**2, over its largest
                 errs.append(float(np.nanmax(np.abs(card ** 2 - cpu ** 2))
                                   / np.nanmax(cpu ** 2)))
+            elif references.get(name) is not None:  # over the scale
+                exact, scale = references[name](spikes.cpu().numpy())
+                errs.append(float(np.nanmax(np.abs(card - cpu) / scale)))
+                for k, x in (("card", card), ("cpu", cpu)):
+                    vs_float64[k] = max(vs_float64.get(k, 0.0), float(
+                        np.nanmax(np.abs(x - exact) / scale)))
+            elif name in references:  # over its largest
+                errs.append(float(np.nanmax(np.abs(card - cpu))
+                                  / max(np.nanmax(np.abs(cpu)), 1e-30)))
             else:
                 errs.append(float(np.nanmax(np.abs(card - cpu)))
                             if np.isfinite(cpu).any() else 0.0)
+        kls = {}
         for k, where in (("card", 0), ("cpu", 1)):
             r, f = sides["real"][where], sides["fake"][where]
             if name == "firing_rate":  # per neuron, over the trials
@@ -1821,7 +1962,9 @@ def stats_card_vs_cpu(real, fake):
               f"{name}: the KLs' NaN masks differ")
         diff = np.abs(kls["card"] - kls["cpu"])
         found[name] = dict(
-            max_err=max(errs),
+            trials=n, seconds=seconds, max_err=max(errs),
+            max_err_by_side=dict(zip(sides, errs)),
+            **({"vs_float64": vs_float64} if vs_float64 else {}),
             kl_mean_card=float(np.nanmean(kls["card"])),
             kl_mean_cpu=float(np.nanmean(kls["cpu"])),
             kl_max_diff=float(np.nanmax(diff)) if np.isfinite(
@@ -1834,12 +1977,43 @@ def stats_card_vs_cpu(real, fake):
     check(found["van_rossum"]["max_err"] <= STAT_VR_RTOL,
           f"van Rossum d**2: card vs CPU {found['van_rossum']['max_err']} "
           f"of the largest")
+    for name, *_ in extra:
+        bound_, of = ((STAT_CORR_TOL, "of its scale")
+                      if references[name] is not None
+                      else (STAT_VR_RTOL, "of the largest"))
+        check(found[name]["max_err"] <= bound_,
+              f"{name}: card vs CPU {found[name]['max_err']} {of}")
     for name, f in found.items():
         check(abs(f["kl_mean_card"] - f["kl_mean_cpu"]) <= STAT_KL_TOL
               or not np.isfinite(f["kl_mean_cpu"]),
               f"{name}: mean KL {f['kl_mean_card']} on the card, "
               f"{f['kl_mean_cpu']} on the CPU")
     return found
+
+
+def _metrics_cli(output_dir, *extra) -> dict:
+    """``python -m calciumgan_tpu_torch.compute_metrics --device cuda`` on
+    ``output_dir`` in-process, the launch counts set to 0 just before it:
+    its results, config, launches, plain calls, seconds by stage, and its
+    seconds and peak device memory in all."""
+    import torch
+    from calciumgan_tpu_torch import compute_metrics
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    torch.cuda.reset_peak_memory_stats()
+    oasis_cuda.launches.clear()
+    oasis_torch.calls = 0
+    config, options = compute_metrics.parse_args(
+        ["--output_dir", output_dir, "--device", "cuda", "--verbose", "0",
+         "--seed", str(SEED), *extra])
+    stages = {}
+    start = time.perf_counter()
+    results = compute_metrics.main(config, seconds=stages, **options)
+    torch.cuda.synchronize()
+    return dict(results=results, config=config,
+                seconds=time.perf_counter() - start,
+                launches=dict(oasis_cuda.launches),
+                plain_calls=oasis_torch.calls, stages=stages,
+                peak_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def phase_evaluation(smi, work, train_run):
@@ -1850,10 +2024,8 @@ def phase_evaluation(smi, work, train_run):
 
     import numpy as np
     import torch
-    from calciumgan_tpu_torch import compute_metrics
     from calciumgan_tpu_torch.eval import spike_eval
     from calciumgan_tpu_torch.ops import oasis as dispatch
-    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
     from calciumgan_tpu_torch.ops import spike_metrics as sm
     from calciumgan_tpu_torch.utils import h5, io
     from calciumgan_tpu_torch.utils.summary import Summary
@@ -1865,24 +2037,8 @@ def phase_evaluation(smi, work, train_run):
         cfg.validation_cache, "spikes") == (N, T, C),
         f"run directory: {h5.get_shape(filename, 'signals')}")
 
-    def metrics_cli(output_dir, *extra):
-        """The CLI in-process: its results, config, launches, seconds."""
-        oasis_cuda.launches.clear()
-        oasis_torch.calls = 0
-        config, options = compute_metrics.parse_args(
-            ["--output_dir", output_dir, "--device", "cuda", "--verbose",
-             "0", "--seed", str(SEED), *extra])
-        stages = {}
-        start = time.perf_counter()
-        results = compute_metrics.main(config, seconds=stages, **options)
-        torch.cuda.synchronize()
-        return dict(results=results, config=config,
-                    seconds=time.perf_counter() - start,
-                    launches=dict(oasis_cuda.launches),
-                    plain_calls=oasis_torch.calls, stages=stages)
-
     # 1. the main path: one epoch file of 1000 x 2048 x 102
-    main_run = metrics_cli(run)
+    main_run = _metrics_cli(run)
     launches = main_run["launches"]
     results = main_run["results"][epoch]
     with open(os.path.join(run, "metrics", "metrics.json")) as f:
@@ -1973,7 +2129,7 @@ def phase_evaluation(smi, work, train_run):
         fake=float(fake.sum() / (EVAL_CPU_TRIALS * C)))
 
     # 5. the unbroken chain: the training phase's own run, every epoch
-    chain = metrics_cli(train_run, "--all_epochs")
+    chain = _metrics_cli(train_run, "--all_epochs")
     check(sorted(chain["results"]) == [0, 1, 2]
           and chain["config"].num_samples == VAL_ROWS
           and chain["plain_calls"] == 0
@@ -3453,56 +3609,14 @@ def _dp_rank(config, layout, real):
                 epoch_s=[c["s"] for c in spy.calls["train_epoch"]])
 
 
-def _dp_step_loop(layout, real):
-    """Steps/s of the flagship step (bfloat16, as phase 6 trains it) on
-    this rank's rows of the global batch ``real``, each step's draws its
-    share of ``Draws(SEED, step)``: one rate per timed window, the card
-    synchronised at each window's ends. In a process without a group, the
-    one-GPU run."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-    from calciumgan_tpu_torch.algorithms import get_algorithm
-    from calciumgan_tpu_torch.algorithms.gan import Draws, shard_draws
-    from calciumgan_tpu_torch.models import get_models
-    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
-    dev = layout.device
-    cfg = dataclasses.replace(flagship_config(), batch_size=len(real))
-    algo = get_algorithm(cfg, *get_models(
-        cfg, rng=torch.Generator().manual_seed(SEED), device=dev))
-    state = algo.init_state()
-    local = torch.from_numpy(np.ascontiguousarray(
-        mesh_lib.rows_of(real, rank, world))).to(dev)
-    counter = 0
-
-    def steps(n: int) -> None:
-        nonlocal counter
-        for _ in range(n):
-            algo.train_step(state, local, shard_draws(
-                Draws(SEED, counter, dev), rank, world, len(local)))
-            counter += 1
-        torch.cuda.synchronize(dev)
-
-    steps(DP_SCALING_WARMUP)
-    rates = []
-    for _ in range(DP_SCALING_WINDOWS):
-        start = time.perf_counter()
-        steps(DP_SCALING_STEPS)
-        rates.append(DP_SCALING_STEPS / (time.perf_counter() - start))
-    return rates
-
-
 def _dp_scaling(real, count: int) -> dict:
-    """:func:`_dp_step_loop` on one GPU in this process (no group, as a
-    one-GPU run trains) and on ``count`` GPUs over NCCL through the
-    library's launcher, in the order 1, count, count, 1: rank 0's rates
-    by launch, their median, least and most, and the medians' ratio."""
-    import statistics
-
+    """Phase 15's step loop (:func:`_par_step_loop`, phase 14's
+    ``DP_SCALING`` windows) of the flagship recipe on one GPU in this
+    process (no group, as a one-GPU run trains) and on ``count`` GPUs over
+    NCCL through the library's launcher (:func:`_loop_rank`), in the order
+    1, count, count, 1: rank 0's rates by launch, their median, least and
+    most (:func:`_median_rates`), and the medians' ratio."""
+    import torch
     from calciumgan_tpu_torch.parallel import launch as launch_lib
     from calciumgan_tpu_torch.parallel import mesh as mesh_lib
     rates = {1: [], count: []}
@@ -3510,21 +3624,32 @@ def _dp_scaling(real, count: int) -> dict:
         layout = mesh_lib.create_mesh(world, devices=[
             f"cuda:{i}" for i in range(world)])
         if world == 1:
-            rates[1].append(_dp_step_loop(layout, real))
+            found = _par_step_loop(torch.device("cuda:0"), real, T, 10,
+                                   DP_SCALING)
         else:
-            rates[world].append(launch_lib.launch(
-                _dp_step_loop, layout.devices, "nccl", args=(layout, real),
-                timeout=DP_TIMEOUT_S)[0])
-    out = {}
-    for world, runs in rates.items():
-        flat = [r for run in runs for r in run]
-        out[str(world)] = dict(
-            steps_per_s_by_launch=runs, median=statistics.median(flat),
-            least=min(flat), most=max(flat),
-            timed_steps=len(flat) * DP_SCALING_STEPS,
-            rows_a_rank=len(real) // world)
+            found = launch_lib.launch(
+                _loop_rank, layout.devices, "nccl", args=(layout, real),
+                timeout=DP_TIMEOUT_S)[0]
+        rates[world].append(found["rates"])
+    out = {str(world): dict(_median_rates(runs),
+                            timed_steps=sum(map(len, runs))
+                            * DP_SCALING_STEPS,
+                            rows_a_rank=len(real) // world)
+           for world, runs in rates.items()}
     out["speedup_of_medians"] = out[str(count)]["median"] / out["1"]["median"]
     return out
+
+
+def _loop_rank(layout, real) -> dict:
+    """A rank of phase 14's scaling run: :func:`_par_step_loop` of the
+    flagship recipe on its rows of ``real`` in ``DP_SCALING``'s
+    windows."""
+    import torch
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.init_groups(layout)
+    return _par_step_loop(layout.device, real, T, 10, DP_SCALING)
 
 
 def _free_port() -> int:
@@ -3787,6 +3912,9 @@ def _layout_steps(real, dev, frames: int, m: int, precisions, **fields):
             Draws(SEED, 0, dev), di, de, len(local)))
         counted = dict(calls=dict(mesh_lib.collectives),
                        bytes=dict(mesh_lib.collective_bytes))
+        buffers = [b.detach().cpu().numpy()
+                   for net in (state.generator, state.discriminator)
+                   for b in net.module.buffers()]
         moments = {}
         for net in ("generator", "discriminator"):
             ns = getattr(state, net)
@@ -3800,6 +3928,10 @@ def _layout_steps(real, dev, frames: int, m: int, precisions, **fields):
         found[name] = dict(logs={k: float(v) for k, v in logs.items()},
                            collectives_a_step=counted,
                            moments=moments if mesh_lib.process_index() == 0
+                           else None,
+                           buffers_digest=hashlib.sha256(b"".join(
+                               b.tobytes() for b in buffers)).hexdigest(),
+                           buffers=buffers if mesh_lib.process_index() == 0
                            else None)
         del algo, state
     torch.cuda.empty_cache()
@@ -3831,6 +3963,23 @@ def mlp_batch():
         (MLP_BATCH,) + MLP_FIELDS["signal_shape"]).astype(np.float32)
 
 
+class cudnn_deterministic:
+    """``torch.backends.cudnn.deterministic`` on and ``benchmark`` off for
+    the length of a ``with``, then as they were."""
+
+    def __enter__(self):
+        import torch
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        import torch
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.saved
+
+
 def _par_rank(config, layout, real, frames: int, m: int):
     """One of phase 15's ranks: the step at learning rate 0
     (:func:`_layout_steps`; float32 alone on a time axis; on a model axis
@@ -3847,6 +3996,11 @@ def _par_rank(config, layout, real, frames: int, m: int):
     mesh_lib.init_groups(layout)
     precisions = ("f32",) if layout.time_parallelism > 1 else ("f32", "bf16")
     steps, shards = _layout_steps(real, layout.device, frames, m, precisions)
+    deterministic = None
+    if layout.time_parallelism > 1:
+        with cudnn_deterministic():
+            deterministic, _ = _layout_steps(real, layout.device, frames, m,
+                                             precisions)
     mlp_steps = mlp_shards = None
     if layout.model_parallelism > 1:
         mlp_steps, mlp_shards = _layout_steps(
@@ -3860,7 +4014,9 @@ def _par_rank(config, layout, real, frames: int, m: int):
         metrics = train.main(config, return_metrics=True, mesh=layout)
     torch.cuda.synchronize()
     return dict(rank=mesh_lib.process_index(), steps=steps, shards=shards,
-                mlp_steps=mlp_steps, mlp_shards=mlp_shards, metrics=metrics, launches=dict(oasis_cuda.launches),
+                steps_cudnn_deterministic=deterministic,
+                mlp_steps=mlp_steps, mlp_shards=mlp_shards, metrics=metrics,
+                launches=dict(oasis_cuda.launches),
                 plain_calls=oasis_torch.calls,
                 collectives=dict(mesh_lib.collectives),
                 peak_bytes=torch.cuda.max_memory_allocated(layout.device),
@@ -3972,12 +4128,15 @@ def long_rungs(traces) -> dict:
     return found
 
 
-def _par_step_loop(dev, real, frames: int, m: int) -> dict:
-    """Steps/s of the recipe's step (bfloat16) on ``frames``-frame
-    sequences, this process's rows and frames of ``real`` on the layout its
-    groups hold (none: one GPU), each step's draws its data index's share
-    of ``Draws(SEED, step)``: one rate per timed window, and the peak
-    device memory."""
+def _par_step_loop(dev, real, frames: int, m: int, loop=PAR_LOOP,
+                   **fields) -> dict:
+    """Steps/s of the recipe's step (bfloat16; ``fields`` over the
+    flagship configuration) on ``frames``-frame sequences, this process's
+    rows and frames of ``real`` on the layout its groups hold (none: one
+    GPU), each step's draws its data index's share of ``Draws(SEED,
+    step)``: one rate per timed window, and the peak device memory.
+    ``loop``: steps a window, windows, untimed steps before them (phase
+    15's ``PAR_LOOP``, phase 14's ``DP_SCALING``)."""
     import dataclasses
 
     import numpy as np
@@ -3989,7 +4148,8 @@ def _par_step_loop(dev, real, frames: int, m: int) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = dataclasses.replace(flagship_config(), batch_size=len(real), m=m,
                               sequence_length=frames,
-                              signal_shape=(frames, 102))
+                              signal_shape=(frames, 102), **fields)
+    steps_a_window, windows, warmup = loop
     algo, _ = train.build_algorithm(cfg, dev)
     state = algo.init_state()
     di, de = mesh_lib.data_index(), mesh_lib.data_extent()
@@ -4005,30 +4165,56 @@ def _par_step_loop(dev, real, frames: int, m: int) -> dict:
             counter += 1
         torch.cuda.synchronize(dev)
 
-    steps(PAR_LOOP_WARMUP)
+    steps(warmup)
     rates = []
-    for _ in range(PAR_LOOP_WINDOWS):
+    for _ in range(windows):
         start = time.perf_counter()
-        steps(PAR_LOOP_STEPS)
-        rates.append(PAR_LOOP_STEPS / (time.perf_counter() - start))
+        steps(steps_a_window)
+        rates.append(steps_a_window / (time.perf_counter() - start))
     peak = torch.cuda.max_memory_allocated(dev)
     del algo, state, local
     torch.cuda.empty_cache()
     return dict(rates=rates, peak_gb=peak / 2**30)
 
 
-def _nccl_rank(layout, real, frames: int, m: int, precisions):
+def _nccl_rank(layout, real, frames: int, m: int, precisions, fields,
+               timed: bool):
     """A rank of ``layout`` over NCCL: the step at learning rate 0 in
-    ``precisions`` (:func:`_layout_steps`), then the step loop at m 10
+    ``precisions`` with ``fields`` over the flagship configuration
+    (:func:`_layout_steps`), then, where ``timed``, the step loop at m 10
     (:func:`_par_step_loop`)."""
     import torch
     from calciumgan_tpu_torch.parallel import mesh as mesh_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh_lib.init_groups(layout)
-    steps, shards = _layout_steps(real, layout.device, frames, m, precisions)
-    return dict(steps=steps, shards=shards,
-                **_par_step_loop(layout.device, real, frames, 10))
+    steps, shards = _layout_steps(real, layout.device, frames, m, precisions,
+                                  **fields)
+    loop = (_par_step_loop(layout.device, real, frames, 10, **fields)
+            if timed else {})
+    return dict(steps=steps, shards=shards, **loop)
+
+
+def _statistics_vs_one_process(one, ranks, precisions) -> dict:
+    """The running statistics (every buffer) after the ranks' step: equal
+    bit for bit on every rank, and rank 0's within phase 11's bounds of
+    the one-process step's, in each of ``precisions``."""
+    import numpy as np
+    bounds = {"f32": STEP_F32_STATS_TOL, "bf16": STEP_BF16_STATS_TOL}
+    found = {}
+    for name in precisions:
+        digests = {r["steps"][name]["buffers_digest"] for r in ranks}
+        got, ref = ranks[0]["steps"][name]["buffers"], one[name]["buffers"]
+        check(len(ref) > 0 and len(got) == len(ref),
+              f"{name} step: {len(got)} buffers on the ranks, {len(ref)} "
+              f"in one process")
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+        check(len(digests) == 1 and err <= bounds[name],
+              f"{name} step's running statistics: {len(digests)} versions "
+              f"over {len(ranks)} ranks, {err} from one process")
+        found[name] = dict(buffers=len(ref), equal_on_every_rank=True,
+                           max_abs_err_vs_one_process=err)
+    return found
 
 
 def _median_rates(runs) -> dict:
@@ -4039,14 +4225,18 @@ def _median_rates(runs) -> dict:
 
 
 def phase_parallel_nccl(smi, work, records, real, one, lc_real, lc_one):
-    """Phase 15 (c), on four GPUs or more: data 2 x model 2 at the
-    flagship batch ``real`` (``one``: its one-process step), time 4 and
-    data 2 x time 2 at 16 x 16,384 frames (``lc_real``, ``lc_one``), over
-    NCCL in one launch each: the step at learning rate 0 against the one
-    process (the time layouts in float32), then the step loop (bfloat16, m
-    10) with every rank's peak memory, against the same loop on one GPU
-    without a group. One line a layout as it ends, with its speed-up over
-    the one-GPU loop run before the layouts; then ``main
+    """Phase 15 (c), on four GPUs or more: data 2 x model 2 and model 4 at
+    the flagship batch ``real`` (``one``: its one-process step), time 4
+    and data 2 x time 2 at 16 x 16,384 frames (``lc_real``, ``lc_one``),
+    over NCCL in one launch each: the step at learning rate 0 against the
+    one process (the time layouts in float32), then the step loop
+    (bfloat16, m 10) with every rank's peak memory, against the same loop
+    on one GPU without a group; and the recipe with ``batch_norm`` at data
+    2 x model 2, its step against the one process with BatchNorm and its
+    running statistics equal bit for bit on every rank and within phase
+    11's bounds of the one process's (not timed). One line a layout as it
+    ends, with its speed-up over the one-GPU loop run before the layouts;
+    then ``main
     --model_parallelism 2 --data_parallelism 2`` for 2 epochs over NCCL
     (:func:`_par_launch`'s checks, its spikes against the golden); then
     the one-GPU loop again, and the speed-ups over both one-GPU runs."""
@@ -4063,23 +4253,45 @@ def phase_parallel_nccl(smi, work, records, real, one, lc_real, lc_one):
             one_gpu[key].append(found)
 
     loop_one_gpu()
+    both = ("f32", "bf16")
+    bn = dict(batch_norm=True)
+    one_bn, _ = _layout_steps(real, torch.device("cuda:0"), T, 10, both,
+                              **bn)
+    # name: layout, batch, m, precisions, one process, fields, timed
     layouts = {"data2_model2": (mesh_lib.create_mesh(2, 2, gpus), "flagship",
-                                10, ("f32", "bf16"), one),
+                                10, both, one, {}, True),
                "time4": (mesh_lib.create_time_mesh(1, 4, gpus), "long", 0,
-                         ("f32",), lc_one),
+                         ("f32",), lc_one, {}, True),
                "data2_time2": (mesh_lib.create_time_mesh(2, 2, gpus), "long",
-                               0, ("f32",), lc_one)}
+                               0, ("f32",), lc_one, {}, True),
+               "model4": (mesh_lib.create_mesh(1, 4, gpus), "flagship", 10,
+                          both, one, {}, True),
+               "data2_model2_batch_norm": (mesh_lib.create_mesh(2, 2, gpus),
+                                           "flagship", 10, both, one_bn, bn,
+                                           False)}
     found = {}
-    for name, (layout, key, m, precisions, ref) in layouts.items():
+    for name, (layout, key, m, precisions, ref, fields,
+               timed) in layouts.items():
         batch, frames = batches[key]
-        ranks = launch_lib.launch(_nccl_rank, layout.devices, "nccl",
-                                  args=(layout, batch, frames, m, precisions),
-                                  timeout=PAR_TIMEOUT_S)
+        ranks = launch_lib.launch(
+            _nccl_rank, layout.devices, "nccl",
+            args=(layout, batch, frames, m, precisions, fields, timed),
+            timeout=PAR_TIMEOUT_S)
         found[name] = dict(
             layout=layout.shape, global_batch=[len(batch), frames],
-            step_vs_one_process=_step_vs_one_process(ref, ranks, precisions),
-            step_loop=_median_rates([ranks[0]["rates"]]),
-            peak_gb_by_rank=[r["peak_gb"] for r in ranks])
+            fields=fields, shards_rank0=ranks[0]["shards"],
+            step_vs_one_process=_step_vs_one_process(ref, ranks, precisions))
+        if name == "model4":
+            check(all(r["shards"] == MP4_SHARDS for r in ranks),
+                  f"model 4 shards {[r['shards'] for r in ranks]}")
+        if fields.get("batch_norm"):
+            found[name]["running_statistics"] = _statistics_vs_one_process(
+                ref, ranks, precisions)
+        if not timed:
+            report(f"phase 15 nccl {name}", card=smi, **found[name])
+            continue
+        found[name].update(step_loop=_median_rates([ranks[0]["rates"]]),
+                           peak_gb_by_rank=[r["peak_gb"] for r in ranks])
         before = _median_rates([one_gpu[key][0]["rates"]])
         report(f"phase 15 nccl {name}", card=smi, **found[name],
                one_gpu_before=dict(before, peak_gb=one_gpu[key][0]["peak_gb"]),
@@ -4096,6 +4308,8 @@ def phase_parallel_nccl(smi, work, records, real, one, lc_real, lc_one):
     loop_one_gpu()
     for name in layouts:
         key = layouts[name][1]
+        if "step_loop" not in found[name]:
+            continue
         base = _median_rates([r["rates"] for r in one_gpu[key]])
         found[name]["one_gpu"] = dict(
             base, peak_gb=[r["peak_gb"] for r in one_gpu[key]])
@@ -4135,7 +4349,7 @@ def _long_windows(work):
     return records, real, one, write_s
 
 
-def phase_time_parallel(work):
+def phase_time_parallel(work, spawn: bool = True):
     """Phase 15 (b), time parallelism on one card: ``main
     --time_parallelism 2`` in two gloo ranks on ``cuda:0`` on seeded
     windows of 102 x 16,384 frames, the step at m 0 against the
@@ -4144,9 +4358,13 @@ def phase_time_parallel(work):
     that the dispatch climbs on rank 0's last sampled traces
     (:func:`long_rungs`); its plain version takes one to two minutes a
     rung at these frames, the float64 golden most of one, so each runs in
-    a spawned process of its own while the script goes on, and
+    a spawned process of its own while the script goes on
+    (:func:`spawn_time_parallel`, here unless ``spawn`` is off: the whole
+    script first times phase 16 on the idle card), and
     :func:`await_time_parallel` waits for them. Returns the findings, the
-    global batch, the one-process step and the pending results."""
+    global batch, the one-process step and what the spawned processes
+    take."""
+    import torch
     from calciumgan_tpu_torch.parallel import mesh as mesh_lib
     start = time.perf_counter()
     records, real, one, write_s = _long_windows(work)
@@ -4158,12 +4376,31 @@ def phase_time_parallel(work):
         "--save_generated", "last")
     tp["step_vs_one_process_m0"] = _step_vs_one_process(
         one, ranks, ("f32",))
+    # the same comparison with cuDNN held to deterministic algorithms on
+    # both sides: whether the deviation is cuDNN's choice of algorithms
+    with cudnn_deterministic():
+        one_det, _ = _layout_steps(real, torch.device("cuda"), LC_T, 0,
+                                   ("f32",))
+    tp["step_vs_one_process_m0_cudnn_deterministic"] = _step_vs_one_process(
+        one_det, ranks, ("f32",), key="steps_cudnn_deterministic")
     tp["write_records_s"] = write_s
     samples = ranks[0]["samples"]
+    time_part = dict(findings=tp, real=real, one=one, samples=samples,
+                     rungs=long_rungs(samples[-1][0]))
+    tp["seconds_before_the_twin"] = time.perf_counter() - start
+    if spawn:
+        spawn_time_parallel(time_part)
+    return time_part
+
+
+def spawn_time_parallel(time_part) -> None:
+    """Start :func:`phase_time_parallel`'s spawned comparisons: the plain
+    version at each rung on rank 0's last sampled traces, the golden on
+    every sampled trace."""
+    samples, rungs = time_part["samples"], time_part["rungs"]
     last = samples[-1][0]
-    rungs = long_rungs(last)
     pool = _spawned_pool(len(rungs) + 1)
-    pending = dict(
+    time_part["pending"] = dict(
         pool=pool, rungs=rungs,
         kernel_vs_plain={depth: pool.submit(
             _held_long, last, rung["prod"], rung["variant"],
@@ -4172,8 +4409,6 @@ def phase_time_parallel(work):
         sampled_vs_golden=pool.submit(
             _timed_golden_of_samples, samples, (102, LC_T),
             "time-parallel sampling epochs"))
-    tp["seconds_before_the_twin"] = time.perf_counter() - start
-    return dict(findings=tp, real=real, one=one, pending=pending)
 
 
 def await_time_parallel(time_part) -> dict:
@@ -4281,7 +4516,8 @@ def phase_model_time_parallel(smi, work, records, signals, time_part):
 
     # (b) the time-parallel run's pending comparisons
     beside = "none" if "pending" not in time_part else (
-        "(a): the plain versions of (b) ran beside it on cuda:0")
+        "(a): the plain versions of (b) (and in the whole script phase "
+        "16's) ran beside it on cuda:0")
     tp = await_time_parallel(time_part)
     torch.cuda.synchronize()
 
@@ -4300,12 +4536,324 @@ def phase_model_time_parallel(smi, work, records, signals, time_part):
                 tp_launches=tp["sampling_launches_rank0"])
 
 
+# ---------------------------------------------------------------------------
+# phase 16: a long-sequence run's evaluation
+# ---------------------------------------------------------------------------
+
+def _timed_golden(traces) -> tuple:
+    """:func:`golden_spikes` of host ``traces`` and its seconds a trace."""
+    start = time.perf_counter()
+    spikes = golden_spikes(traces)
+    return spikes, (time.perf_counter() - start) / max(1, len(traces))
+
+
+def _covariance_f64(spikes_nwc) -> tuple:
+    """``spike_eval._per_trial_upper_cov`` of host NWC spikes in float64
+    (the bin counts are integers, exact in either precision), and each
+    pair's ``sigma_i sigma_j``: a :func:`stats_card_vs_cpu` reference."""
+    import numpy as np
+    from calciumgan_tpu_torch.ops import spike_metrics as sm
+    counts = sm.bin_spike_counts(np.ascontiguousarray(
+        spikes_nwc.transpose(0, 2, 1))).numpy().astype(np.float64)
+    x = counts - counts.mean(-1, keepdims=True)
+    cov = x @ x.transpose(0, 2, 1) / (counts.shape[-1] - 1)
+    sigma = np.sqrt(np.diagonal(cov, axis1=1, axis2=2))
+    upper = np.triu_indices(cov.shape[-1], 1)
+    scale = sigma[:, upper[0]] * sigma[:, upper[1]]
+    return cov[:, upper[0], upper[1]], np.where(scale > 0, scale, np.nan)
+
+
+def _vp_of_neurons(spikes_nwc):
+    """``spike_eval._per_trial_upper_vp`` of the first ``LE_VP_NEURONS``
+    neurons: the CPU's DP takes seconds a trial at these frames for each
+    32 neurons (it grows with the square of the neurons and of the spike
+    count)."""
+    from calciumgan_tpu_torch.eval import spike_eval
+    return spike_eval._per_trial_upper_vp(spikes_nwc[..., :LE_VP_NEURONS])
+
+
+def _statistic_costs(real, fake) -> dict:
+    """Each statistic's tensor program on the card over the trials of both
+    sides (NWC spikes on the card), in ``spike_eval.chunked``'s calls as
+    ``compute_metrics`` makes them (128 trials a call; Victor-Purpura 16 a
+    call, on ``LE_VP_TRIALS`` trials): seconds, and peak device memory in
+    all and above what was held before it."""
+    import torch
+    from calciumgan_tpu_torch.eval import spike_eval
+    found = {}
+    for name, fn, n, chunk in (
+            ("firing_rate", spike_eval._firing_rates_nwc, len(fake), 128),
+            ("covariance", spike_eval._per_trial_upper_cov, len(fake), 128),
+            ("correlation", spike_eval._per_trial_upper_corr, len(fake), 128),
+            ("van_rossum", spike_eval._per_trial_upper_van_rossum, len(fake),
+             128),
+            ("victor_purpura", spike_eval._per_trial_upper_vp, LE_VP_TRIALS,
+             16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        for side in (real, fake):
+            spike_eval.chunked(fn, side[:n], chunk)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        found[name] = dict(trials=n, seconds=time.perf_counter() - start,
+                           peak_gb=peak / 2**30,
+                           above_held_gb=(peak - held) / 2**30)
+    return found
+
+
+def phase_long_evaluation(work, train_run=None) -> dict:
+    """Phase 16: a long-sequence run evaluated on the card, this part on an
+    idle card. A run directory of ``LE_TRIALS`` x ``LE_T`` x
+    ``LE_NEURONS`` (:func:`write_eval_run`; the generated side from
+    ``train_run``'s newest checkpoint, phase 15 (b)'s time-parallel run,
+    or without one seeded random weights), so that ``deconvolve_file``
+    takes one full chunk of 16,320 traces in each launch. (1)
+    ``compute_metrics --device cuda --covariance``: ``metrics.json``, the
+    launches by rung and ring storage, the seconds by stage and statistic,
+    the flag share per bit, peak memory. (2) The long kernel on the whole
+    chunk at every rung of ``_long_ladder(LE_T)``: its ms by CUDA events,
+    the flag share per bit (the rungs the dispatch climbed must be the
+    ones the depth flags ask for) and ``LE_PLAIN_ROWS`` rows of the
+    launch's outputs. (3) Each statistic's seconds and peak memory over
+    every trial. Then spawned processes hold those rows bit for bit to the
+    plain version (one a rung; one to two minutes a rung at these frames,
+    so the whole script runs phases 14 and 15 (a) meanwhile) and
+    ``LE_GOLDEN_TRACES`` traces of the file to the numpy float64 golden;
+    :func:`finish_long_evaluation` takes what this returns."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.eval import spike_eval
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.ops import oasis_cuda
+    from calciumgan_tpu_torch.utils import h5, io
+    N, C, frames = LE_TRIALS, LE_NEURONS, LE_T
+    chunk = spike_eval._CHUNK_TRACES_CUDA // C
+    check(chunk == N, f"{N} trials are not one chunk ({chunk}) of "
+                      f"deconvolve_file")
+    run = os.path.join(work, "long_eval_run")
+    cfg, epoch, setup_s = write_eval_run(run, train_run, N, frames, LE_BATCH,
+                                         C, on_card=True)
+    filename = io.load_generated_info(cfg)[epoch]["filename"]
+    check(h5.get_shape(filename, "signals") == (N, frames, C)
+          and h5.get_shape(cfg.validation_cache, "spikes") == (N, frames, C),
+          f"long run directory: {h5.get_shape(filename, 'signals')}")
+
+    # 1. the main path, on an idle card
+    main_run = _metrics_cli(run, "--covariance")
+    launches, results = main_run["launches"], main_run["results"][epoch]
+    with open(os.path.join(run, "metrics", "metrics.json")) as f:
+        saved = json.load(f)
+    check(list(main_run["results"]) == [epoch]
+          and saved["epochs"] == {str(epoch): results}
+          and sorted(results) == ["correlation_kl", "covariance_kl",
+                                  "firing_rate_kl", "van_rossum_kl"]
+          and saved["best_epoch"] == {k: epoch for k in results}
+          and main_run["config"].num_samples == N,
+          f"long run's metrics.json {saved}")
+    for key, value in results.items():
+        check(np.isfinite(value), f"{key} of the long run: {value}")
+    ladder = dispatch._long_ladder(frames)
+    storage = {d: oasis_cuda.launch_plan(d, True).storage for d in ladder}
+    climbed = launched("oasis_ar1_long_precise", launches)
+    expected = collections.Counter(f"oasis_ar1_long_precise/{storage[d]}"
+                                   for d in ladder[:climbed])
+    check(1 <= climbed <= len(ladder) and launches == dict(expected)
+          and main_run["plain_calls"] == 0,
+          f"long run's compute_metrics launched {launches}, plain calls "
+          f"{main_run['plain_calls']}")
+    stages = main_run["stages"][epoch]
+    check(stages.get("deconvolve/traces") == N * C,
+          f"deconvolve_file dispatched {stages.get('deconvolve/traces')}")
+    flag_share = {k: stages.get(f"deconvolve/{k}", 0) / (N * C)
+                  for k in ("flagged", "bit0", "bit1", "bit2")}
+
+    # 2. the kernel on the whole chunk at every rung, the card idle
+    signals = h5.get(filename, "signals")
+    traces = np.ascontiguousarray(signals.transpose(0, 2, 1)).reshape(
+        -1, frames)
+    del signals
+    y = torch.from_numpy(traces).cuda()
+    rows = np.sort(np.random.default_rng(SEED).choice(
+        len(traces), LE_PLAIN_ROWS, replace=False))
+    at = torch.from_numpy(rows).cuda()
+    rungs, launched_rows = {}, {}
+    for depth in ladder:
+        prod = dict(g=G, lam=0.0, s_min=S_MIN, depth=depth,
+                    merge_attempts=dispatch._MERGE_BUDGET, precise=True,
+                    flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD,
+                                                precise=True))
+        before = collections.Counter(oasis_cuda.launches)
+        c, s, redo = oasis_cuda.oasis_ar1_long(y, **prod)
+        variant = list(oasis_cuda.launches - before)
+        check_variant(dict(variant=variant),
+                      f"oasis_ar1_long_precise/{storage[depth]}",
+                      f"long kernel at the evaluation chunk, depth {depth}")
+        launched_rows[depth] = [x[at].cpu().numpy() for x in (c, s, redo)]
+        flags = redo.cpu().numpy()
+        del c, s, redo
+        rungs[depth] = dict(
+            prod=prod, variant=variant[0], shape=list(y.shape),
+            climbed=depth in ladder[:climbed],
+            kernel_ms=cuda_ms(lambda: oasis_cuda.oasis_ar1_long(y, **prod),
+                              reps=2),
+            flagged_share=float((flags != 0).mean()),
+            bit_share={f"bit{b}": float(((flags >> b) & 1).mean())
+                       for b in range(3)},
+            **bound(*y.shape, True))
+    del y, at
+    torch.cuda.empty_cache()
+    # the dispatch climbs while more than _ESCALATE_FRAC of the traces
+    # overflow their depth (bit 0), and stops at the first rung that does
+    # not or at the ladder's end
+    asked = next((i + 1 for i, d in enumerate(ladder) if rungs[d][
+        "bit_share"]["bit0"] <= dispatch._ESCALATE_FRAC), len(ladder))
+    check(asked == climbed, f"climbed {climbed} rungs, the depth flags ask "
+                            f"for {asked}: {rungs}")
+
+    # 3. each statistic over every trial, on the card still idle
+    dev = torch.device("cuda")
+    real = spike_eval._load_spikes(cfg, cfg.validation_cache, N, dev)
+    fake = spike_eval._load_spikes(cfg, filename, N, dev)
+    spikes_per_train = {side: dict(mean=float(x.sum() / (N * C)),
+                                   most=int(x.sum(1).max()))
+                        for side, x in (("real", real), ("fake", fake))}
+    costs = _statistic_costs(real, fake)
+    del real, fake
+    torch.cuda.empty_cache()
+
+    # spawned: each rung's rows against the plain version, traces of the
+    # file against the golden
+    pool = _spawned_pool(len(ladder) + LE_GOLDEN_WORKERS)
+    pick = np.sort(np.random.default_rng(SEED + 1).choice(
+        len(traces), LE_GOLDEN_TRACES, replace=False))
+    return dict(
+        cfg=cfg, filename=filename, traces=traces, pick=pick, pool=pool,
+        held={d: pool.submit(
+            _plain_vs_launch, traces[rows], launched_rows[d],
+            rungs[d]["prod"],
+            f"long kernel at the evaluation chunk, depth {d}")
+            for d in ladder},
+        golden=[pool.submit(_timed_golden, part) for part in
+                np.array_split(traces[pick], LE_GOLDEN_WORKERS)],
+        findings=dict(
+            run=dict(trials=N, shape=[frames, C], traces=N * C,
+                     container=os.path.splitext(filename)[1],
+                     generated_by=(f"{os.path.basename(train_run)}'s epoch "
+                                   f"{epoch} checkpoint" if train_run
+                                   else "seeded random weights"),
+                     setup_s=setup_s),
+            kls_of_seeded_synthetic_data=results,
+            seconds_per_epoch_file=main_run["seconds"],
+            peak_gb_compute_metrics=main_run["peak_gb"], stages_s=stages,
+            launches=launches, rungs_climbed=climbed, ladder=list(ladder),
+            flag_share=flag_share, kernel_by_depth=rungs,
+            spikes_per_train=spikes_per_train,
+            statistics_all_trials=costs))
+
+
+def finish_long_evaluation(smi, part) -> dict:
+    """Phase 16 (:func:`phase_long_evaluation`) while and once its spawned
+    processes end: every spike of the file against the C++ float64 kernel,
+    the statistics on the card against the CPU on ``LE_CPU_TRIALS``
+    trials (Victor-Purpura on ``LE_VP_TRIALS`` trials of ``LE_VP_NEURONS``
+    neurons), ``deconvolve_file``'s resume (a copy of the epoch file whose
+    ``_spikes_partial_c160`` holds one chunk of ones ends with the same
+    spikes), then the plain version's and the golden's results. Its line;
+    the kernel's findings for the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.eval import spike_eval
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.utils import h5
+    N, C, frames = LE_TRIALS, LE_NEURONS, LE_T
+    cfg, filename, traces = part["cfg"], part["filename"], part["traces"]
+    found = part["findings"]
+    try:
+        spikes = h5.get(filename, "spikes")
+        check(spikes.shape == (N, frames, C) and spikes.dtype == np.int8
+              and set(np.unique(spikes).tolist()) <= {0, 1},
+              f"long spikes {spikes.shape} {spikes.dtype}")
+        ours = np.ascontiguousarray(spikes.transpose(0, 2, 1)).reshape(
+            -1, frames)
+        start = time.perf_counter()
+        vs_cxx = int((ours != dispatch._exact_spikes_host(
+            traces, G, S_MIN, THRESHOLD)).sum())
+        cxx_s = time.perf_counter() - start
+        check(vs_cxx == 0,
+              f"long run: {vs_cxx} spike mismatches vs the C++ float64 kernel")
+
+        dev = torch.device("cuda")
+        real = spike_eval._load_spikes(cfg, cfg.validation_cache,
+                                       LE_CPU_TRIALS, dev)
+        fake = spike_eval._load_spikes(cfg, filename, LE_CPU_TRIALS, dev)
+        versus = stats_card_vs_cpu(real, fake, LE_CPU_TRIALS, extra=(
+            ("covariance", spike_eval._per_trial_upper_cov, LE_CPU_TRIALS,
+             _covariance_f64),
+            ("victor_purpura", _vp_of_neurons, LE_VP_TRIALS, None)))
+        del real, fake
+
+        copy = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.dirname(filename))), "long_eval_resume",
+            os.path.basename(filename))
+        os.makedirs(os.path.dirname(copy))
+        chunk = spike_eval._CHUNK_TRACES_CUDA // C
+        staging = f"_spikes_partial_c{chunk}"
+        h5.write(copy, {"signals": np.ascontiguousarray(
+            traces.reshape(N, C, frames).transpose(0, 2, 1))})
+        h5.write(copy, {staging: np.ones((chunk, frames, C), np.int8)})
+        resume_s = spike_eval.deconvolve_file(cfg, copy, device="cuda")
+        resumed = h5.get(copy, "spikes")
+        check(np.array_equal(resumed, spikes)
+              and not any(k.startswith("_spikes_partial")
+                          for k in h5.keys(copy)),
+              f"resumed spikes differ from the straight run on "
+              f"{int((resumed != spikes).sum())} frames")
+        h5.remove(copy)
+
+        waited = time.perf_counter()
+        plain = {d: f.result() for d, f in part["held"].items()}
+        parts = [f.result() for f in part["golden"]]
+        waited_s = time.perf_counter() - waited
+    finally:
+        part["pool"].shutdown(cancel_futures=True)
+    pick = part["pick"]
+    vs_golden = int((ours[pick] != np.concatenate([p[0] for p in parts]))
+                    .sum())
+    check(vs_golden == 0,
+          f"long run: {vs_golden} spike mismatches vs the numpy golden")
+    rungs = found["kernel_by_depth"]
+    for d, r in rungs.items():
+        r["plain"] = dict(strip(plain[d]), rows=LE_PLAIN_ROWS)
+        del r["prod"]
+    torch.cuda.synchronize()
+    report("phase 16 long evaluation", card=smi, **found,
+           spikes=dict(generated=int(spikes.sum()),
+                       cxx_traces=len(traces), cxx_s=cxx_s,
+                       mismatches_vs_cxx=vs_cxx, golden="oasis_ref",
+                       golden_traces=LE_GOLDEN_TRACES,
+                       golden_s_per_trace=[p[1] for p in parts],
+                       mismatches_vs_golden=vs_golden),
+           card_vs_cpu=versus,
+           resume=dict(staged=staging, chunks_staged=1, seconds=resume_s),
+           waited_for_the_spawned_s=waited_s)
+    return dict(launches=found["launches"], shape=[N * C, frames],
+                ms_by_depth={d: r["kernel_ms"] for d, r in rungs.items()},
+                plain_ms_by_depth={d: r["plain"]["plain_ms"]
+                                   for d, r in rungs.items()},
+                plain_rows=LE_PLAIN_ROWS,
+                max_abs_err=max(r["plain"]["max_abs_err"]
+                                for r in rungs.values()),
+                **bound(N * C, frames, True))
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
     if argv not in ([], ["--phase", "14"], ["--phase", "15"],
-                    ["--phase", "15-nccl"]):
-        print("usage: chip_smoke.py [--phase 14|15|15-nccl]",
+                    ["--phase", "15-nccl"], ["--phase", "16"]):
+        print("usage: chip_smoke.py [--phase 14|15|15-nccl|16]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4324,6 +4872,11 @@ def main(argv) -> int:
         "calciumgan_tpu_torch is not the checkout's")
 
     smi = phase_device(root)
+    if argv == ["--phase", "16"]:  # generated by seeded random weights
+        with tempfile.TemporaryDirectory() as work:
+            finish_long_evaluation(smi, phase_long_evaluation(work))
+        print(smi)
+        return ok_line()
     if argv:  # phase 14 or 15 alone, on a training set of its own
         with tempfile.TemporaryDirectory() as work:
             records = os.path.join(work, "records")
@@ -4363,27 +4916,35 @@ def main(argv) -> int:
                                       training["head"])
         in_graph = phase_in_graph(smi, config, variables)
         sweep = phase_sweep(smi, work, training["records"])
-        # phase 15's time-parallel run first: on one GPU its long kernel's
+        # phase 15's time-parallel run first, then phase 16 on its
+        # checkpoint while the card is idle: on one GPU both phases' long
         # plain versions run beside phase 14 and phase 15's model-parallel
         # run (no speed figure there); on several, they end before phase
         # 14's step loops are timed
-        time_part = phase_time_parallel(work)
-        beside = "phase 15 (b)'s plain versions, on cuda:0"
+        time_part = phase_time_parallel(work, spawn=False)
+        long_part = phase_long_evaluation(work, os.path.join(work, "tp_run"))
+        spawn_time_parallel(time_part)
+        beside = "phase 15 (b)'s and phase 16's plain versions, on cuda:0"
+        long_eval = None
         if torch.cuda.device_count() > 1:
             await_time_parallel(time_part)
+            long_eval = finish_long_evaluation(smi, long_part)
             beside = "none"
         parallel = phase_data_parallel(
             smi, work, training["records"], training["head_128"],
             training["timing"]["steps_per_s_host"], beside)
         model_time = phase_model_time_parallel(
             smi, work, training["records"], training["head_128"], time_part)
+        if long_eval is None:
+            long_eval = finish_long_evaluation(smi, long_part)
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
     print(smi)
     source = "calciumgan_tpu_torch/csrc/oasis_ar1.cu"
     long_counts = (collections.Counter(recordings["long_counts"])
-                   + collections.Counter(model_time["tp_launches"]))
+                   + collections.Counter(model_time["tp_launches"])
+                   + collections.Counter(long_eval["launches"]))
     # no single PyTorch call computes OASIS: library_ms is null
     print(json.dumps({"kernels": [
         {"name": "oasis_ar1", "route": "cuda", "source": source,
@@ -4457,14 +5018,21 @@ def main(argv) -> int:
              recordings["long"],
              path="spike_train_inference --device cuda; main "
                   "--time_parallelism 2 (rank 0's sampling epochs, 102 x "
-                  f"{LC_T})",
+                  f"{LC_T}); compute_metrics on a long run (one chunk of "
+                  f"{LE_TRIALS * LE_NEURONS} x {LE_T})",
              **path_launches("oasis_ar1_long_precise", long_counts),
              launches_by_path={
                  "spike_train_inference --device cuda": launched(
                      "oasis_ar1_long_precise", recordings["long_counts"]),
                  "main --time_parallelism 2 (rank 0 sampling epochs)":
                      launched("oasis_ar1_long_precise",
-                              model_time["tp_launches"])})}]}))
+                              model_time["tp_launches"]),
+                 "compute_metrics on a long run": launched(
+                     "oasis_ar1_long_precise", long_eval["launches"])},
+             evaluation_chunk=dict(
+                 long_eval,
+                 launches=path_launches("oasis_ar1_long_precise",
+                                        long_eval["launches"])))}]}))
     return ok_line()
 
 

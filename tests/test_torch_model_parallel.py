@@ -75,6 +75,9 @@ CASES = {"tiny": dict(n_critic=1),
          "gan": dict(algorithm="gan"),
          "batch_norm": dict(n_critic=1, batch_norm=True)}
 EVAL_MASK = np.array([1, 1, 1, 1, 1, 0, 0, 0], np.float32)
+# rows of a BatchNorm pass on model peers (N, C, W)
+BN_ROWS = np.random.default_rng(7).normal(
+    1.0, 2.0, (8, 4, 16)).astype(np.float32)
 
 
 # ---- layouts -------------------------------------------------------------
@@ -288,9 +291,13 @@ def rank_results(jax_steps, runs):
     for name in ("mp", "resumed"):
         two.append(((name, "train"), ranks.rank_train,
                     (runs["configs"][name], layout)))
+    two.append((("batch_norm", "peers"), ranks.rank_batch_norm_peers,
+                (BN_ROWS, 2)))
     ref = jax_steps["tiny"]
     four = [(("tiny", "step"), ranks.rank_parallel_step,
-             (ref["sizes"], ref["real"], 2, 1, ref["train_draws"]))]
+             (ref["sizes"], ref["real"], 2, 1, ref["train_draws"])),
+            (("batch_norm", "peers"), ranks.rank_batch_norm_peers,
+             (BN_ROWS, 2))]
     return dict(
         two=launch_lib.launch(ranks.rank_jobs, ["cpu"] * 2, "gloo",
                               args=(two,), timeout=TIMEOUT),
@@ -336,6 +343,25 @@ SHARDS = {"tiny": HEAD, "long": LONG_SHARDS, "long-ema": LONG_SHARDS,
                  "generator/dense_0.bias": (24,),
                  "discriminator/dense.weight": (1, 30)},
           "gan": HEAD, "batch_norm": HEAD}
+
+
+@pytest.mark.parametrize("launch", ["two", "four"])
+def test_batch_norm_statistics_equal_on_every_rank(rank_results, launch):
+    """Model peers whose activations differ in the last bits keep the same
+    running statistics, those of the global batch with each peer's rows
+    counted once: BatchNorm sums its moments over every rank, not over
+    the data group alone (over which each peer kept its own)."""
+    found = [r[("batch_norm", "peers")] for r in rank_results[launch]]
+    for other in found[1:]:
+        for name, value in other.items():
+            assert value.tobytes() == found[0][name].tobytes(), name
+    # the two peers' rows, 1 and 1 + 2**-20 times the batch, in equal shares
+    x = BN_ROWS.astype(np.float64) * (1.0 + 2.0 ** -21)
+    mean = x.mean(axis=(0, 2))
+    var = (x * x).mean(axis=(0, 2)) - mean ** 2
+    np.testing.assert_allclose(found[0]["mean"], 0.01 * mean, rtol=1e-5)
+    np.testing.assert_allclose(found[0]["var"], 0.99 + 0.01 * var,
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("name", list(CASES))

@@ -17,6 +17,7 @@ from calciumgan_tpu_torch.algorithms import get_algorithm
 from calciumgan_tpu_torch.algorithms.gan import Draws, ShardDraws
 from calciumgan_tpu_torch.config import Config
 from calciumgan_tpu_torch.models import get_models
+from calciumgan_tpu_torch.models.base import BatchNorm
 from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 
 
@@ -165,6 +166,20 @@ def layout(model: int = 1, time: int = 1):
     if time > 1:
         return mesh_lib.create_time_mesh(world // time, time, ["cpu"] * world)
     return mesh_lib.create_mesh(world // model, model, ["cpu"] * world)
+
+
+def rank_batch_norm_peers(x: np.ndarray, model: int) -> dict:
+    """In a rank of a ``(data, model)`` layout: a BatchNorm training pass
+    over its data index's rows of ``x`` (N, C, W), scaled by ``1 + 2**-20``
+    on every model peer but the first, as activations a peer computes on
+    another GPU may differ in the last bits: the running statistics."""
+    mesh_lib.init_groups(layout(model))
+    rows = mesh_lib.rows_of(x, mesh_lib.data_index(), mesh_lib.data_extent())
+    peer = mesh_lib.process_index() % model
+    bn = BatchNorm(x.shape[1])
+    bn(torch.from_numpy(np.ascontiguousarray(rows))
+       * (1.0 + min(peer, 1) * 2.0 ** -20), training=True)
+    return {n: b.numpy().copy() for n, b in bn.named_buffers()}
 
 
 def whole_tensors(state) -> dict:
