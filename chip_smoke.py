@@ -10,6 +10,7 @@ long-sequence run once on one NVIDIA GPU.
     python3 chip_smoke.py --phase 15   # phases 1 and 15 alone
     python3 chip_smoke.py --phase 15-nccl  # phases 1 and 15 (c) alone
     python3 chip_smoke.py --phase 16   # phases 1 and 16 alone
+    python3 chip_smoke.py --phase 17   # phases 1 and 17 (four GPUs)
 
 Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
 ``nvcc`` and runs sixteen phases, printing one line of findings per phase.
@@ -17,16 +18,22 @@ Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
 overflowed lanes included. Each launch's ring storage (shared or device
 memory, ``oasis_cuda.launch_plan``) is in its launch counter's key, and
-every (machine, storage) pair the plan can choose is compared:
+every (machine, storage) pair the plan can choose is compared. The plain
+version's time is set by frames and launches, not rows, so the classic
+kernel's launches at the production arguments (phase 2's rungs and every
+path's sampled or evaluated traces) are held to it in one plain call a
+(frames, depth), row for row, on the ``twins`` line once the phases have
+run (``flush_twins``):
 
 1. device: the card, its power limit (``nvidia-smi``), the kernel build
    and the build of the float64 C++ redo of flagged traces;
 2. kernel: the OASIS AR(1) CUDA kernel against its plain PyTorch version on
    the card, on seeded spiky traces at sl2048 with the production arguments
    at every rung of the depth ladder (64, 160, 256: shared-memory rings)
-   and at depth 1024 (device-memory rings), and on the redo-bit edge
-   cases, plus the dispatch's spikes against the C++ float64 kernel (all
-   4096 traces) and the numpy float64 golden (the first 1024);
+   and at depth 1024 (device-memory rings) (on the twins line), and on the
+   redo-bit edge cases, plus the dispatch's spikes against the C++ float64
+   kernel (all 4096 traces) and the numpy float64 golden (the first 1024);
+   run beside phase 5's spawned comparisons, as are phase 3's checks;
 3. slice: ``calciumgan_tpu_torch.generate.generate`` at the flagship width
    (calciumgan, sl2048, 102 neurons, noise 32, units 64, kernel 24, stride
    2, layer_norm, bf16, normalize) with random weights from a seed, two
@@ -47,9 +54,11 @@ every (machine, storage) pair the plan can choose is compared:
    with its own launch count (no production path runs that mode); the
    dispatch's long route against
    the float64 golden (256 rows) and the C++ float64 kernel (all rows)
-   (every time taken first; the long kernel's comparisons with its plain
-   version, minutes at these frames, then run in two spawned processes
-   while the host makes the float64 checks);
+   (every time taken first, on an idle card; the long kernel's
+   comparisons with its plain version, minutes at these frames, then run
+   in spawned processes, one a case, and the numpy golden in more, while
+   the script runs phase 2, phase 3's checks, phase 10's step on the card
+   against the CPU and the float64 checks);
    ``python -m calciumgan_tpu_torch.dataset.spike_train_inference
    --device cuda`` in-process on four 102 x 20,000 pickles, with its
    launch counts, against the dispatch and the golden; the timings, beside
@@ -135,17 +144,20 @@ every (machine, storage) pair the plan can choose is compared:
 10. conv2d: one of phase 5's recordings (its 102 rows the neurons) through
    ``generate_tfrecords --conv2d`` (129 windows of 2048 x 102 x 1), ``main
    --model calciumgan2d`` at the conv2d recipe (wgan-gp, batch 64, units
-   64, kernel 24, m 10, n 2, layer_norm, bf16, n_critic 5) for 2 epochs
-   with ``--save_generated last``, ``compute_metrics --device cuda`` on the
-   run and ``generate --spikes`` from its newest checkpoint: finite losses
-   and KLs, the epoch file's shape (64, 2048, 102), ``oasis_ar1/shared``
-   launches only, the kernel equal to its plain version at each (shape,
-   depth) those launches ran, the sampled, epoch-file and served spikes
-   against the float64 references; one full-width 2-D WGAN-GP step (256
-   frames, batch 2, n_critic 1) on the card against the CPU in float32 and
-   bfloat16; the step at batch 64 by CUDA events, its FLOPs, share of the
-   bf16 bound and top kernels by ``torch.profiler``, and each layer's
-   convolutions alone (the generator's also as ``F.conv_transpose2d``);
+   64, kernel 24, m 10, n 2, layer_norm, bf16, n_critic 5) for 1 epoch
+   (one step) with ``--save_generated last`` and rerun (it resumes, finds
+   the run done and trains nothing), ``compute_metrics --device cuda`` on
+   the run and ``generate --spikes`` from its newest checkpoint: finite
+   losses and KLs, the epoch file's shape (64, 2048, 102),
+   ``oasis_ar1/shared`` launches only, the kernel equal to its plain
+   version at each (shape, depth) those launches ran, the sampled,
+   epoch-file and served spikes against the float64 references; one
+   full-width 2-D WGAN-GP step (256 frames, batch 2, n_critic 1) on the
+   card against the CPU in float32 and bfloat16 (made beside phase 5's
+   spawned comparisons); the step at batch 64 by CUDA events, its FLOPs,
+   share of the bf16 bound and top kernels by ``torch.profiler``, and each
+   layer's convolutions alone (the generator's also as
+   ``F.conv_transpose2d``);
 11. BatchNorm: ``main --batch_norm --algorithm gan --ema 0.999`` at the
    flagship recipe on phase 6's records for 2 epochs: its sampling epochs'
    launches and spikes, the stored running statistics (finite, moved from
@@ -177,7 +189,9 @@ every (machine, storage) pair the plan can choose is compared:
    ranks on ``cuda:0`` over gloo, started by the library's launcher: the
    flagship step (batch 128, 64 rows a rank) at learning rate 0 in
    float32 and bfloat16 against the one-process step on the same draws
-   (losses and each net's largest gradient difference), then ``main
+   (losses and each net's largest gradient difference), again on the
+   layout ``--dcn_slices 2 --data_parallelism 1`` makes (two slices of one
+   rank, with its 7 all-reduces a step), then ``main
    --data_parallelism 2 --save_generated last`` for 2 epochs on phase 6's
    records: the replicas equal bit for bit, one writer (``hparams.json``,
    checkpoints, events), two epoch-file shards of 64 rows, OASIS launched
@@ -233,10 +247,11 @@ every (machine, storage) pair the plan can choose is compared:
    frames x 102 (recorded side seeded synthetic calcium drawn on the card,
    with spikes by the C++ float64 kernel; generated side
    ``generate.generate`` on phase 15 (b)'s time-parallel checkpoint, or
-   seeded random weights under ``--phase 16``), so that ``deconvolve_file`` takes one full chunk of
-   16,320 traces a launch, through ``compute_metrics --device cuda
-   --covariance`` on an idle card: ``metrics.json``, the long kernel's
-   launches by rung and ring storage, the seconds by stage and statistic,
+   seeded random weights under ``--phase 16``), so that ``deconvolve_file``
+   takes one full chunk of 16,320 traces a launch, through
+   ``compute_metrics --device cuda --covariance`` on an idle card:
+   ``metrics.json``, the long kernel's launches by rung and ring storage,
+   the seconds by stage and statistic,
    the flag share per bit and peak memory; the long kernel on the whole
    chunk at every rung of the 16,384-frame ladder (384 shared, 768 and
    1536 device), timed, its flags asking for exactly the rungs climbed,
@@ -248,6 +263,16 @@ every (machine, storage) pair the plan can choose is compared:
    trials (Victor-Purpura on 1 trial of 16 neurons; the covariance held
    per pair to the correlation's bound times sigma_i sigma_j); a resumed
    ``deconvolve_file`` (one staged chunk) ending with the same spikes.
+
+``--phase 17`` (four GPUs, not in the whole run): ``main --dcn_slices 2
+--data_parallelism 2`` at the flagship recipe for 2 epochs over NCCL on
+its own training set (every replica equal bit for bit, the step within
+phase 14's bounds of the one process with the data axis's 7 all-reduces,
+the step loop against one GPU), then ``python -m
+calciumgan_tpu_torch.search --parallel 2 --device cuda`` over phase 13's
+grid: two workers of two GPUs, each experiment data-parallel over its
+slice (both sessions' metrics finite, each run's ranks equal bit for bit,
+OASIS in each slice's first rank only, the seconds per experiment).
 
 Then the card's ``name, power.limit``, a ``{"kernels": [...]}`` line (each
 kernel's time, its plain version's, its bound, and its launches on its
@@ -281,6 +306,7 @@ NUMPY_GOLDEN_TRACES = 1024
 # phase 5: whole recordings (tools/check_long_kernel_tpu.py's size)
 REC_TRACES, REC_T = 2048, 20000
 REC_GOLDEN_TRACES = 256     # of them checked against the numpy golden
+REC_GOLDEN_WORKERS = 2      # spawned processes that golden is split over
 DEVICE_RING_TRACES = 256    # traces for the device-memory ring comparisons
 DEVICE_RING_T = 8192        # frames of the long kernel's device-ring cases
 CLI_FILES, CLI_NEURONS = 4, 102
@@ -366,6 +392,9 @@ BN_STEP_F32_GRAD_TOL = 1e-2
 # a step of the recipe takes seconds) and 64 to validate; the epoch files'
 # spikes against the numpy golden on these many traces
 CONV2D_STRIDE, CONV2D_VAL_ROWS, CONV2D_BATCH = 140, 64, 64
+# its run: one epoch of one 22 s step, then a rerun that resumes from its
+# checkpoint and finds it done
+CONV2D_EPOCHS = 1
 CONV2D_GOLDEN_TRACES = 128
 CONV2D_SERVED = 16          # generate --spikes samples
 # the full-width 2-D step on the card against the CPU, cut to 256 frames,
@@ -395,6 +424,13 @@ PREFETCH_EPOCHS = 3
 # phase 14: two gloo ranks on one card, the flagship batch split between them
 DP_RANKS, DP_BATCH, DP_EPOCHS = 2, 128, 2
 DP_TIMEOUT_S = 300
+# a data-parallel WGAN-GP step's collectives at n_critic 5, slices folded
+# into the data axis: one gradient all-reduce a net update (5 critic, 1
+# generator) and one of the logs
+DP_STEP_CALLS = {"all_reduce": 7}
+# phase 17 (four GPUs): main --dcn_slices 2 --data_parallelism 2, and the
+# sweep's --parallel 2, two GPUs a worker
+DCN_SLICES, DCN_DATA, SWEEP_PARALLEL = 2, 2, 2
 # phase 15: model and time parallelism, two gloo ranks on one card each:
 # the flagship recipe with its two sequence-sized Dense layers sharded
 # (MP_SHARDS a rank, in the port's (out, in) layout), and the same widths
@@ -577,13 +613,20 @@ def _held_to_plain(found, plain, y, kw) -> dict:
     ``plain(y, **kw)``, timed by CUDA events: the findings of
     :func:`compare_kernel` but its ``variant``."""
     import torch
-    c, s, redo = found
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    c_p, s_p, redo_p = plain(y, **kw)
+    expected = plain(y, **kw)
     end.record()
     torch.cuda.synchronize()
+    return dict(_lanes_vs(found, expected), plain_ms=start.elapsed_time(end))
+
+
+def _lanes_vs(found, expected) -> dict:
+    """The kernel's ``found`` (c, s, redo) against the plain version's
+    ``expected`` on the same traces, lane for lane."""
+    c, s, redo = found
+    c_p, s_p, redo_p = expected
     same = _same(c, c_p) & _same(s, s_p) & (redo == redo_p).reshape(-1)
     flags = redo.reshape(-1)
     return dict(lanes=int(redo.numel()),
@@ -593,7 +636,6 @@ def _held_to_plain(found, plain, y, kw) -> dict:
                 max_abs_err=max(_abs_err(c, c_p), _abs_err(s, s_p)),
                 bit_frac={f"bit{b}": float(((flags >> b) & 1).float().mean())
                           for b in range(3)},
-                plain_ms=start.elapsed_time(end),
                 redo=[int(flags[0])], redo_plain=[int(
                     redo_p.reshape(-1)[0])])
 
@@ -656,22 +698,15 @@ def phase_kernel():
     rng = np.random.default_rng(SEED)
     host = golden.synth_ar1_traces(rng, KERNEL_TRACES, T)
     y = torch.from_numpy(host).to(dev)
-    prod = dict(g=G, lam=0.0, s_min=S_MIN, depth=dispatch._DEPTH_LADDER[0],
-                merge_attempts=dispatch._MERGE_BUDGET,
-                flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD))
-    main = compare_kernel(y, **prod)
-    check_equal(main, "classic, depth 64")
-    check_variant(main, "oasis_ar1/shared", "classic, depth 64")
-    # every rung of the ladder, and a depth whose ring is in device memory
-    rungs = {}
-    for d in dispatch._DEPTH_LADDER[1:]:
-        rungs[d] = compare_kernel(y, **dict(prod, depth=d))
-        check_equal(rungs[d], f"classic, depth {d}")
-        check_variant(rungs[d], "oasis_ar1/shared", f"classic, depth {d}")
-    rungs[1024] = compare_kernel(y[:DEVICE_RING_TRACES],
-                                 **dict(prod, depth=1024))
-    check_equal(rungs[1024], "classic, depth 1024")
-    check_variant(rungs[1024], "oasis_ar1/device", "classic, depth 1024")
+    prod = production(dispatch._DEPTH_LADDER[0])
+    # every rung of the ladder, and a depth whose ring is in device memory,
+    # held to the plain version in the twins line (flush_twins)
+    rungs = {d: defer_to_twin(y, production(d), "oasis_ar1/shared",
+                              f"phase 2, classic, depth {d}")
+             for d in dispatch._DEPTH_LADDER}
+    rungs[1024] = defer_to_twin(y[:DEVICE_RING_TRACES], production(1024),
+                                "oasis_ar1/device",
+                                "phase 2, classic, depth 1024")
 
     # redo-bit edge cases (tests/test_oasis_pallas.py:53-104)
     ramp = torch.linspace(0.0, 10.0, 64, device=dev)[None].repeat(3, 1)
@@ -697,9 +732,7 @@ def phase_kernel():
           f"mismatches vs the golden, {cxx} vs the C++ float64 kernel")
     torch.cuda.synchronize()
     report("phase 2 kernel", shape=[KERNEL_TRACES, T], production=prod,
-           **strip(main),
-           rungs={d: dict(strip(f), shape=[f["lanes"], T])
-                  for d, f in rungs.items()},
+           rungs=rungs,
            edge_bits={"bit0": bit0["redo"][0], "bit1": bit1["redo"][0],
                       "bit2": bit2["redo"][0]},
            dispatch_vs_golden=dict(golden="oasis_ref",
@@ -708,7 +741,6 @@ def phase_kernel():
                                    cxx_float64_traces=KERNEL_TRACES,
                                    cxx_float64_mismatches=cxx,
                                    spikes=int(golden.sum())))
-    return max(f["max_abs_err"] for f in (main, *rungs.values()))
 
 
 def generator_reference_check(config, variables):
@@ -738,10 +770,10 @@ def generator_reference_check(config, variables):
 
 
 def phase_slice(config, variables):
-    import numpy as np
-    import torch
+    """Phase 3's timed part, ``generate`` with spikes on an idle card: its
+    launches, and the function that checks what it served (run beside
+    phase 5's spawned comparisons) and prints the line."""
     from calciumgan_tpu_torch.generate import generate
-    from calciumgan_tpu_torch.ops import oasis as dispatch
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
     ref_errs = generator_reference_check(config, variables)
 
@@ -752,6 +784,17 @@ def phase_slice(config, variables):
                              with_spikes=True, seed=SEED, device="cuda"))
     seconds = time.perf_counter() - start
     launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
+    return launches, lambda: _slice_checks(config, payloads, launches, calls,
+                                           seconds, ref_errs)
+
+
+def _slice_checks(config, payloads, launches, calls, seconds, ref_errs):
+    """Phase 3's checks of ``generate``'s ``payloads``: shapes, ranges,
+    launches, and the spikes against the C++ float64 kernel and the numpy
+    golden; its line."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.ops import oasis as dispatch
 
     check(len(payloads) == BATCHES, f"{len(payloads)} batches")
     shape = (BATCH, T, config.num_channels)
@@ -790,7 +833,6 @@ def phase_slice(config, variables):
            golden_traces=NUMPY_GOLDEN_TRACES, golden_spikes=int(golden.sum()),
            mismatches=mismatches, cxx_float64_traces=GOLDEN_TRACES,
            cxx_float64_mismatches=cxx)
-    return launches
 
 
 def e2e_stages(config, variables, dev):
@@ -839,9 +881,7 @@ def phase_timings(config, variables, smi):
 
     traces = gan.generate(generator, noise).transpose(1, 2).contiguous()
     traces = traces.reshape(-1, T)  # (1024*102, 2048) generated traces
-    kw = dict(g=G, lam=0.0, s_min=S_MIN, depth=dispatch._DEPTH_LADDER[0],
-              merge_attempts=dispatch._MERGE_BUDGET,
-              flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD))
+    kw = production(dispatch._DEPTH_LADDER[0])
     # the kernel vs its plain version at the main path's shape
     generated = compare_kernel(traces, **kw)
     check_equal(generated, "classic on generated traces")
@@ -881,37 +921,57 @@ def phase_timings(config, variables, smi):
                 max_abs_err=generated["max_abs_err"], **bound(B, T, False))
 
 
-def _held_long(traces, prod: dict, variant: str, what: str) -> dict:
-    """:func:`compare_kernel` of the long entry on host ``traces`` uploaded
-    in this process, with ``prod``'s arguments, checked equal bit for bit
-    and launched as ``variant``: the findings. The plain version launches a
-    few hundred small kernels a frame, minutes at tens of thousands of
-    frames, so the script runs this in spawned processes beside its host
-    work."""
+def _long_twins(prod: dict, parts) -> list:
+    """The long kernel's plain version with ``prod`` in one call on the
+    rows of several launches, held bit for bit to each launch's rows (a
+    trace's lane depends on that trace alone): ``parts`` of ``(what,
+    traces, launched_rows, variant)``, host arrays; where ``launched_rows``
+    is None the kernel runs here on ``traces`` and must launch as
+    ``variant``. The plain version launches a few hundred small kernels a
+    frame, minutes at tens of thousands of frames, so the script runs this
+    in spawned processes beside its other work. Each part's findings, with
+    the one call's ``plain_ms`` and rows."""
     import numpy as np
     import torch
-    y = torch.from_numpy(np.ascontiguousarray(traces, np.float32)).cuda()
-    found = compare_kernel(y, long=True, **prod)
-    check_equal(found, what)
-    check_variant(found, variant, what)
-    return found
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    found = []
+    for what, traces, launched_rows, variant in parts:
+        if launched_rows is None:
+            y = torch.from_numpy(np.ascontiguousarray(traces, np.float32))
+            before = collections.Counter(oasis_cuda.launches)
+            found.append(oasis_cuda.oasis_ar1_long(y.cuda(), **prod))
+            check_variant(dict(variant=list(oasis_cuda.launches - before)),
+                          variant, what)
+        else:
+            found.append([torch.from_numpy(x).cuda() for x in launched_rows])
+    y = torch.from_numpy(np.concatenate([np.asarray(part[1], np.float32)
+                                         for part in parts]))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = oasis_torch.oasis_ar1_long_torch(y.cuda(), **prod)
+    end.record()
+    torch.cuda.synchronize()
+    held, row = [], 0
+    for (what, traces, _, _), kernel in zip(parts, found):
+        rows = slice(row, row + len(traces))
+        row = rows.stop
+        lanes = dict(_lanes_vs(kernel, [t[rows] for t in plain]),
+                     plain_ms=start.elapsed_time(end), plain_rows=len(y))
+        check_equal(lanes, what)
+        held.append(lanes)
+    return held
 
 
-def _plain_vs_launch(traces, launched_rows, prod: dict, what: str) -> dict:
-    """The long kernel's plain version on host ``traces``, rows of a larger
-    launch uploaded in this process, held bit for bit to
-    ``launched_rows``, that launch's (c, s, redo) on those rows as host
-    arrays (a trace's lane depends on that trace alone): the findings.
-    Spawned beside the script's host work, as :func:`_held_long`."""
-    import numpy as np
-    import torch
-    from calciumgan_tpu_torch.ops import oasis_torch
-    y = torch.from_numpy(np.ascontiguousarray(traces, np.float32)).cuda()
-    found = _held_to_plain([torch.from_numpy(x).cuda()
-                            for x in launched_rows],
-                           oasis_torch.oasis_ar1_long_torch, y, prod)
-    check_equal(found, what)
-    return found
+class _Share:
+    """One part's findings of a spawned :func:`_long_twins` call, as a
+    future of its own."""
+
+    def __init__(self, future, index: int):
+        self.future, self.index = future, index
+
+    def result(self):
+        return self.future.result()[self.index]
 
 
 def _spawned_pool(workers: int):
@@ -921,13 +981,15 @@ def _spawned_pool(workers: int):
         max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
 
 
-def phase_recordings(smi):
+def phase_recordings(smi, beside=()):
     """Whole recordings: the long kernel and the precise machine against
     their plain versions, the dispatch's long route against the float64
     references, and the spike-inference CLI on seeded pickles. Every time
-    is taken first; then the long kernel's comparisons with its plain
-    version run in two spawned processes while this one checks the
-    dispatch and the CLI against the float64 references."""
+    is taken first, on an idle card; then the long kernel's comparisons
+    with its plain version (minutes at these frames) and the numpy golden
+    run in spawned processes while this one runs ``beside`` (the untimed
+    work of earlier phases), the edge cases and the checks against the C++
+    float64 kernel."""
     import pickle
     import tempfile
 
@@ -942,48 +1004,18 @@ def phase_recordings(smi):
     host = golden.synth_ar1_traces(rng, REC_TRACES, REC_T)
     y = torch.from_numpy(host).to(dev)
     ladder = dispatch._long_ladder(REC_T)
-    prod = dict(g=G, lam=0.0, s_min=S_MIN, depth=ladder[0],
-                merge_attempts=dispatch._MERGE_BUDGET, precise=True,
-                flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD, precise=True))
+    prod = production(ladder[0], precise=True)
 
-    # 1. the long kernel's times, production arguments (its comparisons
-    # with its plain version run in spawned processes below)
+    # 1. the long kernel's times, production arguments
     long_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(y, **prod), reps=3)
     device_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(
         y, **dict(prod, depth=ladder[1])), reps=1)
 
-    # 2. redo-bit edge cases through the long and the precise short entry
-    ramp = torch.linspace(0.0, 10.0, 160, device=dev)[None].repeat(3, 1)
-    bit0 = compare_kernel(ramp, long=True, s_min=0.0, depth=16, precise=True)
-    dense = torch.from_numpy(golden.synth_ar1_traces(
-        np.random.default_rng(SEED), 4, 128, rate=0.3)).to(dev)
-    bit1 = compare_kernel(dense, long=True, s_min=S_MIN, merge_attempts=1,
-                          precise=True)
-    # the precise band (tests/test_oasis_pallas.py:107-130): a 1e-5 margin
-    # resolves unflagged and as the float64 golden does, 1e-8 sets bit 2
-    edge = torch.zeros((1, 64), device=dev)
-    edge[0, 0] = 2.0
-    band = {}
-    for name, margin in (("resolved", 1e-5), ("bit2", 1e-8)):
-        edge[0, 1] = float(np.float32(G * 2.0 + S_MIN + margin))
-        band[name] = compare_kernel(edge, g=G, s_min=S_MIN, flag_tol=1e-6,
-                                    precise=True)
-        if name == "resolved":
-            _, s_edge, _ = oasis_cuda.oasis_ar1_cuda(
-                edge, g=G, s_min=S_MIN, flag_tol=1e-6, precise=True)
-            ref = golden_spikes(edge.cpu().numpy())
-            check(np.array_equal((s_edge > THRESHOLD).cpu().numpy(),
-                                 ref == 1),
-                  "1e-5 margin: precise spikes differ from float64")
-    for name, case, bit in (("bit0", bit0, 1), ("bit1", bit1, 2),
-                            ("bit2", band["bit2"], 4)):
-        check_equal(case, f"precise {name} edge case")
-        check(case["redo"][0] & bit, f"{name} edge case: {case['redo']}")
-    check_equal(band["resolved"], "precise 1e-5 margin")
-    check(band["resolved"]["redo"] == [0],
-          f"1e-5 margin flagged: {band['resolved']['redo']}")
-
-    # 3. the short kernel's precise mode at sl2048
+    # 2. the short kernel's precise mode at sl2048 against its plain
+    # version (whose time the kernels line reports, so on an idle card),
+    # its time, and its own path, the public entry counted alone (no
+    # production path runs that mode: the JAX package calls it only for an
+    # A/B)
     short = torch.from_numpy(golden.synth_ar1_traces(
         np.random.default_rng(SEED), KERNEL_TRACES, T)).to(dev)
     short_kw = dict(g=G, lam=0.0, s_min=S_MIN,
@@ -997,8 +1029,6 @@ def phase_recordings(smi):
                   "precise short, depth 64")
     precise_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_cuda(short, **short_kw),
                          reps=5)
-    # no production path runs it (the JAX package calls it only for an
-    # A/B), so its own path is the public entry, counted alone
     oasis_cuda.launches.clear()
     oasis_torch.calls = 0
     _, _, redo_path = oasis_cuda.oasis_ar1(short, **short_kw)
@@ -1007,10 +1037,8 @@ def phase_recordings(smi):
           and oasis_torch.calls == 0,
           f"precise entry: {precise_launches}, plain calls "
           f"{oasis_torch.calls}")
-    check(int(redo_path.ne(0).sum()) == precise_main["flagged"],
-          "precise entry flags differ from the compared kernel's")
 
-    # 4. the dispatch's long route on the CUDA corpus
+    # 3. the dispatch's long route on the CUDA corpus
     before = launched("oasis_ar1_long_precise")
     spikes = dispatch.deconvolve_signals_host(y)
     rungs = ladder[:launched("oasis_ar1_long_precise") - before]
@@ -1025,7 +1053,7 @@ def phase_recordings(smi):
     dispatch._exact_spikes_host(host[flagged], G, S_MIN, THRESHOLD)
     redo_s = time.perf_counter() - start
 
-    # 5. the CLI on seeded whole-recording pickles: the main path
+    # 4. the CLI on seeded whole-recording pickles: the main path
     with tempfile.TemporaryDirectory() as tmp:
         recordings = []
         for i in range(CLI_FILES):
@@ -1048,58 +1076,112 @@ def phase_recordings(smi):
         one = torch.from_numpy(recordings[0]).to(dev)  # one recording
         cli_kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(one, **prod),
                                 reps=3)
+        torch.cuda.synchronize()
 
-        # the long kernel against its plain version at depth 512 (shared
-        # rings) and at the ladder's deeper rungs (device rings) on 256 x
-        # 8192, in spawned processes, while this one checks the dispatch
-        # and the CLI against the float64 references
-        pool = _spawned_pool(2)
-        held = pool.submit(_held_long, host, prod,
-                           "oasis_ar1_long_precise/shared",
-                           "long kernel, depth 512")
-        deep = golden.synth_ar1_traces(np.random.default_rng(SEED + 7),
-                                       DEVICE_RING_TRACES, DEVICE_RING_T)
-        held_rungs = {d: pool.submit(_held_long, deep, dict(prod, depth=d),
-                                     "oasis_ar1_long_precise/device",
-                                     f"long kernel, depth {d}")
-                      for d in ladder[1:]}
+        # 5. nothing is timed from here on. Spawned: the long kernel against
+        # its plain version at depth 512 (shared rings) and at the ladder's
+        # deeper rungs (device rings) on 256 x 8192, one process each, and
+        # the numpy golden of the dispatch's and the CLI's rows
         pick = np.sort(np.random.default_rng(SEED).choice(
             REC_TRACES, REC_GOLDEN_TRACES, replace=False))
-        golden_ref = golden_spikes(host[pick])
-        vs_golden = int((spikes[pick] != golden_ref).sum())
-        check(vs_golden == 0,
-              f"long dispatch: {vs_golden} mismatches vs oasis_ref")
-        exact = dispatch._exact_spikes_host(host, G, S_MIN, THRESHOLD)
-        vs_cxx = int((spikes != exact).sum())
-        check(vs_cxx == 0,
-              f"long dispatch: {vs_cxx} mismatches vs the C++ redo")
-        cli_golden = 0
-        for i, sig in enumerate(recordings):
-            with open(os.path.join(tmp, f"rec{i}.pkl"), "rb") as f:
-                out = pickle.load(f)["oasis"]
-            check(out.dtype == np.float32 and out.shape == sig.shape,
-                  f"oasis {out.dtype} {out.shape}")
-            check(set(np.unique(out).tolist()) <= {0.0, 1.0},
-                  "oasis not in {0,1}")
-            same = dispatch.deconvolve_signals_host(
-                torch.from_numpy(sig).to(dev))
-            check(np.array_equal(out, same.astype(np.float32)),
-                  f"rec{i}: the CLI differs from deconvolve_signals_host")
-            rows = np.sort(np.random.default_rng(SEED + i).choice(
-                CLI_NEURONS, CLI_GOLDEN_ROWS, replace=False))
-            cli_golden += int((out[rows] != golden_spikes(sig[rows])).sum())
-        check(cli_golden == 0, f"CLI: {cli_golden} mismatches vs oasis_ref")
-        with open(os.path.join(tmp, "rec0.pkl"), "rb") as f:
-            recording = pickle.load(f)  # with its oasis key, for phase 7
-        cli.main(["--input_dir", tmp, "--device", "cuda", "--clean"])
-        for i in range(CLI_FILES):
-            with open(os.path.join(tmp, f"rec{i}.pkl"), "rb") as f:
-                check("oasis" not in pickle.load(f), "--clean kept oasis")
-    try:
-        long_main = held.result()
-        device_rungs = {d: f.result() for d, f in held_rungs.items()}
-    finally:
-        pool.shutdown(cancel_futures=True)
+        cli_rows = [np.sort(np.random.default_rng(SEED + i).choice(
+            CLI_NEURONS, CLI_GOLDEN_ROWS, replace=False))
+            for i in range(CLI_FILES)]
+        deep = golden.synth_ar1_traces(np.random.default_rng(SEED + 7),
+                                       DEVICE_RING_TRACES, DEVICE_RING_T)
+        pool = _spawned_pool(len(ladder) + REC_GOLDEN_WORKERS + 1)
+        try:
+            held = pool.submit(_long_twins, prod, [(
+                "long kernel, depth 512", host, None,
+                "oasis_ar1_long_precise/shared")])
+            held_rungs = {d: pool.submit(_long_twins, dict(prod, depth=d), [(
+                f"long kernel, depth {d}", deep, None,
+                "oasis_ar1_long_precise/device")]) for d in ladder[1:]}
+            golden_parts = [pool.submit(golden_spikes, part) for part in
+                            np.array_split(host[pick], REC_GOLDEN_WORKERS)]
+            cli_golden_ref = pool.submit(golden_spikes, np.concatenate(
+                [sig[rows] for sig, rows in zip(recordings, cli_rows)]))
+
+            for task in beside:
+                task()
+
+            # redo-bit edge cases through the long and the precise short
+            # entry
+            ramp = torch.linspace(0.0, 10.0, 160, device=dev)[None].repeat(
+                3, 1)
+            bit0 = compare_kernel(ramp, long=True, s_min=0.0, depth=16,
+                                  precise=True)
+            dense = torch.from_numpy(golden.synth_ar1_traces(
+                np.random.default_rng(SEED), 4, 128, rate=0.3)).to(dev)
+            bit1 = compare_kernel(dense, long=True, s_min=S_MIN,
+                                  merge_attempts=1, precise=True)
+            # the precise band (tests/test_oasis_pallas.py:107-130): a 1e-5
+            # margin resolves unflagged and as the float64 golden does,
+            # 1e-8 sets bit 2
+            edge = torch.zeros((1, 64), device=dev)
+            edge[0, 0] = 2.0
+            band = {}
+            for name, margin in (("resolved", 1e-5), ("bit2", 1e-8)):
+                edge[0, 1] = float(np.float32(G * 2.0 + S_MIN + margin))
+                band[name] = compare_kernel(edge, g=G, s_min=S_MIN,
+                                            flag_tol=1e-6, precise=True)
+                if name == "resolved":
+                    _, s_edge, _ = oasis_cuda.oasis_ar1_cuda(
+                        edge, g=G, s_min=S_MIN, flag_tol=1e-6, precise=True)
+                    ref = golden_spikes(edge.cpu().numpy())
+                    check(np.array_equal(
+                        (s_edge > THRESHOLD).cpu().numpy(), ref == 1),
+                        "1e-5 margin: precise spikes differ from float64")
+            for name, case, bit in (("bit0", bit0, 1), ("bit1", bit1, 2),
+                                    ("bit2", band["bit2"], 4)):
+                check_equal(case, f"precise {name} edge case")
+                check(case["redo"][0] & bit,
+                      f"{name} edge case: {case['redo']}")
+            check_equal(band["resolved"], "precise 1e-5 margin")
+            check(band["resolved"]["redo"] == [0],
+                  f"1e-5 margin flagged: {band['resolved']['redo']}")
+
+            check(int(redo_path.ne(0).sum()) == precise_main["flagged"],
+                  "precise entry flags differ from the compared kernel's")
+
+            exact = dispatch._exact_spikes_host(host, G, S_MIN, THRESHOLD)
+            vs_cxx = int((spikes != exact).sum())
+            check(vs_cxx == 0,
+                  f"long dispatch: {vs_cxx} mismatches vs the C++ redo")
+            outs = []
+            for i, sig in enumerate(recordings):
+                with open(os.path.join(tmp, f"rec{i}.pkl"), "rb") as f:
+                    out = pickle.load(f)["oasis"]
+                check(out.dtype == np.float32 and out.shape == sig.shape,
+                      f"oasis {out.dtype} {out.shape}")
+                check(set(np.unique(out).tolist()) <= {0.0, 1.0},
+                      "oasis not in {0,1}")
+                same = dispatch.deconvolve_signals_host(
+                    torch.from_numpy(sig).to(dev))
+                check(np.array_equal(out, same.astype(np.float32)),
+                      f"rec{i}: the CLI differs from deconvolve_signals_host")
+                outs.append(out[cli_rows[i]])
+            with open(os.path.join(tmp, "rec0.pkl"), "rb") as f:
+                recording = pickle.load(f)  # with its oasis key, for phase 7
+            cli.main(["--input_dir", tmp, "--device", "cuda", "--clean"])
+            for i in range(CLI_FILES):
+                with open(os.path.join(tmp, f"rec{i}.pkl"), "rb") as f:
+                    check("oasis" not in pickle.load(f), "--clean kept oasis")
+
+            waited = time.perf_counter()
+            golden_ref = np.concatenate([f.result() for f in golden_parts])
+            vs_golden = int((spikes[pick] != golden_ref).sum())
+            check(vs_golden == 0,
+                  f"long dispatch: {vs_golden} mismatches vs oasis_ref")
+            cli_golden = int((np.concatenate(outs)
+                              != cli_golden_ref.result()).sum())
+            check(cli_golden == 0,
+                  f"CLI: {cli_golden} mismatches vs oasis_ref")
+            long_main = held.result()[0]
+            device_rungs = {d: f.result()[0] for d, f in held_rungs.items()}
+            waited_s = time.perf_counter() - waited
+        finally:
+            pool.shutdown(cancel_futures=True)
     torch.cuda.synchronize()
 
     report("phase 5 recordings", card=smi, shape=[REC_TRACES, REC_T],
@@ -1130,7 +1212,8 @@ def phase_recordings(smi):
                     kernel_ms_per_recording=cli_kernel_ms,
                     launches=cli_launches, plain_calls=cli_calls,
                     golden_rows=CLI_FILES * CLI_GOLDEN_ROWS,
-                    mismatches_vs_golden=cli_golden))
+                    mismatches_vs_golden=cli_golden),
+           waited_for_the_spawned_s=waited_s)
     err = max(f["max_abs_err"] for f in (
         long_main, bit0, bit1, band["bit2"], *device_rungs.values()))
     precise_err = max(precise_main["max_abs_err"],
@@ -2368,26 +2451,95 @@ def gan_step_card_vs_cpu() -> dict:
     return dict(logs_card=gpu_logs, loss_abs_err=abs_err, grad_err=grad_err)
 
 
+def production(depth: int, precise: bool = False) -> dict:
+    """The dispatch's arguments of the classic kernel at ``depth``, or
+    with ``precise`` of the precise machine (the long route's)."""
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    kw = dict(g=G, lam=0.0, s_min=S_MIN, depth=depth,
+              merge_attempts=dispatch._MERGE_BUDGET,
+              flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD, precise=precise))
+    return dict(kw, precise=True) if precise else kw
+
+
+# the classic kernel's launches whose comparison with the plain version is
+# deferred (defer_to_twin), by (frames, arguments): flush_twins holds all
+# the launches of a key to one plain call on their rows, since the plain
+# version's time is set by frames and launches, not rows
+_TWINS: dict = collections.defaultdict(list)
+
+
+def defer_to_twin(y, kw: dict, variant: str, what: str) -> dict:
+    """The classic kernel on the CUDA traces ``y`` (N, T) with ``kw``,
+    launched as ``variant``; its rows and outputs kept on the host for
+    :func:`flush_twins`. The launch's findings."""
+    from calciumgan_tpu_torch.ops import oasis_cuda
+    before = collections.Counter(oasis_cuda.launches)
+    c, s, redo = oasis_cuda.oasis_ar1_cuda(y, **kw)
+    found = dict(variant=list(oasis_cuda.launches - before),
+                 lanes=int(redo.numel()), flagged=int(redo.ne(0).sum()),
+                 shape=list(y.shape), plain="held in the twins line")
+    check_variant(found, variant, what)
+    _TWINS[(y.shape[-1], tuple(sorted(kw.items())))].append(dict(
+        what=what, y=y.cpu().numpy(), c=c.cpu().numpy(), s=s.cpu().numpy(),
+        redo=redo.cpu().numpy()))
+    return found
+
+
+def flush_twins() -> float:
+    """Every deferred launch (:func:`defer_to_twin`) held to the plain
+    version bit for bit: one plain call a (frames, arguments) on the rows
+    of all its launches, each launch's lanes compared to its rows' (a
+    trace's lane depends on that trace alone). Prints the ``twins`` line;
+    returns the largest error."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.ops import oasis_torch
+    if not _TWINS:
+        return 0.0
+    found, err = {}, 0.0
+    for (frames, args), launches in _TWINS.items():
+        kw = dict(args)
+        y = torch.from_numpy(np.concatenate([e["y"] for e in launches]))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = oasis_torch.oasis_ar1_torch(y.cuda(), **kw)
+        end.record()
+        torch.cuda.synchronize()
+        held, row = [], 0
+        for e in launches:
+            rows = slice(row, row + len(e["y"]))
+            row = rows.stop
+            lanes = _lanes_vs([torch.from_numpy(e[k]).cuda()
+                               for k in ("c", "s", "redo")],
+                              [t[rows] for t in plain])
+            check_equal(lanes, e["what"])
+            held.append(dict(strip(lanes), what=e["what"]))
+            err = max(err, lanes["max_abs_err"])
+        found[f"{frames} frames, depth {kw['depth']}"] = dict(
+            rows=row, plain_ms=start.elapsed_time(end), launches=held)
+        del plain
+    _TWINS.clear()
+    torch.cuda.empty_cache()
+    report("twins", plain_calls=len(found), held=found)
+    return err
+
+
 def hold_to_twin(traces, rungs: int, what: str) -> dict:
-    """The classic kernel against its plain version, bit for bit, on host
-    ``traces`` (N, T) uploaded as they are, with the dispatch's production
-    arguments at the first ``rungs`` depths of the ladder it walks for that
-    length (``min(T, depth)``). The findings by depth."""
+    """The classic kernel on host ``traces`` (N, T) uploaded as they are,
+    with the dispatch's production arguments at the first ``rungs`` depths
+    of the ladder it walks for that length (``min(T, depth)``), each launch
+    deferred to :func:`flush_twins`, which holds it to the plain version
+    bit for bit. The launches by depth."""
     import numpy as np
     import torch
     from calciumgan_tpu_torch.ops import oasis as dispatch
     y = torch.from_numpy(np.ascontiguousarray(traces, np.float32)).cuda()
     ladder = tuple(dict.fromkeys(min(y.shape[-1], d)
                                  for d in dispatch._DEPTH_LADDER))
-    found = {}
-    for depth in ladder[:rungs]:
-        held = compare_kernel(
-            y, g=G, lam=0.0, s_min=S_MIN, depth=depth,
-            merge_attempts=dispatch._MERGE_BUDGET,
-            flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD))
-        check_equal(held, f"{what}, depth {depth}")
-        check_variant(held, "oasis_ar1/shared", f"{what}, depth {depth}")
-        found[depth] = dict(strip(held), shape=list(y.shape))
+    found = {depth: defer_to_twin(y, production(depth), "oasis_ar1/shared",
+                                  f"{what}, depth {depth}")
+             for depth in ladder[:rungs]}
     check(len(found) == rungs, f"{what}: {rungs} launches on a ladder of "
                                f"{ladder}")
     return found
@@ -2997,13 +3149,15 @@ def time_conv2d_step(signals, smi, work) -> dict:
                 peak_memory_gb=peak_gb, profiled_step=profile)
 
 
-def phase_conv2d(smi, work, recording):
+def phase_conv2d(smi, work, recording, versus=None):
     """This slice's path at full width: phase 5's recording through
     ``generate_tfrecords --conv2d``, ``main --model calciumgan2d`` at the
-    conv2d recipe for 2 epochs with ``--save_generated last``,
-    ``compute_metrics --device cuda`` on that run and ``generate --spikes``
-    from its newest checkpoint; one full-width 2-D step on the card against
-    the CPU; the step's time, FLOPs and kernels."""
+    conv2d recipe for 1 epoch with ``--save_generated last`` and again
+    (resumed, nothing left to train), ``compute_metrics --device cuda`` on
+    that run and ``generate --spikes`` from its newest checkpoint; one
+    full-width 2-D step on the card against the CPU
+    (:func:`step2d_card_vs_cpu`, unless ``versus`` holds its findings); the
+    step's time, FLOPs and kernels."""
     import pickle
 
     import numpy as np
@@ -3039,27 +3193,38 @@ def phase_conv2d(smi, work, recording):
           f"conv2d records: {info['signal_shape']}, {info['train_size']} + "
           f"{info['validation_size']}")
 
-    # 1. training: the sampling epochs run the kernel
+    # 1. training: the sampling epoch runs the kernel; a rerun resumes
+    # from its checkpoint and finds the run done
     oasis_cuda.launches.clear()
     oasis_torch.calls = 0
     spy = Spy(train, "train_epoch", "validate_epoch", "sample_and_plot",
               "make_batch_sources")
+    flags = conv2d_flags(records, run, CONV2D_EPOCHS, "--save_generated",
+                         "last")
     start = time.perf_counter()
     with spy:
-        train_main.cli(conv2d_flags(records, run, 2, "--save_generated",
-                                    "last"))
+        train_main.cli(flags)
     train_s = time.perf_counter() - start
     launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
     check(set(launches) == {"oasis_ar1/shared"}
-          and launches["oasis_ar1/shared"] >= 2 and calls == 0,
+          and launches["oasis_ar1/shared"] >= CONV2D_EPOCHS and calls == 0,
           f"conv2d sampling epochs launched {launches}, plain calls {calls}")
     logs = [c["out"] for c in spy.calls["train_epoch"]
             + spy.calls["validate_epoch"]]
-    check(len(logs) == 4 and all(np.isfinite(v) for d in logs
-                                 for v in d.values()),
+    check(len(logs) == 2 * CONV2D_EPOCHS
+          and all(np.isfinite(v) for d in logs for v in d.values()),
           f"conv2d training: non-finite losses {logs}")
     samples = spy.calls["sample_and_plot"]
-    check(len(samples) == 2, f"{len(samples)} conv2d sampling epochs")
+    check(len(samples) == CONV2D_EPOCHS,
+          f"{len(samples)} conv2d sampling epochs")
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+    with Spy(train, "train_epoch", "sample_and_plot") as rerun:
+        train_main.cli(flags)
+    check(not rerun.calls["train_epoch"]
+          and not rerun.calls["sample_and_plot"]
+          and sorted(os.listdir(os.path.join(run, "checkpoints"))) == ckpts,
+          f"conv2d rerun: {len(rerun.calls['train_epoch'])} epochs trained,"
+          f" checkpoints {ckpts}")
     sample_diff = sampled_vs_golden(samples, (C, T), "conv2d sampling epochs")
     last_sample = samples[-1]["out"][0]
     sample_twin = hold_to_twin(last_sample, rungs_climbed(last_sample),
@@ -3067,7 +3232,8 @@ def phase_conv2d(smi, work, recording):
     cfg = Config(output_dir=run, verbose=0).load()
     check(cfg.model == "calciumgan2d" and cfg.signal_shape == (T, C, 1),
           f"conv2d run: {cfg.model} {cfg.signal_shape}")
-    fake_file = io.load_generated_info(cfg)[1]["filename"]
+    last = CONV2D_EPOCHS - 1
+    fake_file = io.load_generated_info(cfg)[last]["filename"]
     check(h5.get_shape(fake_file, "signals") == (CONV2D_VAL_ROWS, T, C),
           f"conv2d epoch file {h5.get_shape(fake_file, 'signals')}")
     train_signals = spy.calls["make_batch_sources"][0]["args"][1].signals
@@ -3088,8 +3254,8 @@ def phase_conv2d(smi, work, recording):
           and oasis_torch.calls == 0,
           f"compute_metrics launched {metrics_launches}, plain calls "
           f"{oasis_torch.calls}")
-    check(list(results) == [1] and all(np.isfinite(v)
-                                       for v in results[1].values()),
+    check(list(results) == [last] and all(np.isfinite(v)
+                                          for v in results[last].values()),
           f"conv2d KLs of synthetic data: {results}")
     file_found, traces = file_spikes_vs_references(fake_file,
                                                    "conv2d epoch file")
@@ -3122,7 +3288,8 @@ def phase_conv2d(smi, work, recording):
                                "generate --spikes")
 
     # 4. the step on the card against the CPU, then its time and kernels
-    versus = step2d_card_vs_cpu()
+    if versus is None:
+        versus = step2d_card_vs_cpu()
     timing = time_conv2d_step(np.asarray(train_signals), smi, root)
     layers = conv2d_layer_times()
     torch.cuda.synchronize()
@@ -3135,15 +3302,17 @@ def phase_conv2d(smi, work, recording):
            run=dict(flags="conv2d recipe: calciumgan2d, wgan-gp, batch 64, "
                           "units 64, kernel 24, m 10, n 2, layer_norm, bf16,"
                           " --save_generated last",
-                    epochs=2, seconds=train_s,
+                    epochs=CONV2D_EPOCHS, seconds=train_s,
                     train_epoch_s=[c["s"] for c in spy.calls["train_epoch"]],
-                    train_logs=logs[:2], validation_logs=logs[2:],
+                    train_logs=logs[:CONV2D_EPOCHS],
+                    validation_logs=logs[CONV2D_EPOCHS:],
+                    rerun=dict(epochs_trained=0, checkpoints=ckpts),
                     sampling_launches=launches, plain_calls=calls,
-                    sampled_traces=2 * C, golden="oasis_ref",
+                    sampled_traces=CONV2D_EPOCHS * C, golden="oasis_ref",
                     mismatches_vs_golden=sample_diff,
                     kernel_vs_plain=sample_twin,
                     epoch_file=[CONV2D_VAL_ROWS, T, C]),
-           compute_metrics=dict(of_seeded_synthetic_data=results[1],
+           compute_metrics=dict(of_seeded_synthetic_data=results[last],
                                 seconds=metrics_s, stages_s=stages,
                                 launches=metrics_launches,
                                 epoch_file_spikes=file_found,
@@ -3570,12 +3739,13 @@ def _flagship_steps(real, dev, rank: int, world: int, moments: bool):
     return found
 
 
-def _dp_rank(config, layout, real):
+def _dp_rank(config, layout, real, sliced=None):
     """One of phase 14's ranks on ``cuda:0`` (gloo): the flagship step on
-    its rows of ``real``, then ``train.main`` over ``layout`` with its
-    sampling epochs' OASIS launches, sampled traces, epoch seconds, and a
-    digest of the bytes it ends with (parameters, running statistics,
-    Adam's moments)."""
+    its rows of ``real`` (and, given the ``sliced`` layout of
+    ``--dcn_slices``, the step in its place there, ``dcn_steps``), then
+    ``train.main`` over ``layout`` with its sampling epochs' OASIS
+    launches, sampled traces, epoch seconds, and a digest of the bytes it
+    ends with (parameters, running statistics, Adam's moments)."""
     import torch
     from calciumgan_tpu_torch import train
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
@@ -3585,6 +3755,12 @@ def _dp_rank(config, layout, real):
     rank = mesh_lib.process_index()
     steps = _flagship_steps(real, layout.device, rank,
                             mesh_lib.process_count(), moments=rank == 0)
+    dcn_steps = None
+    if sliced is not None:
+        mesh_lib.init_groups(sliced)
+        dcn_steps, _ = _layout_steps(real, sliced.device, T, 10,
+                                     ("f32", "bf16"))
+        mesh_lib.forget_groups()
     oasis_cuda.launches.clear()
     oasis_torch.calls = 0
     mesh_lib.collectives.clear()
@@ -3602,54 +3778,51 @@ def _dp_rank(config, layout, real):
     digest = hashlib.sha256()
     for t in tensors:
         digest.update(t.detach().cpu().numpy().tobytes())
-    return dict(rank=rank, steps=steps, metrics=metrics,
+    return dict(rank=rank, steps=steps, dcn_steps=dcn_steps, metrics=metrics,
                 launches=launches, plain_calls=calls,
                 collectives=collectives, digest=digest.hexdigest(),
                 samples=[c["out"] for c in spy.calls["sample_and_plot"]],
                 epoch_s=[c["s"] for c in spy.calls["train_epoch"]])
 
 
-def _dp_scaling(real, count: int) -> dict:
-    """Phase 15's step loop (:func:`_par_step_loop`, phase 14's
-    ``DP_SCALING`` windows) of the flagship recipe on one GPU in this
-    process (no group, as a one-GPU run trains) and on ``count`` GPUs over
-    NCCL through the library's launcher (:func:`_loop_rank`), in the order
-    1, count, count, 1: rank 0's rates by launch, their median, least and
-    most (:func:`_median_rates`), and the medians' ratio."""
+def _dp_scaling(real, layout, loop=DP_SCALING) -> dict:
+    """Phase 15's step loop (:func:`_par_step_loop`, ``loop``'s windows:
+    phase 14's ``DP_SCALING`` by default) of the flagship recipe on one GPU
+    in this process (no group, as a one-GPU run trains) and over NCCL on
+    the GPUs of the data-axis ``layout`` (slices folded in) through the
+    library's launcher (:func:`_loop_rank`), in the order 1, P, P, 1: rank
+    0's rates by launch, their median, least and most
+    (:func:`_median_rates`), and the medians' ratio."""
     import torch
     from calciumgan_tpu_torch.parallel import launch as launch_lib
-    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    count = len(layout.devices)
     rates = {1: [], count: []}
     for world in (1, count, count, 1):
-        layout = mesh_lib.create_mesh(world, devices=[
-            f"cuda:{i}" for i in range(world)])
         if world == 1:
-            found = _par_step_loop(torch.device("cuda:0"), real, T, 10,
-                                   DP_SCALING)
+            found = _par_step_loop(torch.device("cuda:0"), real, T, 10, loop)
         else:
             found = launch_lib.launch(
-                _loop_rank, layout.devices, "nccl", args=(layout, real),
-                timeout=DP_TIMEOUT_S)[0]
+                _loop_rank, layout.devices, "nccl",
+                args=(layout, real, loop), timeout=DP_TIMEOUT_S)[0]
         rates[world].append(found["rates"])
     out = {str(world): dict(_median_rates(runs),
-                            timed_steps=sum(map(len, runs))
-                            * DP_SCALING_STEPS,
+                            timed_steps=sum(map(len, runs)) * loop[0],
                             rows_a_rank=len(real) // world)
            for world, runs in rates.items()}
     out["speedup_of_medians"] = out[str(count)]["median"] / out["1"]["median"]
     return out
 
 
-def _loop_rank(layout, real) -> dict:
-    """A rank of phase 14's scaling run: :func:`_par_step_loop` of the
-    flagship recipe on its rows of ``real`` in ``DP_SCALING``'s
+def _loop_rank(layout, real, loop) -> dict:
+    """A rank of a scaling run (:func:`_dp_scaling`): :func:`_par_step_loop`
+    of the flagship recipe on its rows of ``real`` in ``loop``'s
     windows."""
     import torch
     from calciumgan_tpu_torch.parallel import mesh as mesh_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh_lib.init_groups(layout)
-    return _par_step_loop(layout.device, real, T, 10, DP_SCALING)
+    return _par_step_loop(layout.device, real, T, 10, loop)
 
 
 def _free_port() -> int:
@@ -3696,11 +3869,20 @@ def _step_vs_one_process(one, ranks, precisions=("f32", "bf16"),
     return step
 
 
-def _dp_launch(records, run, devices, backend, real) -> tuple:
+def data_axis_all_reduces(epochs: int, validation_passes: int) -> int:
+    """The all-reduces of a data-axis run at the flagship recipe on phase
+    6's records, as rank 0 counts them: ``DP_STEP_CALLS`` a step, 9 a
+    validation batch (8 masked means, the real-row count)."""
+    return (DP_STEP_CALLS["all_reduce"] * epochs * (TRAIN_ROWS // DP_BATCH)
+            + 9 * validation_passes * (VAL_ROWS // DP_BATCH))
+
+
+def _dp_launch(records, run, devices, backend, real, sliced=None) -> tuple:
     """``main --data_parallelism len(devices) --save_generated last`` at
     the flagship recipe for ``DP_EPOCHS`` epochs, one rank per entry of
     ``devices`` over ``backend`` through the library's launcher, after each
-    rank's flagship step on its rows of ``real``; checked: the replicas
+    rank's flagship step on its rows of ``real`` (and on the ``sliced``
+    layout, where given: :func:`_dp_rank`); checked: the replicas
     equal bit for bit, equal test metrics, one writer, a shard a rank whose
     rows make the validation set, OASIS in rank 0's sampling epochs only.
     The ranks' results and the findings."""
@@ -3718,7 +3900,7 @@ def _dp_launch(records, run, devices, backend, real) -> tuple:
     layout = mesh_lib.create_mesh(world, devices=devices)
     start = time.perf_counter()
     ranks = launch_lib.launch(_dp_rank, layout.devices, backend,
-                              args=(config, layout, real),
+                              args=(config, layout, real, sliced),
                               timeout=DP_TIMEOUT_S)
     launch_s = time.perf_counter() - start
     first = ranks[0]
@@ -3771,7 +3953,9 @@ def phase_data_parallel(smi, work, records, signals, one_process,
     """Data parallelism: (a) two ranks on ``cuda:0`` over gloo (NCCL puts
     no two ranks on one GPU) through the library's launcher: the flagship
     step at the global batch 128 against the one-process step on the same
-    draws, then ``main --data_parallelism 2 --save_generated last`` for 2
+    draws, on the data axis and on the layout of ``--dcn_slices 2
+    --data_parallelism 1`` (two slices of one rank; its collectives a
+    step), then ``main --data_parallelism 2 --save_generated last`` for 2
     epochs on phase 6's records (:func:`_dp_launch`'s checks; the kernel
     held to its plain version on rank 0's last sampled traces; steps/s
     beside phase 6's one-process run); (b) one rank through
@@ -3788,12 +3972,31 @@ def phase_data_parallel(smi, work, records, signals, one_process,
     from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
     from calciumgan_tpu_torch.parallel import mesh as mesh_lib
 
-    # (a) the step at the global batch, one process then two gloo ranks
+    # (a) the step at the global batch, one process then two gloo ranks,
+    # also on the layout the CLI makes of --dcn_slices 2
     real = np.ascontiguousarray(signals[:DP_BATCH])
     one = _flagship_steps(real, torch.device("cuda"), 0, 1, moments=True)
+    dcn_config, _ = train_main.parse_args(train_flags(
+        records, os.path.join(work, "dcn_run"), DP_EPOCHS, "--dcn_slices",
+        str(DP_RANKS), "--data_parallelism", "1"))
+    sliced = train.layout(dcn_config, ["cuda:0"] * DP_RANKS)
+    check(sliced.shape[mesh_lib.DATA_AXIS] == DP_RANKS
+          and sliced.slices == DP_RANKS,
+          f"--dcn_slices {DP_RANKS}: layout {sliced}")
     ranks, gloo = _dp_launch(records, os.path.join(work, "dp_run"),
-                             ["cuda:0"] * DP_RANKS, "gloo", real)
+                             ["cuda:0"] * DP_RANKS, "gloo", real, sliced)
     gloo["step_vs_one_process"] = _step_vs_one_process(one, ranks)
+    dcn_calls = {name: found["collectives_a_step"]["calls"]
+                 for name, found in ranks[0]["dcn_steps"].items()}
+    check(all(c == DP_STEP_CALLS for c in dcn_calls.values()),
+          f"--dcn_slices {DP_RANKS} step's collectives {dcn_calls}, "
+          f"expected {DP_STEP_CALLS}")
+    gloo["dcn_slices_step"] = dict(
+        flags=f"--dcn_slices {DP_RANKS} --data_parallelism 1",
+        layout=dict(slices=sliced.slices, **sliced.shape),
+        step_vs_one_process=_step_vs_one_process(one, ranks,
+                                                 key="dcn_steps"),
+        collectives_a_step=dcn_calls)
     last_sample = ranks[0]["samples"][-1][0]
     gloo["kernel_vs_plain"] = hold_to_twin(
         last_sample, rungs_climbed(last_sample), "2-rank sampling epoch")
@@ -3831,10 +4034,9 @@ def phase_data_parallel(smi, work, records, signals, one_process,
                 os.environ[k] = v
     nccl_launches = dict(oasis_cuda.launches)
     counted = dict(mesh_lib.collectives)
-    # 7 all-reduces a step (6 gradient buffers, the logs), 9 a validation
-    # batch (8 masked means, the real-row count), one all-gather to join
-    expected = {"all_reduce": 7 * (TRAIN_ROWS // DP_BATCH)
-                + 9 * (VAL_ROWS // DP_BATCH), "all_gather_object": 1}
+    # an epoch's steps and validation pass, one all-gather to join
+    expected = {"all_reduce": data_axis_all_reduces(1, 1),
+                "all_gather_object": 1}
     check(backends == ["nccl"] and counted == expected
           and not dist.is_initialized()
           and set(nccl_launches) == {"oasis_ar1/shared"},
@@ -3859,7 +4061,8 @@ def phase_data_parallel(smi, work, records, signals, one_process,
                 [f"cuda:{i}" for i in range(world)], "nccl", real)
             gpus[world]["step_vs_one_process"] = _step_vs_one_process(
                 one, ranks_n)
-        scaling = _dp_scaling(real, count)
+        scaling = _dp_scaling(real, mesh_lib.create_mesh(
+            count, devices=[f"cuda:{i}" for i in range(count)]))
     torch.cuda.synchronize()
     report("phase 14 data parallelism", card=smi, global_batch=DP_BATCH,
            epochs=DP_EPOCHS, two_ranks_gloo=gloo,
@@ -4114,10 +4317,7 @@ def long_rungs(traces) -> dict:
     climbed = rungs_climbed(traces, "oasis_ar1_long_precise")
     found = {}
     for depth in dispatch._long_ladder(y.shape[-1])[:climbed]:
-        prod = dict(g=G, lam=0.0, s_min=S_MIN, depth=depth,
-                    merge_attempts=dispatch._MERGE_BUDGET, precise=True,
-                    flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD,
-                                                precise=True))
+        prod = production(depth, precise=True)
         storage = oasis_cuda.launch_plan(depth, True).storage
         found[depth] = dict(
             prod=prod, variant=f"oasis_ar1_long_precise/{storage}",
@@ -4359,8 +4559,9 @@ def phase_time_parallel(work, spawn: bool = True):
     (:func:`long_rungs`); its plain version takes one to two minutes a
     rung at these frames, the float64 golden most of one, so each runs in
     a spawned process of its own while the script goes on
-    (:func:`spawn_time_parallel`, here unless ``spawn`` is off: the whole
-    script first times phase 16 on the idle card), and
+    (:func:`spawn_long_twins`, here unless ``spawn`` is off: the whole
+    script first times phase 16 on the idle card, then holds both phases'
+    launches at each rung to one plain call), and
     :func:`await_time_parallel` waits for them. Returns the findings, the
     global batch, the one-process step and what the spawned processes
     take."""
@@ -4389,26 +4590,8 @@ def phase_time_parallel(work, spawn: bool = True):
                      rungs=long_rungs(samples[-1][0]))
     tp["seconds_before_the_twin"] = time.perf_counter() - start
     if spawn:
-        spawn_time_parallel(time_part)
+        spawn_long_twins(time_part=time_part)
     return time_part
-
-
-def spawn_time_parallel(time_part) -> None:
-    """Start :func:`phase_time_parallel`'s spawned comparisons: the plain
-    version at each rung on rank 0's last sampled traces, the golden on
-    every sampled trace."""
-    samples, rungs = time_part["samples"], time_part["rungs"]
-    last = samples[-1][0]
-    pool = _spawned_pool(len(rungs) + 1)
-    time_part["pending"] = dict(
-        pool=pool, rungs=rungs,
-        kernel_vs_plain={depth: pool.submit(
-            _held_long, last, rung["prod"], rung["variant"],
-            f"time-parallel sampling epoch, depth {depth}")
-            for depth, rung in rungs.items()},
-        sampled_vs_golden=pool.submit(
-            _timed_golden_of_samples, samples, (102, LC_T),
-            "time-parallel sampling epochs"))
 
 
 def await_time_parallel(time_part) -> dict:
@@ -4425,7 +4608,8 @@ def await_time_parallel(time_part) -> dict:
         (tp["sampled_mismatches_vs_golden"],
          tp["golden_s_per_trace"]) = pending["sampled_vs_golden"].result()
     finally:
-        pending["pool"].shutdown(cancel_futures=True)
+        if pending["pool"] is not None:  # else phase 16's, shut down there
+            pending["pool"].shutdown(cancel_futures=True)
     tp["kernel_vs_plain"] = {
         depth: dict(strip(held[depth]), shape=[102, LC_T], depth=depth,
                     **{k: v for k, v in rung.items()
@@ -4435,7 +4619,8 @@ def await_time_parallel(time_part) -> dict:
     return tp
 
 
-def phase_model_time_parallel(smi, work, records, signals, time_part):
+def phase_model_time_parallel(smi, work, records, signals, time_part,
+                               beside=()):
     """Model and time parallelism on one card, two gloo ranks on
     ``cuda:0`` each (NCCL puts no two ranks on one GPU), through the
     library's launcher. (a) ``main --model_parallelism 2`` at the flagship
@@ -4446,8 +4631,9 @@ def phase_model_time_parallel(smi, work, records, signals, time_part):
     classic kernel held to its plain version on rank 0's last sampled
     traces. (b) ``time_part`` (:func:`phase_time_parallel`): its long
     kernel held to its plain version on rank 0's last sampled traces and
-    their spikes against the golden, awaited here. Its line, then on a
-    machine of four GPUs or more :func:`phase_parallel_nccl`'s."""
+    their spikes against the golden, awaited here after ``beside``
+    (untimed work that uses the wait). Its line, then on a machine of four
+    GPUs or more :func:`phase_parallel_nccl`'s."""
     import numpy as np
     import torch
     from calciumgan_tpu_torch import generate as generate_mod
@@ -4515,6 +4701,8 @@ def phase_model_time_parallel(smi, work, records, signals, time_part):
     mp["seconds"] = time.perf_counter() - start
 
     # (b) the time-parallel run's pending comparisons
+    for task in beside:
+        task()
     beside = "none" if "pending" not in time_part else (
         "(a): the plain versions of (b) (and in the whole script phase "
         "16's) ran beside it on cuda:0")
@@ -4617,11 +4805,12 @@ def phase_long_evaluation(work, train_run=None) -> dict:
     the flag share per bit (the rungs the dispatch climbed must be the
     ones the depth flags ask for) and ``LE_PLAIN_ROWS`` rows of the
     launch's outputs. (3) Each statistic's seconds and peak memory over
-    every trial. Then spawned processes hold those rows bit for bit to the
-    plain version (one a rung; one to two minutes a rung at these frames,
-    so the whole script runs phases 14 and 15 (a) meanwhile) and
-    ``LE_GOLDEN_TRACES`` traces of the file to the numpy float64 golden;
-    :func:`finish_long_evaluation` takes what this returns."""
+    every trial. Then :func:`spawn_long_twins` holds those rows bit for bit
+    to the plain version in spawned processes (one a rung; one to two
+    minutes a rung at these frames, so the whole script runs phases 14 and
+    15 (a) meanwhile) and ``LE_GOLDEN_TRACES`` traces of the file to the
+    numpy float64 golden; :func:`finish_long_evaluation` takes what this
+    returns."""
     import numpy as np
     import torch
     from calciumgan_tpu_torch.eval import spike_eval
@@ -4680,10 +4869,7 @@ def phase_long_evaluation(work, train_run=None) -> dict:
     at = torch.from_numpy(rows).cuda()
     rungs, launched_rows = {}, {}
     for depth in ladder:
-        prod = dict(g=G, lam=0.0, s_min=S_MIN, depth=depth,
-                    merge_attempts=dispatch._MERGE_BUDGET, precise=True,
-                    flag_tol=dispatch._flag_tol(S_MIN, THRESHOLD,
-                                                precise=True))
+        prod = production(depth, precise=True)
         before = collections.Counter(oasis_cuda.launches)
         c, s, redo = oasis_cuda.oasis_ar1_long(y, **prod)
         variant = list(oasis_cuda.launches - before)
@@ -4723,20 +4909,16 @@ def phase_long_evaluation(work, train_run=None) -> dict:
     del real, fake
     torch.cuda.empty_cache()
 
-    # spawned: each rung's rows against the plain version, traces of the
-    # file against the golden
-    pool = _spawned_pool(len(ladder) + LE_GOLDEN_WORKERS)
+    # for spawn_long_twins: each rung's rows against the plain version,
+    # traces of the file against the golden
     pick = np.sort(np.random.default_rng(SEED + 1).choice(
         len(traces), LE_GOLDEN_TRACES, replace=False))
     return dict(
-        cfg=cfg, filename=filename, traces=traces, pick=pick, pool=pool,
-        held={d: pool.submit(
-            _plain_vs_launch, traces[rows], launched_rows[d],
-            rungs[d]["prod"],
-            f"long kernel at the evaluation chunk, depth {d}")
-            for d in ladder},
-        golden=[pool.submit(_timed_golden, part) for part in
-                np.array_split(traces[pick], LE_GOLDEN_WORKERS)],
+        cfg=cfg, filename=filename, traces=traces, pick=pick,
+        jobs=dict(held={d: (f"long kernel at the evaluation chunk, depth "
+                            f"{d}", traces[rows], launched_rows[d],
+                            rungs[d]["variant"]) for d in ladder},
+                  golden=np.array_split(traces[pick], LE_GOLDEN_WORKERS)),
         findings=dict(
             run=dict(trials=N, shape=[frames, C], traces=N * C,
                      container=os.path.splitext(filename)[1],
@@ -4751,6 +4933,43 @@ def phase_long_evaluation(work, train_run=None) -> dict:
             flag_share=flag_share, kernel_by_depth=rungs,
             spikes_per_train=spikes_per_train,
             statistics_all_trials=costs))
+
+
+def spawn_long_twins(long_part=None, time_part=None) -> None:
+    """Start phase 16's spawned comparisons (``long_part``, from
+    :func:`phase_long_evaluation`) and phase 15 (b)'s (``time_part``, from
+    :func:`phase_time_parallel`) in one pool: at each rung, one plain call
+    on the rows of phase 16's launch and of rank 0's last sampled traces
+    where phase 15 (b)'s dispatch climbed it (the same frames and
+    arguments), held row for row; the goldens beside them."""
+    parts = collections.defaultdict(list)
+    jobs = (dict(held={}, golden=[]) if long_part is None
+            else long_part.pop("jobs"))
+    for d, job in jobs["held"].items():
+        parts[d].append(job)
+    rungs = {} if time_part is None else time_part["rungs"]
+    for d, rung in rungs.items():
+        check(rung["prod"] == production(d, precise=True),
+              f"phase 15 (b)'s arguments at depth {d}: {rung['prod']}")
+        parts[d].append((f"time-parallel sampling epoch, depth {d}",
+                         time_part["samples"][-1][0], None, rung["variant"]))
+    pool = _spawned_pool(len(parts) + len(jobs["golden"])
+                         + (time_part is not None))
+    merged = {d: pool.submit(_long_twins, production(d, precise=True), part)
+              for d, part in parts.items()}
+    if long_part is not None:
+        long_part.update(
+            pool=pool, held={d: _Share(merged[d], 0) for d in jobs["held"]},
+            golden=[pool.submit(_timed_golden, part)
+                    for part in jobs["golden"]])
+    if time_part is not None:  # its part is the last of each rung's
+        time_part["pending"] = dict(
+            pool=pool if long_part is None else None, rungs=rungs,
+            kernel_vs_plain={d: _Share(merged[d], len(parts[d]) - 1)
+                             for d in rungs},
+            sampled_vs_golden=pool.submit(
+                _timed_golden_of_samples, time_part["samples"],
+                (102, LC_T), "time-parallel sampling epochs"))
 
 
 def finish_long_evaluation(smi, part) -> dict:
@@ -4848,12 +5067,171 @@ def finish_long_evaluation(smi, part) -> dict:
                 **bound(N * C, frames, True))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: slices of the data axis on four GPUs
+# ---------------------------------------------------------------------------
+
+# phase 17's sweep: its workers, and the ranks they start, import this file
+# again as ``__mp_main__`` (the spawn start method); where this variable
+# names a directory, train.main there writes what each rank ran into it
+RANK_SPY = "CHIP_SMOKE_RANK_SPY"
+
+
+def _spy_on_ranks(directory) -> None:
+    """Wrap ``train.main`` in this process: each call writes
+    ``<run>.rank<r>.json`` under ``directory``: the rank's world and GPU,
+    the digest of its whole state (:func:`_whole_digest`), its sampling
+    epochs' OASIS launches, plain calls and collectives."""
+    import functools
+
+    import torch
+    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    run_main = train.main
+
+    @functools.wraps(run_main)  # pickles as train.main, into the ranks
+    def main(config, *args, **kwargs):
+        oasis_cuda.launches.clear()
+        oasis_torch.calls = 0
+        mesh_lib.collectives.clear()
+        with Spy(train, "test") as spy:
+            out = run_main(config, *args, **kwargs)
+        rank = mesh_lib.process_index()
+        found = dict(rank=rank, world=mesh_lib.process_count(),
+                     device=f"cuda:{torch.cuda.current_device()}",
+                     digest=_whole_digest(spy.calls["test"][0]["args"][3]),
+                     launches=dict(oasis_cuda.launches),
+                     plain_calls=oasis_torch.calls,
+                     collectives=dict(mesh_lib.collectives))
+        name = f"{os.path.basename(config.output_dir)}.rank{rank}.json"
+        with open(os.path.join(directory, name), "w") as f:
+            json.dump(found, f)
+        return out
+
+    train.main = main
+
+
+def _sweep_over_slices(records, work) -> dict:
+    """``python -m calciumgan_tpu_torch.search --parallel 2 --device
+    cuda`` in-process over ``SWEEP_GRID`` on the flagship records, batch
+    64, 2 epochs: one spawned worker a slice of two GPUs, each experiment
+    data-parallel over its slice over NCCL. Checked: both sessions in
+    ``results.jsonl`` with finite metrics; each run's two ranks on the
+    GPUs of one slice, their whole states equal bit for bit (the
+    checkpoint rank 0 writes); OASIS in the first rank's sampling epochs
+    only."""
+    import glob
+
+    import numpy as np
+    from calciumgan_tpu_torch import search
+    out = os.path.join(work, "sweep_slices")
+    spied = os.path.join(work, "sweep_ranks")
+    os.makedirs(spied)
+    slices = search.device_slices("cuda", SWEEP_PARALLEL)
+    argv = ["--input_dir", records, "--output_dir", out, "--batch_size",
+            "64", "--epochs", str(SWEEP_EPOCHS), "--device", "cuda",
+            "--grid", json.dumps(SWEEP_GRID), "--parallel",
+            str(SWEEP_PARALLEL)]
+    os.environ[RANK_SPY] = spied
+    try:
+        start = time.perf_counter()
+        search.main(argv)
+        seconds = time.perf_counter() - start
+    finally:
+        os.environ.pop(RANK_SPY)
+    with open(os.path.join(out, "results.jsonl")) as f:
+        lines = sorted((json.loads(line) for line in f),
+                       key=lambda line: line["session"])
+    check([line["session"] for line in lines] == [1, 2]
+          and all(np.isfinite(list(line["metrics"].values())).all()
+                  and "signals_metrics/mean" in line["metrics"]
+                  for line in lines), f"sweep over slices: {lines}")
+    runs = {}
+    for line in lines:
+        run = glob.glob(os.path.join(out, f"{line['session']:03d}_*"))
+        check(len(run) == 1, f"session {line['session']}: runs {run}")
+        name = os.path.basename(run[0])
+        ranks = []
+        for r in range(len(slices[0])):
+            with open(os.path.join(spied, f"{name}.rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        first = ranks[0]
+        check(sorted(r["device"] for r in ranks) in slices
+              and all(r["world"] == len(ranks) for r in ranks),
+              f"{name}: ranks on {[r['device'] for r in ranks]}, slices "
+              f"{slices}")
+        check(len({r["digest"] for r in ranks}) == 1,
+              f"{name}: the ranks' whole states differ")
+        check(set(first["launches"]) == {"oasis_ar1/shared"}
+              and all(not r["launches"] and not r["plain_calls"]
+                      for r in ranks[1:]) and first["plain_calls"] == 0,
+              f"{name}: sampling launches by rank "
+              f"{[(r['launches'], r['plain_calls']) for r in ranks]}")
+        ckpts = sorted(os.listdir(os.path.join(run[0], "checkpoints")))
+        runs[line["session"]] = dict(
+            params={k: line["params"][k] for k in SWEEP_GRID},
+            metrics=line["metrics"], seconds=line["elapse"],
+            devices=[r["device"] for r in ranks], replicas_equal=True,
+            checkpoints=ckpts, sampling_launches_rank0=first["launches"],
+            collectives_rank0=first["collectives"])
+    return dict(slices=slices, seconds=seconds,
+                seconds_per_experiment=[r["seconds"] for r in runs.values()],
+                experiments=runs)
+
+
+def phase_slices(smi, work, records, signals):
+    """Phase 17, on four GPUs: (a) ``main --dcn_slices 2
+    --data_parallelism 2`` at the flagship recipe for 2 epochs over NCCL
+    (:func:`_par_launch`'s checks: every replica equal bit for bit, one
+    writer, a shard a data index, OASIS in rank 0's sampling epochs only),
+    each rank's step at learning rate 0 against the one-process step
+    within phase 14's bounds, its collectives those of the data axis
+    (``DP_STEP_CALLS``), the sampled spikes against the golden; the step
+    loop on the sliced layout against one GPU, in the order 1, 4, 4, 1;
+    (b) the sweep over two-GPU slices (:func:`_sweep_over_slices`)."""
+    import numpy as np
+    import torch
+    from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+    gpus = [f"cuda:{i}" for i in range(torch.cuda.device_count())][:4]
+    check(len(gpus) == 4, f"phase 17 needs four GPUs, have {len(gpus)}")
+    real = np.ascontiguousarray(signals[:DP_BATCH])
+    one, _ = _layout_steps(real, torch.device("cuda:0"), T, 10,
+                           ("f32", "bf16"))
+    layout = mesh_lib.create_mesh(DCN_DATA, devices=gpus, slices=DCN_SLICES)
+    ranks, run = _par_launch(
+        records, os.path.join(work, "dcn_nccl"), layout, "nccl", real, T, 10,
+        "oasis_ar1", (TRAIN_ROWS, VAL_ROWS), "--dcn_slices", str(DCN_SLICES),
+        "--data_parallelism", str(DCN_DATA), "--save_generated", "last")
+    run["step_vs_one_process"] = _step_vs_one_process(one, ranks)
+    calls = run["step_collectives_rank0"]
+    check(all(c["calls"] == DP_STEP_CALLS for c in calls.values()),
+          f"--dcn_slices step's collectives {calls}, expected "
+          f"{DP_STEP_CALLS} (data {len(gpus)})")
+    # the run's: its epochs' steps and validation passes, and the test's
+    expected = {"all_reduce": data_axis_all_reduces(PAR_EPOCHS,
+                                                    PAR_EPOCHS + 1)}
+    check(run["collectives_rank0"] == expected,
+          f"--dcn_slices run's collectives {run['collectives_rank0']}, "
+          f"expected {expected}")
+    run["sampled_mismatches_vs_golden"] = _golden_of_samples(
+        ranks[0]["samples"], (102, T), "sliced run's sampling epochs")
+    run["step_loop_scaling"] = _dp_scaling(real, layout, PAR_LOOP)
+    report("phase 17 dcn slices", card=smi,
+           flags=f"--dcn_slices {DCN_SLICES} --data_parallelism {DCN_DATA}",
+           global_batch=DP_BATCH, epochs=PAR_EPOCHS, dcn_run=run)
+    report("phase 17 sweep over slices", card=smi, grid=SWEEP_GRID,
+           batch_size=64, epochs=SWEEP_EPOCHS, parallel=SWEEP_PARALLEL,
+           **_sweep_over_slices(records, work))
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
     if argv not in ([], ["--phase", "14"], ["--phase", "15"],
-                    ["--phase", "15-nccl"], ["--phase", "16"]):
-        print("usage: chip_smoke.py [--phase 14|15|15-nccl|16]",
+                    ["--phase", "15-nccl"], ["--phase", "16"],
+                    ["--phase", "17"]):
+        print("usage: chip_smoke.py [--phase 14|15|15-nccl|16|17]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4874,10 +5252,12 @@ def main(argv) -> int:
     smi = phase_device(root)
     if argv == ["--phase", "16"]:  # generated by seeded random weights
         with tempfile.TemporaryDirectory() as work:
-            finish_long_evaluation(smi, phase_long_evaluation(work))
+            long_part = phase_long_evaluation(work)
+            spawn_long_twins(long_part)
+            finish_long_evaluation(smi, long_part)
         print(smi)
         return ok_line()
-    if argv:  # phase 14 or 15 alone, on a training set of its own
+    if argv:  # phase 14, 15 or 17 alone, on a training set of its own
         with tempfile.TemporaryDirectory() as work:
             records = os.path.join(work, "records")
             signals = write_training_set(records)
@@ -4893,25 +5273,39 @@ def main(argv) -> int:
                 _, lc_real, lc_one, _ = _long_windows(work)
                 phase_parallel_nccl(smi, work, records, real, one, lc_real,
                                     lc_one)
+            elif argv[1] == "17":
+                phase_slices(smi, work, records, signals)
             else:
                 phase_model_time_parallel(smi, work, records, signals,
                                           phase_time_parallel(work))
+            flush_twins()
         print(smi)
         return ok_line()
-    max_err = phase_kernel()
+    # the timed parts of phases 3-5 on an idle card; phases 2 and 3's
+    # untimed work, and phase 10's step on the card against the CPU (it
+    # times nothing and needs no earlier phase), beside phase 5's spawned
+    # comparisons
     config = flagship_config()
     weights, _ = get_models(config, rng=torch.Generator().manual_seed(SEED))
     variables = convert.flax_generator_variables(weights.state_dict())
-    serving_launches = phase_slice(config, variables)
+    serving_launches, slice_checks = phase_slice(config, variables)
     serving = phase_timings(config, variables, smi)
-    recordings = phase_recordings(smi)
+    early = {}
+
+    def step2d():
+        start = time.perf_counter()
+        early["step2d"] = dict(step2d_card_vs_cpu(),
+                               seconds=time.perf_counter() - start)
+
+    recordings = phase_recordings(
+        smi, beside=(phase_kernel, slice_checks, step2d))
     with tempfile.TemporaryDirectory() as work:
         training = phase_training(smi, work)
         recording = recordings.pop("recording")
         phase_prepare(smi, work, recording)
         evaluation = phase_evaluation(smi, work, training["run"])
         dg = phase_dg(smi, work, recording)
-        conv2d = phase_conv2d(smi, work, recording)
+        conv2d = phase_conv2d(smi, work, recording, early["step2d"])
         batch_norm = phase_batch_norm(smi, work, training["records"],
                                       training["head"])
         in_graph = phase_in_graph(smi, config, variables)
@@ -4923,7 +5317,7 @@ def main(argv) -> int:
         # 14's step loops are timed
         time_part = phase_time_parallel(work, spawn=False)
         long_part = phase_long_evaluation(work, os.path.join(work, "tp_run"))
-        spawn_time_parallel(time_part)
+        spawn_long_twins(long_part, time_part)
         beside = "phase 15 (b)'s and phase 16's plain versions, on cuda:0"
         long_eval = None
         if torch.cuda.device_count() > 1:
@@ -4933,10 +5327,14 @@ def main(argv) -> int:
         parallel = phase_data_parallel(
             smi, work, training["records"], training["head_128"],
             training["timing"]["steps_per_s_host"], beside)
+        # the deferred plain calls while phase 15 waits for (b)'s
+        twins = {}
         model_time = phase_model_time_parallel(
-            smi, work, training["records"], training["head_128"], time_part)
+            smi, work, training["records"], training["head_128"], time_part,
+            beside=(lambda: twins.update(err=flush_twins()),))
         if long_eval is None:
             long_eval = finish_long_evaluation(smi, long_part)
+    twins_err = twins["err"]
     jax_loaded = [m for m in ("jax", "flax", "optax") if m in sys.modules]
     check(not jax_loaded, f"imported {jax_loaded}")
 
@@ -5007,7 +5405,7 @@ def main(argv) -> int:
                  "(rank 0's sampling epochs), main --distributed and main "
                  "--model_parallelism 2 (rank 0's sampling epochs)",
          "library_ms": None,
-         **dict(serving, max_abs_err=max(max_err, serving["max_abs_err"],
+         **dict(serving, max_abs_err=max(twins_err, serving["max_abs_err"],
                                          in_graph["max_abs_err"]))},
         {"name": "oasis_ar1_precise", "route": "cuda", "source": source,
          "replaces": "calciumgan_tpu/ops/oasis_pallas.py:603",
@@ -5044,6 +5442,9 @@ def ok_line() -> int:
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
+
+if __name__ == "__mp_main__" and os.environ.get(RANK_SPY):
+    _spy_on_ranks(os.environ[RANK_SPY])
 
 if __name__ == "__main__":
     try:

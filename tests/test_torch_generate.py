@@ -194,3 +194,40 @@ def test_chip_smoke_fails_without_a_card_or_the_port(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _chip_smoke_tree():
+    import ast
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        return ast.parse(f.read())
+
+
+def test_chip_smoke_takes_phase_17_and_no_phase_imports_jax():
+    # the usage guard of main() lists --phase 17 (phases 1 and 17 on four
+    # GPUs); the script goes past it to the card check, where a bad phase
+    # stops at the guard; no function of the script imports JAX
+    import ast
+    tree = _chip_smoke_tree()
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    guard = next(n for n in ast.walk(main) if isinstance(n, ast.Compare)
+                 and isinstance(n.left, ast.Name) and n.left.id == "argv"
+                 and isinstance(n.ops[0], ast.NotIn))
+    accepted = ast.literal_eval(guard.comparators[0])
+    assert ["--phase", "17"] in accepted and [] in accepted
+    script = os.path.join(ROOT, "chip_smoke.py")
+    for argv, said in ((["--phase", "17"], "no CUDA device"),
+                       (["--phase", "18"], "usage")):
+        out = subprocess.run([sys.executable, script, *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 2 and said in out.stderr, out.stderr
+    functions = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]
+    assert {"phase_slices", "phase_data_parallel"} <= {
+        n.name for n in functions}
+    for fn in functions:
+        names = [a.name for n in ast.walk(fn) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module for n in ast.walk(fn)
+                  if isinstance(n, ast.ImportFrom) and n.module]
+        tops = {name.split(".")[0] for name in names}
+        assert not tops & {"calciumgan_tpu", "jax", "flax", "optax"}, fn.name

@@ -20,6 +20,10 @@ package's ``parallel/mesh.py`` and against its own one-process step.
 - the same 2-rank step against JAX's ``make_step_fns`` on
   ``create_mesh(data_parallelism=2)``, replaying the JAX step's draws, at
   ``test_torch_train_step.py``'s bounds;
+- ``--dcn_slices 2``: two ranks at ``create_mesh(1, slices=2)`` get the
+  rows JAX's ``create_mesh(1, devices[:2], slices=2)`` gives each slice,
+  make the data-2 step's collectives and bits, and hold to JAX's step on
+  that mesh (same bounds) and to the one-process step (the bounds above);
 - a masked evaluation batch whose real rows split unevenly between the
   ranks gives the one-process logs and the global real-row count;
 - a rank's rows of a batch, gathered from every rank, are the batch;
@@ -77,11 +81,13 @@ def _once(draws):
     return {k: v[:half[k]] for k, v in draws.items()}
 
 
-def _jax_mesh_step(kw):
-    """JAX's train step on ``create_mesh(data_parallelism=2)`` from the
-    shared weights, and the draws recorded from the same step on one
-    device (an ordered callback is refused on more than one device; the
-    draws do not depend on the sharding)."""
+def _jax_mesh_step(kw, slices=1):
+    """JAX's train step on ``create_mesh(data_parallelism=2)`` (with
+    ``slices``: ``create_mesh(2 // slices, devices=jax.devices()[:2],
+    slices=slices)``) from the shared weights, the draws recorded from the
+    same step on one device (an ordered callback is refused on more than
+    one device; the draws do not depend on the sharding), and each mesh
+    device's rows of the batch, in the mesh's device order."""
     real = jnp.asarray(_real(tiny(**kw)))
     with recording() as rec:
         _, _, jalgo, jstate = make_pair(rec, **kw)
@@ -89,12 +95,18 @@ def _jax_mesh_step(kw):
         draws = rec.take()
     jcfg = JaxConfig(**tiny(**kw))
     algo = jax_get_algorithm(jcfg, *jax_get_models(jcfg))
-    mesh = jax_mesh.create_mesh(data_parallelism=WORLD)
+    mesh = (jax_mesh.create_mesh(data_parallelism=WORLD) if slices == 1
+            else jax_mesh.create_mesh(WORLD // slices,
+                                      devices=jax.devices()[:WORLD],
+                                      slices=slices))
     train, _, _ = jax_mesh.make_step_fns(algo, mesh, jstate)
     state = jax.device_put(jstate, jax_mesh.state_shardings(mesh, jstate))
-    new, logs = train(state, jax_mesh.shard_batch(mesh, np.asarray(real)),
-                      jax.random.PRNGKey(1))
-    return jax.tree_util.tree_map(np.asarray, (new, logs)) + (draws,)
+    batch = jax_mesh.shard_batch(mesh, np.asarray(real))
+    shards = {s.device.id: np.asarray(s.data)
+              for s in batch.addressable_shards}
+    rows = [shards[d.id] for d in mesh.devices.flat]
+    new, logs = train(state, batch, jax.random.PRNGKey(1))
+    return jax.tree_util.tree_map(np.asarray, (new, logs)) + (draws, rows)
 
 
 JAX_CASES = {"wgan-gp": {}, "batch-norm": dict(batch_norm=True)}
@@ -106,22 +118,35 @@ def jax_steps():
 
 
 @pytest.fixture(scope="module")
-def rank_results(jax_steps):
+def jax_sliced():
+    """JAX's wgan-gp step on two slices of one device each."""
+    return _jax_mesh_step({}, slices=WORLD)
+
+
+@pytest.fixture(scope="module")
+def rank_results(jax_steps, jax_sliced):
     """Every rank job of the module in one launch of two gloo ranks: each
     case's step at learning rate 0 and at the tiny rate, the JAX cases'
-    steps on the recorded draws, the masked evaluation."""
+    steps on the recorded draws, the masked evaluation, and the wgan-gp
+    step on two slices at learning rate 0 and on JAX's sliced draws."""
     jobs = []
     for name, sizes in CASES.items():
         for lr in (0.0, LR):
             jobs.append(((name, lr), ranks.rank_step,
                          (dict(sizes, learning_rate=lr), _real(sizes))))
-    for name, (_, _, draws) in jax_steps.items():
+    for name, (_, _, draws, _) in jax_steps.items():
         sizes = tiny(**JAX_CASES[name])
         jobs.append(((name, "jax"), ranks.rank_step,
                      (sizes, _real(sizes), draws)))
     jobs.append(("eval", ranks.rank_evaluate,
                  (tiny(), _real(tiny()), _EVAL_MASK, 3, 17)))
     jobs.append(("gather", ranks.rank_gather, (_real(tiny()),)))
+    # (sizes, real, model, time, recorded, seed, counter, slices)
+    jobs.append((("slices", 0.0), ranks.rank_parallel_step,
+                 (tiny(learning_rate=0.0), _real(tiny()), 1, 1, None, 0, 0,
+                  WORLD)))
+    jobs.append((("slices", "jax"), ranks.rank_parallel_step,
+                 (tiny(), _real(tiny()), 1, 1, jax_sliced[2], 0, 0, WORLD)))
     return launch_lib.launch(ranks.rank_jobs, ["cpu"] * WORLD, "gloo",
                              args=(jobs,), timeout=300)
 
@@ -224,75 +249,122 @@ def _check_moment(ours, ref, scale, tol, sizes, name):
         assert _moment_err(ours, ref) <= tol, name
 
 
+def _assert_one_process_step(got, one, sizes, lr):
+    """A rank's step (``got``) against the one-process step ``one`` at
+    learning rate ``lr``: logs and moments at 0, parameters within 2 lr,
+    running statistics within ``STATS_TOL``."""
+    if lr == 0.0:
+        for k, v in one["logs"].items():
+            np.testing.assert_allclose(got["logs"][k], v, rtol=STEP_RTOL,
+                                       atol=0, err_msg=k)
+    for k, v in one["tensors"].items():
+        if "/moment/" in k and lr == 0.0:
+            net = k.split("/")[0]
+            scale = max(float(np.abs(t).max()) for n, t in
+                        one["tensors"].items()
+                        if n.startswith(f"{net}/moment/"))
+            _check_moment(got["tensors"][k], v, scale, MOMENT_TOL,
+                          sizes if net == "generator" else {},
+                          k.split("/")[-1])
+        elif "/buffer/" in k:
+            np.testing.assert_allclose(got["tensors"][k], v, rtol=0,
+                                       atol=STATS_TOL, err_msg=k)
+        elif "/moment/" not in k:
+            np.testing.assert_allclose(got["tensors"][k], v, rtol=0,
+                                       atol=2 * lr, err_msg=k)
+
+
+def _assert_replicas_equal(results, key):
+    first = results[0][key]["tensors"]
+    for rank, res in enumerate(results):
+        for k, v in res[key]["tensors"].items():
+            assert v.tobytes() == first[k].tobytes(), (key, rank, k)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_two_rank_step_equals_one_process(rank_results, name):
     sizes = CASES[name]
     for lr in (0.0, LR):
         one = ranks.step(dict(sizes, learning_rate=lr), _real(sizes),
                          Draws(0, 0, "cpu"))
-        first = rank_results[0][(name, lr)]["tensors"]
-        for rank, res in enumerate(rank_results):
+        _assert_replicas_equal(rank_results, (name, lr))
+        for res in rank_results:
             got = res[(name, lr)]
-            for k, v in got["tensors"].items():  # replicas equal bit for bit
-                assert v.tobytes() == first[k].tobytes(), (name, lr, rank, k)
             assert got["collectives"]["all_reduce"] > 0
-            if lr == 0.0:
-                for k, v in one["logs"].items():
-                    np.testing.assert_allclose(got["logs"][k], v,
-                                               rtol=STEP_RTOL, atol=0,
-                                               err_msg=k)
-            for k, v in one["tensors"].items():
-                if "/moment/" in k and lr == 0.0:
-                    net = k.split("/")[0]
-                    scale = max(float(np.abs(t).max()) for n, t in
-                                one["tensors"].items()
-                                if n.startswith(f"{net}/moment/"))
-                    _check_moment(got["tensors"][k], v, scale, MOMENT_TOL,
-                                  sizes if net == "generator" else {},
-                                  k.split("/")[-1])
-                elif "/buffer/" in k:
-                    np.testing.assert_allclose(got["tensors"][k], v,
-                                               rtol=0, atol=STATS_TOL,
-                                               err_msg=k)
-                elif "/moment/" not in k:
-                    np.testing.assert_allclose(got["tensors"][k], v,
-                                               rtol=0, atol=2 * lr,
-                                               err_msg=k)
+            _assert_one_process_step(got, one, sizes, lr)
     if sizes.get("batch_norm"):  # the statistics moved, 6 times
         assert any(float(np.abs(v - (1.0 if k.endswith("var") else 0.0))
                          .max()) > 1e-4 for k, v in one["tensors"].items()
                    if "/buffer/" in k)
 
 
-@pytest.mark.parametrize("name", list(JAX_CASES))
-def test_two_rank_step_matches_jax_data_mesh(rank_results, jax_steps, name):
-    new, jlogs, draws = jax_steps[name]
-    sizes = tiny(**JAX_CASES[name])
+def _assert_jax_step(got, new, jlogs, sizes):
+    """A rank's step on JAX's recorded draws against JAX's mesh step: the
+    logs at ``test_torch_train_step.py``'s bounds, each first moment within
+    its tensor's largest, the running statistics within ``STATS_TOL``."""
     to_g = convert.generator_state_dict
     to_d = convert.discriminator_state_dict
+    assert got["left"] == {}, "every recorded draw replayed"
+    assert set(got["logs"]) == set(jlogs)
+    for k in jlogs:
+        np.testing.assert_allclose(got["logs"][k], float(jlogs[k]),
+                                   rtol=LOSS_RTOL[False],
+                                   atol=LOSS_ATOL[False], err_msg=k)
+    for net, to_sd in (("generator", to_g), ("discriminator", to_d)):
+        mu = to_sd(getattr(new, net).opt_state[0].mu)
+        scale = max(float(v.abs().max()) for v in mu.values())
+        for n, ref in mu.items():
+            _check_moment(got["tensors"][f"{net}/moment/{n}"],
+                          np.asarray(ref), scale, F32_GRAD_TOL,
+                          sizes if net == "generator" else {}, n)
+    if sizes.get("batch_norm"):
+        stats = to_g(new.generator.params, sizes["model"],
+                     new.generator.batch_stats)
+        for n, ref in stats.items():
+            if "batch_norm.mean" in n or "batch_norm.var" in n:
+                np.testing.assert_allclose(
+                    got["tensors"][f"generator/buffer/{n}"],
+                    np.asarray(ref), rtol=0, atol=STATS_TOL, err_msg=n)
+
+
+@pytest.mark.parametrize("name", list(JAX_CASES))
+def test_two_rank_step_matches_jax_data_mesh(rank_results, jax_steps, name):
+    new, jlogs, _, _ = jax_steps[name]
     for res in rank_results:
-        got = res[(name, "jax")]
-        assert got["left"] == {}, "every recorded draw replayed"
-        assert set(got["logs"]) == set(jlogs)
-        for k in jlogs:
-            np.testing.assert_allclose(got["logs"][k], float(jlogs[k]),
-                                       rtol=LOSS_RTOL[False],
-                                       atol=LOSS_ATOL[False], err_msg=k)
-        for net, to_sd in (("generator", to_g), ("discriminator", to_d)):
-            mu = to_sd(getattr(new, net).opt_state[0].mu)
-            scale = max(float(v.abs().max()) for v in mu.values())
-            for n, ref in mu.items():
-                _check_moment(got["tensors"][f"{net}/moment/{n}"],
-                              np.asarray(ref), scale, F32_GRAD_TOL,
-                              sizes if net == "generator" else {}, n)
-        if sizes.get("batch_norm"):
-            stats = to_g(new.generator.params, sizes["model"],
-                         new.generator.batch_stats)
-            for n, ref in stats.items():
-                if "batch_norm.mean" in n or "batch_norm.var" in n:
-                    np.testing.assert_allclose(
-                        got["tensors"][f"generator/buffer/{n}"],
-                        np.asarray(ref), rtol=0, atol=STATS_TOL, err_msg=n)
+        _assert_jax_step(res[(name, "jax")], new, jlogs,
+                         tiny(**JAX_CASES[name]))
+
+
+def test_sliced_ranks_get_the_rows_of_their_jax_slice(rank_results,
+                                                      jax_sliced):
+    # create_mesh(1, slices=2): rank r is slice r, and holds the rows JAX's
+    # batch sharding over (slice, data) puts on that slice's device
+    rows = jax_sliced[3]
+    assert len(rows) == WORLD
+    for rank, res in enumerate(rank_results):
+        for key in (("slices", 0.0), ("slices", "jax")):
+            np.testing.assert_array_equal(res[key]["rows"], rows[rank])
+
+
+def test_sliced_step_matches_jax_and_one_process(rank_results, jax_sliced,
+                                                 jax_steps):
+    new, jlogs, _, _ = jax_sliced
+    sizes = tiny()
+    one = ranks.step(dict(sizes, learning_rate=0.0), _real(sizes),
+                     Draws(0, 0, "cpu"))
+    for key in (("slices", 0.0), ("slices", "jax")):
+        _assert_replicas_equal(rank_results, key)
+    for res in rank_results:
+        _assert_one_process_step(res[("slices", 0.0)], one, sizes, 0.0)
+        got = res[("slices", "jax")]
+        _assert_jax_step(got, new, jlogs, sizes)
+        # the slice axis folds into the data axis: the data-2 layout's
+        # collectives, and its step bit for bit on the same draws
+        data2 = res[("wgan-gp", "jax")]
+        assert got["collectives"] == data2["collectives"]
+        assert got["logs"] == data2["logs"]
+        for k, v in data2["tensors"].items():
+            assert got["tensors"][k].tobytes() == v.tobytes(), k
 
 
 _EVAL_MASK = np.array([1, 1, 1, 1, 1, 0, 0, 0], np.float32)

@@ -159,13 +159,16 @@ def rank_fail(which):
 
 # ---- model and time axes ---------------------------------------------------
 
-def layout(model: int = 1, time: int = 1):
+def layout(model: int = 1, time: int = 1, slices: int = 1):
     """The ``(data, model)`` or ``(data, time)`` layout of this group's
-    ranks on the host, the data axis taking the rest."""
+    ranks on the host, the data axis taking the rest; with ``slices``, a
+    ``(slice, data, model)`` one, the data axis taking the rest of a
+    slice."""
     world = mesh_lib.process_count()
     if time > 1:
         return mesh_lib.create_time_mesh(world // time, time, ["cpu"] * world)
-    return mesh_lib.create_mesh(world // model, model, ["cpu"] * world)
+    return mesh_lib.create_mesh(world // (model * slices), model,
+                                ["cpu"] * world, slices=slices)
 
 
 def rank_batch_norm_peers(x: np.ndarray, model: int) -> dict:
@@ -207,8 +210,9 @@ def whole_tensors(state) -> dict:
     return out
 
 
-def _parallel_setup(sizes, real, model, time, recorded, seed, counter):
-    mesh_lib.init_groups(layout(model, time))
+def _parallel_setup(sizes, real, model, time, recorded, seed, counter,
+                    slices=1):
+    mesh_lib.init_groups(layout(model, time, slices))
     cfg = Config(**dict(sizes, seed=0))
     algo, shards = train.build_algorithm(cfg, torch.device("cpu"))
     di, de = mesh_lib.data_index(), mesh_lib.data_extent()
@@ -221,20 +225,22 @@ def _parallel_setup(sizes, real, model, time, recorded, seed, counter):
 
 def rank_parallel_step(sizes: dict, real: np.ndarray, model: int = 1,
                        time: int = 1, recorded=None, seed: int = 0,
-                       counter: int = 0) -> dict:
-    """In a rank of a ``(data, model)`` or ``(data, time)`` layout: one
-    train step of the seeded weights on its rows (and frames) of ``real``
-    with its share of the draws; the logs, whole tensors, shard shapes and
-    collective calls."""
+                       counter: int = 0, slices: int = 1) -> dict:
+    """In a rank of a ``(data, model)`` or ``(data, time)`` layout (under
+    ``slices`` slices of the data axis): one train step of the seeded
+    weights on its rows (and frames) of ``real`` with its share of the
+    draws; the logs, whole tensors, shard shapes, collective calls and the
+    rows it trained on."""
     torch.set_num_threads(1)
     mesh_lib.collectives.clear()
     algo, shards, local, base, draws = _parallel_setup(
-        sizes, real, model, time, recorded, seed, counter)
+        sizes, real, model, time, recorded, seed, counter, slices)
+    rows = local.numpy().copy()
     state = algo.init_state()
     logs = algo.train_step(state, local, draws)
     out = dict(logs={k: float(v) for k, v in logs.items()},
                collectives=dict(mesh_lib.collectives), shards=shards,
-               left=base.left() if recorded is not None else {})
+               left=base.left() if recorded is not None else {}, rows=rows)
     out["tensors"] = whole_tensors(state)
     return out
 
