@@ -61,6 +61,7 @@ from calciumgan_tpu_torch.algorithms.state import (GANState, apply_updates,
 from calciumgan_tpu_torch.ops import signal_metrics
 from calciumgan_tpu_torch.ops.phase_shuffle import draw_shifts
 from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+from calciumgan_tpu_torch.utils import tracing
 
 
 def get_noise(gen: torch.Generator, n: int, noise_dim: int,
@@ -247,14 +248,15 @@ class GAN:
     # ------------------------------------------------------------------
     def update_ema(self, state: GANState) -> None:
         """``ema = decay * ema + (1 - decay) * params`` after a generator
-        step (no-op without an EMA)."""
-        if state.ema is None:
-            return
-        params = dict(self.generator.named_parameters())
-        ema = list(state.ema.values())
-        torch._foreach_mul_(ema, self.ema)
-        torch._foreach_add_(ema, [params[n].detach() for n in state.ema],
-                            alpha=1.0 - self.ema)
+        step (no-op without an EMA), as the span ``step/ema``."""
+        with tracing.span("step/ema"):
+            if state.ema is None:
+                return
+            params = dict(self.generator.named_parameters())
+            ema = list(state.ema.values())
+            torch._foreach_mul_(ema, self.ema)
+            torch._foreach_add_(ema, [params[n].detach() for n in state.ema],
+                                alpha=1.0 - self.ema)
 
     def sample(self, state: GANState, noise: torch.Tensor) -> torch.Tensor:
         """Generator output for evaluation and sampling (no dropout, the

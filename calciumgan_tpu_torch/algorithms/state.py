@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+from calciumgan_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -50,10 +51,11 @@ def apply_updates(net: NetState, grads) -> None:
     moments and update are its shard's.
     (DDP's reducer would not see them: the steps take their gradients with
     ``torch.autograd.grad``, and the gradient penalty differentiates
-    twice.)"""
-    grads = mesh_lib.gradient_mean(grads)
-    for p, g in zip(net.module.parameters(), grads):
-        p.grad = g
-    net.optimizer.step()
-    net.optimizer.zero_grad(set_to_none=True)
-    net.step += 1
+    twice.) It runs as the span ``step/update``."""
+    with tracing.span("step/update"):
+        grads = mesh_lib.gradient_mean(grads)
+        for p, g in zip(net.module.parameters(), grads):
+            p.grad = g
+        net.optimizer.step()
+        net.optimizer.zero_grad(set_to_none=True)
+        net.step += 1

@@ -38,6 +38,7 @@ from calciumgan_tpu_torch.algorithms.gan import (GAN, _eval_mask, _real_rows,
 from calciumgan_tpu_torch.algorithms.registry import register
 from calciumgan_tpu_torch.algorithms.state import GANState, apply_updates
 from calciumgan_tpu_torch.ops import signal_metrics
+from calciumgan_tpu_torch.utils import tracing
 
 
 @register("wgan-gp")
@@ -85,34 +86,47 @@ class WGAN_GP(GAN):
     # ---- steps --------------------------------------------------------
     def train_step(self, state: GANState, real: torch.Tensor,
                    draws) -> dict:
-        B = real.shape[0]
-        d_params = list(self.discriminator.parameters())
-        dis_losses, gps = [], []
-        for _ in range(self.n_critic):
-            with torch.no_grad():
+        """One step as the span ``step`` over ``step/critic`` (each critic
+        iteration but its update; ``step/penalty`` inside it),
+        ``step/generator``, the updates' ``step/update``, ``step/ema`` and
+        ``step/metrics`` (:mod:`~calciumgan_tpu_torch.utils.tracing`)."""
+        with tracing.span("step", step=state.generator.step):
+            B = real.shape[0]
+            d_params = list(self.discriminator.parameters())
+            dis_losses, gps = [], []
+            for _ in range(self.n_critic):
+                with tracing.span("step/critic"):
+                    with torch.no_grad():
+                        fake = self.gen(draws.noise(B, self.noise_dim),
+                                        draws, training=True)
+                    out = self.dis(torch.cat([real, fake.to(real.dtype)]),
+                                   draws, training=True)
+                    with tracing.span("step/penalty"):
+                        gp = self.gradient_penalty(draws, real, fake,
+                                                   training=True)
+                    loss = self.wasserstein_dis_loss(out[:B], out[B:]) \
+                        + self.penalty * gp
+                    grads = torch.autograd.grad(loss, d_params)
+                apply_updates(state.discriminator, grads)
+                dis_losses.append(loss.detach())
+                gps.append(gp.detach())
+
+            with tracing.span("step/generator"):
                 fake = self.gen(draws.noise(B, self.noise_dim), draws,
                                 training=True)
-            out = self.dis(torch.cat([real, fake.to(real.dtype)]), draws,
-                           training=True)
-            gp = self.gradient_penalty(draws, real, fake, training=True)
-            loss = self.wasserstein_dis_loss(out[:B], out[B:]) \
-                + self.penalty * gp
-            apply_updates(state.discriminator,
-                          torch.autograd.grad(loss, d_params))
-            dis_losses.append(loss.detach())
-            gps.append(gp.detach())
+                gen_loss = self.generator_loss(self.dis(fake, draws,
+                                                        training=True))
+                grads = torch.autograd.grad(
+                    gen_loss, list(self.generator.parameters()))
+            apply_updates(state.generator, grads)
+            self.update_ema(state)
 
-        fake = self.gen(draws.noise(B, self.noise_dim), draws, training=True)
-        gen_loss = self.generator_loss(self.dis(fake, draws, training=True))
-        apply_updates(state.generator, torch.autograd.grad(
-            gen_loss, list(self.generator.parameters())))
-        self.update_ema(state)
-
-        logs = {"loss/generator": gen_loss.detach(),
-                "loss/discriminator": torch.stack(dis_losses).mean(),
-                "loss/gradient_penalty": torch.stack(gps).mean()}
-        logs.update(self.metrics(real, fake.detach()))
-        return global_logs(logs)
+            with tracing.span("step/metrics"):
+                logs = {"loss/generator": gen_loss.detach(),
+                        "loss/discriminator": torch.stack(dis_losses).mean(),
+                        "loss/gradient_penalty": torch.stack(gps).mean()}
+                logs.update(self.metrics(real, fake.detach()))
+                return global_logs(logs)
 
     def eval_step(self, state: GANState, real: torch.Tensor, draws,
                   mask: Optional[torch.Tensor] = None):

@@ -36,7 +36,7 @@ import torch
 from calciumgan_tpu_torch.algorithms.gan import denormalize
 from calciumgan_tpu_torch.data import tfrecord
 from calciumgan_tpu_torch.parallel import mesh as mesh_lib
-from calciumgan_tpu_torch.utils import h5
+from calciumgan_tpu_torch.utils import h5, tracing
 
 
 class ArrayDataset:
@@ -257,8 +257,12 @@ class DeviceStore:
         return self.signals.numel() * self.signals.element_size()
 
     def batch(self, idx: np.ndarray) -> torch.Tensor:
-        index = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
-        return self.signals.index_select(0, index)
+        """The rows ``idx``, gathered on the device as the span
+        ``data/gather``."""
+        with tracing.span("data/gather"):
+            index = torch.from_numpy(np.asarray(idx, np.int64)).to(
+                self.device)
+            return self.signals.index_select(0, index)
 
 
 class HostBatches:
@@ -342,7 +346,8 @@ class DevicePrefetcher:
         return self
 
     def __next__(self) -> torch.Tensor:
-        item = self._q.get()
+        with tracing.span("data/wait"):
+            item = self._q.get()
         if item is None:
             self._thread.join()
             raise StopIteration

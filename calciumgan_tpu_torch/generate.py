@@ -39,6 +39,7 @@ from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
 from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
 from calciumgan_tpu_torch.models import get_models
 from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+from calciumgan_tpu_torch.utils import tracing
 from calciumgan_tpu_torch.utils.checkpoint import restore_generator_params
 
 
@@ -64,28 +65,42 @@ def generate(config, variables, num_samples: int, batch_size: int = 1024,
     follow torch's TF32 switches, which the caller sets (:func:`main` turns
     both off). In a group of P ranks each batch is drawn whole and the
     rank's block of its rows generated (the last batch's rows past
-    ``num_samples`` dropped, so a rank may yield fewer)."""
+    ``num_samples`` dropped, so a rank may yield fewer).
+
+    Each batch runs as the span ``generate/batch``, closed before its
+    payload is yielded, over ``generate/forward``, ``generate/
+    signals_to_host``, ``generate/layout`` and the OASIS dispatch's spans
+    (:mod:`~calciumgan_tpu_torch.utils.tracing`)."""
     device = torch.device(device)
     generator = build_generator(config, variables, device)
     rng = torch.Generator(device=device).manual_seed(seed)
     rank, world = mesh_lib.process_index(), mesh_lib.process_count()
     batch_size = -(-batch_size // world) * world
     local = batch_size // world
-    written = 0
+    written = index = 0
     while written < num_samples:
         n = min(batch_size, num_samples - written)
-        noise = gan.get_noise(rng, batch_size, config.noise_dim, device)
         written += n
         lo, hi = rank * local, min((rank + 1) * local, n)
-        if hi <= lo:
-            continue
-        fake = gan.generate(generator, mesh_lib.rows_of(noise, rank, world))
-        signals = reverse_preprocessing(config, fake)[:hi - lo].float()
-        payload = {"signals": signals.cpu().numpy()}
-        if with_spikes:
-            traces = signals.transpose(1, 2).contiguous()  # (n, C, T)
-            payload["spikes"] = np.ascontiguousarray(
-                np.transpose(deconvolve_traces(traces), (0, 2, 1)))
+        if hi <= lo:  # the last batch holds no row of this rank
+            return
+        with tracing.span("generate/batch", batch=index):
+            with tracing.span("generate/forward"):
+                noise = gan.get_noise(rng, batch_size, config.noise_dim,
+                                      device)
+                fake = gan.generate(generator,
+                                    mesh_lib.rows_of(noise, rank, world))
+                signals = reverse_preprocessing(config, fake)[:hi - lo].float()
+            with tracing.span("generate/signals_to_host"):
+                payload = {"signals": signals.cpu().numpy()}
+            if with_spikes:
+                with tracing.span("generate/layout"):
+                    traces = signals.transpose(1, 2).contiguous()  # (n,C,T)
+                spikes = deconvolve_traces(traces)
+                with tracing.span("generate/layout"):
+                    payload["spikes"] = np.ascontiguousarray(
+                        np.transpose(spikes, (0, 2, 1)))
+        index += 1
         yield payload
 
 

@@ -36,7 +36,6 @@ import collections
 import ctypes
 import os
 from concurrent.futures import ThreadPoolExecutor
-from time import perf_counter
 
 import numpy as np
 import torch
@@ -44,6 +43,7 @@ import torch
 from calciumgan_tpu_torch.kernels import build
 from calciumgan_tpu_torch.ops import oasis_cuda
 from calciumgan_tpu_torch.ops.spike_metrics import first_order_recurrence
+from calciumgan_tpu_torch.utils import tracing
 
 __all__ = ["ar1_filter", "deconvolve_signals", "deconvolve_signals_host",
            "oasis_ar1_while"]
@@ -249,12 +249,15 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     dispatch. Long traces on the CPU go straight to the exact host kernel,
     as the JAX package's do off the TPU (JAX ``ops/oasis.py:322-327``).
 
-    A caller that reports where the time went passes a ``stats`` counter;
-    the kernel route adds to it the host-clock seconds of ``kernel``
-    (launch until the flags are on the host), ``spikes_to_host`` and
-    ``redo``, ``kernel_device`` seconds by CUDA events, and the counts of
-    ``traces`` dispatched, ``flagged``, and flagged by ``bit0`` (depth),
-    ``bit1`` (merge budget) and ``bit2`` (borderline)."""
+    The kernel route runs as the spans ``oasis/kernel`` (launch until the
+    flags are on the host, one a rung), ``oasis/spikes_to_host`` and
+    ``oasis/redo`` and counts ``oasis/traces`` dispatched, ``oasis/
+    flagged``, and flagged by ``oasis/bit0`` (depth), ``bit1`` (merge
+    budget) and ``bit2`` (borderline) (:mod:`~calciumgan_tpu_torch.utils.
+    tracing`). A caller that reports where the time went passes a ``stats``
+    counter: it takes those host-clock seconds and counts under the names'
+    last parts (``kernel``, ``traces``, ...), and ``kernel_device``, the
+    kernels' seconds by CUDA events."""
     if isinstance(signals, np.ndarray):
         signals = torch.from_numpy(np.ascontiguousarray(signals, np.float32))
     signals = signals.float().contiguous()
@@ -288,44 +291,37 @@ def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
     traces overflow, then every flagged trace recomputed in float64 on the
     host (JAX ``ops/oasis.py:343-366``). ``stats`` takes the seconds and
     counts that :func:`deconvolve_signals_host` documents."""
-    stats = collections.Counter() if stats is None else stats
-    clock = perf_counter()
-
-    def lap(stage: str) -> None:
-        nonlocal clock
-        now = perf_counter()
-        stats[stage] += now - clock
-        clock = now
-
     for i, d in enumerate(ladder):
-        if flat.is_cuda:
-            begin, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            begin.record()
-        _, s, redo = entry(flat, g=g, lam=0.0, s_min=s_min, depth=d,
-                           merge_attempts=_MERGE_BUDGET, precise=precise,
-                           flag_tol=_flag_tol(s_min, threshold, precise))
-        if flat.is_cuda:
-            end.record()
-        flags = redo.reshape(-1).cpu().numpy()  # waits for the kernel
-        lap("kernel")
-        if flat.is_cuda:
+        with tracing.span("oasis/kernel", stats, depth=d):
+            timed = flat.is_cuda and stats is not None
+            if timed:
+                begin, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                begin.record()
+            _, s, redo = entry(flat, g=g, lam=0.0, s_min=s_min, depth=d,
+                               merge_attempts=_MERGE_BUDGET, precise=precise,
+                               flag_tol=_flag_tol(s_min, threshold, precise))
+            if timed:
+                end.record()
+            flags = redo.reshape(-1).cpu().numpy()  # waits for the kernel
+        if timed:
             stats["kernel_device"] += begin.elapsed_time(end) * 1e-3
         # escalate only on DEPTH flags (bit 0): a deeper stack cannot help
         # an exhausted merge budget (bit 1) or a borderline decision (bit 2)
         depth_frac = float(((flags & 1) != 0).mean()) if flags.size else 0.0
         if depth_frac <= _ESCALATE_FRAC or i == len(ladder) - 1:
             break
-    spikes = (s > threshold).to(torch.int8).cpu().numpy()
-    lap("spikes_to_host")
-    stats.update(traces=flags.size, flagged=int((flags != 0).sum()),
-                 **{f"bit{b}": int(((flags >> b) & 1).sum())
-                    for b in range(3)})
+    with tracing.span("oasis/spikes_to_host", stats):
+        spikes = (s > threshold).to(torch.int8).cpu().numpy()
+    tracing.count("oasis", stats, traces=flags.size,
+                  flagged=int((flags != 0).sum()),
+                  **{f"bit{b}": int(((flags >> b) & 1).sum())
+                     for b in range(3)})
     if flags.any():
         idx = np.nonzero(flags)[0]
-        rows = flat[torch.from_numpy(idx).to(flat.device)].cpu().numpy()
-        spikes[idx] = _exact_spikes_host(rows, g, s_min, threshold)
-        lap("redo")
+        with tracing.span("oasis/redo", stats, rows=idx.size):
+            rows = flat[torch.from_numpy(idx).to(flat.device)].cpu().numpy()
+            spikes[idx] = _exact_spikes_host(rows, g, s_min, threshold)
     return spikes
 
 

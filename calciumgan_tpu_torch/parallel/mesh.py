@@ -53,6 +53,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from calciumgan_tpu_torch.utils import tracing
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 TIME_AXIS = "time"
@@ -365,14 +367,16 @@ def gradient_mean(grads: Sequence[torch.Tensor]) -> list:
     parameter (the model axis's collectives complete it), so the mean is
     over the data group; a time peer holds its frames' share of every
     gradient, so the shares are summed over the time axis too: one
-    all-reduce over every rank, divided by the data extent."""
+    all-reduce over every rank, divided by the data extent, as the span
+    ``collective/all_reduce``."""
     grads = list(grads)
     if not dist.is_initialized():
         return grads
-    if time_group() is not None:
-        return _flat_reduce(grads, dist.group.WORLD, data_extent())
-    group = data_group()
-    return _flat_reduce(grads, group, dist.get_world_size(group))
+    with tracing.span("collective/all_reduce"):
+        if time_group() is not None:
+            return _flat_reduce(grads, dist.group.WORLD, data_extent())
+        group = data_group()
+        return _flat_reduce(grads, group, dist.get_world_size(group))
 
 
 def world_mean(tensors: Sequence[torch.Tensor]) -> list:

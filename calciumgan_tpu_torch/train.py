@@ -70,7 +70,7 @@ from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
 from calciumgan_tpu_torch.models import get_models
 from calciumgan_tpu_torch.parallel import launch as launch_lib
 from calciumgan_tpu_torch.parallel import mesh as mesh_lib
-from calciumgan_tpu_torch.utils import arrays, checkpoint, io
+from calciumgan_tpu_torch.utils import arrays, checkpoint, io, tracing
 from calciumgan_tpu_torch.utils.device import resolve_device
 from calciumgan_tpu_torch.utils.summary import Summary
 
@@ -166,30 +166,13 @@ def focus_neurons(config):
     return idx or list(range(min(9, config.num_neurons)))
 
 
-def device_events(prof) -> list:
-    """The device's events (kernels and copies) that ``prof``, a finished
-    ``torch.profiler.profile``, traced."""
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def busy_seconds(events) -> float:
-    """The seconds in which the device ran any of ``events``: the union of
-    their intervals."""
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end)
-                             for e in events):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    return busy_us * 1e-6
-
-
 class _ProfileWindow:
     """``torch.profiler`` over a few steps: writes the Chrome trace, and to
     ``window.json`` the window's host seconds, device-busy seconds (union
-    of the device's kernel intervals), busy share and the kernels that took
-    the most device time."""
+    of the intervals of the device's work, spans left out), busy share, the
+    kernels that took the most device time and the device seconds under
+    each of the program's spans (:mod:`~calciumgan_tpu_torch.utils.
+    tracing`)."""
 
     def __init__(self, profiler_dir: str, device: torch.device):
         from torch.profiler import ProfilerActivity, profile
@@ -209,8 +192,9 @@ class _ProfileWindow:
         self._prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self._prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
-        kernels = device_events(self._prof)
-        busy = busy_seconds(kernels) if kernels else None
+        events = list(self._prof.events())
+        kernels = tracing.device_work(events)
+        busy = tracing.busy_seconds(kernels) if kernels else None
         by_name = collections.defaultdict(lambda: [0.0, 0])
         for e in kernels:
             by_name[e.name][0] += e.time_range.end - e.time_range.start
@@ -222,7 +206,8 @@ class _ProfileWindow:
                   "device_events": len(kernels),
                   "top_kernels": [{"name": n[:100], "ms": us * 1e-3,
                                    "count": c}
-                                  for n, (us, c) in top]}
+                                  for n, (us, c) in top],
+                  "span_device_s": tracing.span_device_seconds(events)}
         with open(os.path.join(self.dir, "window.json"), "w") as f:
             json.dump(window, f)
         return window

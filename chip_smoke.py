@@ -1559,10 +1559,11 @@ class _NoSummary:
 
 def _device_busy(fn) -> float:
     """The share of ``fn``'s host seconds in which the card ran a kernel or
-    a copy that ``torch.profiler`` traced (``train.busy_seconds``)."""
+    a copy that ``torch.profiler`` traced, spans left out
+    (``tracing.device_work``, ``tracing.busy_seconds``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from calciumgan_tpu_torch import train
+    from calciumgan_tpu_torch.utils import tracing
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1570,9 +1571,9 @@ def _device_busy(fn) -> float:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    events = train.device_events(prof)
+    events = tracing.device_work(list(prof.events()))
     check(bool(events), "the profiler traced nothing on the card")
-    return train.busy_seconds(events) / wall
+    return tracing.busy_seconds(events) / wall
 
 
 def batch_source_modes(smi, records) -> dict:

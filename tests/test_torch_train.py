@@ -38,7 +38,7 @@ from calciumgan_tpu_torch.config import Config
 from calciumgan_tpu_torch.data import pipeline, tfrecord
 from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
 from calciumgan_tpu_torch.models import get_models
-from calciumgan_tpu_torch.utils import checkpoint
+from calciumgan_tpu_torch.utils import checkpoint, tracing
 
 torch.set_num_threads(1)
 
@@ -342,5 +342,5 @@ def test_busy_seconds_is_the_union_of_device_intervals():
 
     events = [Event(30, 40), Event(0, 10), Event(5, 20), Event(6, 8),
               Event(50, 50)]
-    assert port_train.busy_seconds(events) == pytest.approx(30e-6)
-    assert port_train.busy_seconds([]) == 0.0
+    assert tracing.busy_seconds(events) == pytest.approx(30e-6)
+    assert tracing.busy_seconds([]) == 0.0
