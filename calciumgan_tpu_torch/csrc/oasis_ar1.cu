@@ -395,7 +395,195 @@ int dispatch(const float* yy, float* c, float* s, int* redo, float* stacks,
   return launch<Precise, false>(yy, c, s, redo, stacks, p, lanes, 0, stream);
 }
 
+// ---- the exact float64 redo of flagged traces ----
+//
+// Replaces no TPU kernel: the JAX package, and the port until now, redo the
+// traces that the float32 machines flag on the host, with the C++ float64
+// OASIS (calciumgan_tpu_torch/csrc/oasis_host.cc: cg_oasis_ar1 under
+// cg_deconvolve_batch). This kernel computes the same function on the card,
+// so the flagged rows never leave it: the pool-adjacency machine with no
+// depth limit on y widened to double (cg_deconvolve_batch passes lam 0, so
+// the shifted input is y itself, bit for bit), then h = max(v/w, 0) with
+// std::max's comparison (-0.0 stays -0.0), c frame by frame by dec *= g,
+// s[t] = c[t] - g*c[t-1], s[0] = 0, and int8 s > threshold. The operations
+// and their order are the host's, and each is an IEEE double operation
+// rounded to nearest (the __d*_rn intrinsics: nothing is contracted or
+// reassociated, whatever the flags). The one function the host takes from
+// its library, pow, is not called here: g^l comes from a table of T + 1
+// doubles that the host fills with the very std::pow call of cg_oasis_ar1
+// (cg_pow_table). So the spikes equal the host's bit for bit.
+//
+// What bounds it on this card: the latency of one trace's dependent chain,
+// a float64 division and a comparison a decision, about two decisions a
+// frame; the bytes (4 B of trace in, 1 B of spikes out a frame, and the
+// pool scratch, which stays near its top and so in L2) are no bound. What
+// the design does about it:
+// - One thread a trace: splitting a chain would change the order of its
+//   float64 sums. Blocks are one warp, so that a few thousand traces
+//   (sl16384-generate's ~2,200) still spread over the SMs.
+// - The traces come gathered and time-major, (T, n), so a warp's load of a
+//   frame is coalesced; samples are loaded four frames ahead.
+// - The top pool and the two below it live in registers, with the top's
+//   v/w and the right-hand side of the next decision cached (the same
+//   function of the same values, so the same bits). The pool two below the
+//   top is loaded after a merge, which does not wait on it; only the next
+//   merge does.
+// - Every other pool lives in a device-memory scratch of T slots a trace,
+//   laid out [field][slot][lane] (v and w as double, the length as int32:
+//   20 B a slot); the wrapper sizes its chunks of traces so that the
+//   scratch stays under a fixed bound.
+// - Each trace writes its int8 spikes straight into its row of the caller's
+//   spike tensor, at any strides (the serving tensor is time-major).
+
+__device__ __forceinline__ double dadd(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ double dsub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ double dmul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ double ddiv(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+struct ExactParams {
+  int T, n;  // frames; traces in this launch
+  double g, s_min, threshold;
+  long long out_row, out_time;  // strides of the int8 spike tensor
+};
+
+// y: (T, n) float32, time-major; rows: (n,) the traces' rows of `out`;
+// gpow: (T + 1,) g^l; scratch: 20 * T * n bytes, [v][slot][lane] and
+// [w][slot][lane] double, then [len][slot][lane] int32.
+__global__ void oasis_exact_f64_kernel(const float* __restrict__ y,
+                                       const long long* __restrict__ rows,
+                                       const double* __restrict__ gpow,
+                                       double* __restrict__ scratch,
+                                       signed char* __restrict__ out,
+                                       ExactParams p) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= p.n) return;  // lanes are independent: no block barrier
+  const int T = p.T;
+  const size_t n = (size_t)p.n, plane = (size_t)T * n;
+  double* V = scratch + b;
+  double* W = scratch + plane + b;
+  int* L = reinterpret_cast<int*>(scratch + 2 * plane) + b;
+  auto store = [&](int i, double v, double w, int l) {
+    V[i * n] = v;
+    W[i * n] = w;
+    L[i * n] = l;
+  };
+
+  // pools top (index top), below (top - 1) and below2 (top - 2); the
+  // scratch holds every pool under top - 1 as cg_oasis_ar1 holds it
+  double v0 = 0.0, w0 = 1.0, v1 = 0.0, w1 = 1.0, v2 = 0.0, w2 = 1.0;
+  int l0 = 0, l1 = 0, l2 = 0;
+  double d0 = 0.0;  // v0 / w0
+  double gl = 1.0;  // g^l1
+  double rhs = 0.0; // gl * (v1 / w1) + s_min
+  int top = -1;
+
+  auto frame = [&](double yt) {
+    // push: the pool below leaves the registers for its slot
+    if (top >= 1) store(top - 1, v1, w1, l1);
+    v2 = v1; w2 = w1; l2 = l1;
+    v1 = v0; w1 = w0; l1 = l0;
+    if (top >= 0) {
+      gl = gpow[l1];
+      rhs = dadd(dmul(gl, d0), p.s_min);  // d0 == v1 / w1
+    }
+    ++top;
+    v0 = yt;
+    w0 = 1.0;
+    l0 = 1;
+    d0 = ddiv(v0, w0);
+    while (top > 0) {
+      if (d0 >= rhs) break;
+      // v[p-1] += gl*v[p]; w[p-1] += gl*gl*w[p]; len[p-1] += len[p]; --p
+      v0 = dadd(v1, dmul(gl, v0));
+      w0 = dadd(w1, dmul(dmul(gl, gl), w0));
+      l0 = l1 + l0;
+      --top;
+      d0 = ddiv(v0, w0);
+      if (top > 0) {
+        v1 = v2; w1 = w2; l1 = l2;
+        gl = gpow[l1];
+        rhs = dadd(dmul(gl, ddiv(v1, w1)), p.s_min);
+        if (top >= 2) {
+          v2 = V[(top - 2) * n];
+          w2 = W[(top - 2) * n];
+          l2 = L[(top - 2) * n];
+        }
+      }
+    }
+  };
+
+  // the samples four frames ahead, in registers
+  auto fetch = [&](int t) { return t < T ? y[(size_t)t * n + b] : 0.0f; };
+  float na = fetch(0), nb = fetch(1), nc = fetch(2), nd = fetch(3);
+  for (int t0 = 0; t0 < T; t0 += 4) {
+    const float ya = na, yb = nb, yc = nc, yd = nd;
+    na = fetch(t0 + 4); nb = fetch(t0 + 5);
+    nc = fetch(t0 + 6); nd = fetch(t0 + 7);
+    for (int j = 0; j < 4 && t0 + j < T; ++j) {
+      frame((double)(j == 0 ? ya : j == 1 ? yb : j == 2 ? yc : yd));
+    }
+  }
+  store(top, v0, w0, l0);
+  if (top >= 1) store(top - 1, v1, w1, l1);
+
+  // the pools from the bottom: c frame by frame, s and its spike
+  signed char* row = out + rows[b] * p.out_row;
+  double c_prev = 0.0;
+  int t = 0;
+  double nv = V[0], nw = W[0];
+  int nl = L[0];
+  for (int i = 0; i <= top; ++i) {
+    const double v = nv, w = nw;
+    const int len = nl;
+    if (i < top) {  // the next pool's loads, off this pool's chain
+      nv = V[(i + 1) * n];
+      nw = W[(i + 1) * n];
+      nl = L[(i + 1) * n];
+    }
+    const double q = ddiv(v, w);
+    double dec = q < 0.0 ? 0.0 : q;  // std::max(q, 0.0)
+    for (int k = 0; k < len; ++k, ++t) {
+      const double s = t == 0 ? 0.0 : dsub(dec, dmul(p.g, c_prev));
+      row[t * p.out_time] = s > p.threshold ? 1 : 0;
+      c_prev = dec;
+      dec = dmul(dec, p.g);
+    }
+  }
+}
+
 }  // namespace
+
+// The exact float64 redo: y (T, n) float32, time-major, the traces to redo;
+// rows (n,) int64, their rows of the int8 spike tensor `out`, whose strides
+// (in elements) are out_row and out_time; gpow (T + 1,) double, g^l from
+// cg_pow_table; scratch 20 * T * n bytes; lanes: traces per block, a
+// multiple of 32. Launch on `stream` and return the CUDA error (0 on
+// success); it does not synchronise.
+extern "C" int oasis_exact_f64_launch(const float* y, const long long* rows,
+                                      const double* gpow, double* scratch,
+                                      signed char* out, int T, int n,
+                                      double g, double s_min,
+                                      double threshold, long long out_row,
+                                      long long out_time, int lanes,
+                                      void* stream) {
+  if (lanes <= 0 || lanes % 32 != 0 || lanes > 1024 || T <= 0 || n < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  const ExactParams p{T, n, g, s_min, threshold, out_row, out_time};
+  oasis_exact_f64_kernel<<<(n + lanes - 1) / lanes, lanes, 0,
+                           (cudaStream_t)stream>>>(y, rows, gpow, scratch,
+                                                   out, p);
+  return (int)cudaGetLastError();
+}
 
 // yy, c, s: (T, B) float32, time-major; redo: (B,) int32; stacks: (3, D, B)
 // float32 scratch for the device-memory ring (shared == 0), unused (may be

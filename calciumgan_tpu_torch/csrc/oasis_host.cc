@@ -1,5 +1,7 @@
 // Exact float64 OASIS AR(1) on the host: the redo of the traces that the
-// CUDA kernel flags. A copy of `cg_oasis_ar1` and `cg_deconvolve_batch`
+// float32 machines flag on CPU tensors, the reference that the card's redo
+// (csrc/oasis_ar1.cu) equals bit for bit, and the g^l it reads (its one
+// library call). A copy of `cg_oasis_ar1` and `cg_deconvolve_batch`
 // from the JAX package's calciumgan_tpu/native/calciumgan_native.cc, the
 // same arithmetic in the same order (pool-adjacency algorithm, Friedrich et
 // al. 2017; the spec of calciumgan_tpu_torch/ops/golden.py).
@@ -52,6 +54,15 @@ void cg_oasis_ar1(const double* y, int64_t T, double g, double lam,
   }
   s[0] = 0.0;
   for (int64_t t = 1; t < T; ++t) s[t] = c[t] - g * c[t - 1];
+}
+
+// out[l] = g^l for l = 0..T, by the very std::pow call of cg_oasis_ar1: the
+// table from which the CUDA redo (csrc/oasis_ar1.cu, oasis_exact_f64_kernel)
+// and its plain twin read g^l, so that neither depends on its own pow.
+void cg_pow_table(double g, int64_t T, double* out) {
+  for (int64_t l = 0; l <= T; ++l) {
+    out[l] = std::pow(g, static_cast<double>(l));
+  }
 }
 
 // signals (N, T) float32 row-major -> binary spikes (N, T) float32,

@@ -4,10 +4,12 @@ API and the AR(1) forward model (counterpart of
 
 :func:`deconvolve_signals_host` runs the OASIS kernel with the JAX
 package's production arguments, walks a stack-depth ladder while too many
-traces overflow, and recomputes every flagged trace exactly in float64 on
-the host (the port's copy of the JAX package's C++ OASIS, compiled at
-first use: :func:`host_library`). Traces of up to ``_PALLAS_MAX_T`` frames take
-:func:`calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1` with the classic
+traces overflow, and recomputes every flagged trace exactly in float64: on
+the card for CUDA traces (:func:`~calciumgan_tpu_torch.ops.oasis_cuda.
+oasis_exact_f64`), on the host for CPU ones (the port's copy of the JAX
+package's C++ OASIS, compiled at first use: :func:`host_library`); the two
+give the same spikes bit for bit. Traces of up to ``_PALLAS_MAX_T`` frames
+take :func:`calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1` with the classic
 machine and ``_DEPTH_LADDER``; longer ones (whole recordings) take
 :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1_long` with the precise
 machine and the T-scaled ``_long_ladder``. Either runs the CUDA kernel for a
@@ -249,15 +251,20 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     dispatch. Long traces on the CPU go straight to the exact host kernel,
     as the JAX package's do off the TPU (JAX ``ops/oasis.py:322-327``).
 
+    Flagged traces are redone in float64 where the traces lie: on the card
+    for a CUDA tensor (the spikes then cross to the host once), with the C++
+    kernel on the host for a CPU one.
+
     The kernel route runs as the spans ``oasis/kernel`` (launch until the
-    flags are on the host, one a rung), ``oasis/spikes_to_host`` and
-    ``oasis/redo`` and counts ``oasis/traces`` dispatched, ``oasis/
-    flagged``, and flagged by ``oasis/bit0`` (depth), ``bit1`` (merge
-    budget) and ``bit2`` (borderline) (:mod:`~calciumgan_tpu_torch.utils.
-    tracing`). A caller that reports where the time went passes a ``stats``
-    counter: it takes those host-clock seconds and counts under the names'
-    last parts (``kernel``, ``traces``, ...), and ``kernel_device``, the
-    kernels' seconds by CUDA events."""
+    flags are on the host, one a rung), ``oasis/redo`` and ``oasis/
+    spikes_to_host`` (the host redo comes after the copy) and counts
+    ``oasis/traces`` dispatched, ``oasis/flagged``, flagged by ``oasis/
+    bit0`` (depth), ``bit1`` (merge budget) and ``bit2`` (borderline), and
+    ``oasis/redo_device``, the rows redone on the card (:mod:`~
+    calciumgan_tpu_torch.utils.tracing`). A caller that reports where the
+    time went passes a ``stats`` counter: it takes those host-clock seconds
+    and counts under the names' last parts (``kernel``, ``traces``, ...),
+    and ``kernel_device``, the kernels' seconds by CUDA events."""
     if isinstance(signals, np.ndarray):
         signals = torch.from_numpy(np.ascontiguousarray(signals, np.float32))
     signals = signals.float().contiguous()
@@ -288,9 +295,12 @@ def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
     (``oasis_cuda.oasis_ar1`` or ``oasis_ar1_long``) with the production
     merge budget and the band of the ``precise`` or classic machine, on
     each rung of ``ladder`` while more than ``_ESCALATE_FRAC`` of the
-    traces overflow, then every flagged trace recomputed in float64 on the
-    host (JAX ``ops/oasis.py:343-366``). ``stats`` takes the seconds and
-    counts that :func:`deconvolve_signals_host` documents."""
+    traces overflow, then every flagged trace recomputed in float64 (JAX
+    ``ops/oasis.py:343-366``): for CUDA traces on the card by
+    :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_exact_f64`, before the
+    spikes cross to the host; for CPU traces on the host, by
+    :func:`_exact_spikes_host`. ``stats`` takes the seconds and counts that
+    :func:`deconvolve_signals_host` documents."""
     for i, d in enumerate(ladder):
         with tracing.span("oasis/kernel", stats, depth=d):
             timed = flat.is_cuda and stats is not None
@@ -311,17 +321,32 @@ def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
         depth_frac = float(((flags & 1) != 0).mean()) if flags.size else 0.0
         if depth_frac <= _ESCALATE_FRAC or i == len(ladder) - 1:
             break
-    with tracing.span("oasis/spikes_to_host", stats):
-        spikes = (s > threshold).to(torch.int8).cpu().numpy()
     tracing.count("oasis", stats, traces=flags.size,
                   flagged=int((flags != 0).sum()),
                   **{f"bit{b}": int(((flags >> b) & 1).sum())
                      for b in range(3)})
-    if flags.any():
-        idx = np.nonzero(flags)[0]
+    idx = np.nonzero(flags)[0]
+    if flat.is_cuda:
+        # the flagged rows are redone on the card, into its int8 spikes,
+        # which then cross to the host once
+        spikes = (s > threshold).to(torch.int8)
+        if idx.size:
+            with tracing.span("oasis/redo", stats, rows=idx.size):
+                oasis_cuda.oasis_exact_f64(
+                    flat, torch.from_numpy(idx).to(flat.device), spikes, g,
+                    s_min, threshold)
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+            tracing.count("oasis", stats, redo_device=idx.size)
+        with tracing.span("oasis/spikes_to_host", stats):
+            return spikes.cpu().numpy()
+    with tracing.span("oasis/spikes_to_host", stats):
+        spikes = (s > threshold).to(torch.int8).cpu().numpy()
+    if idx.size:
         with tracing.span("oasis/redo", stats, rows=idx.size):
-            rows = flat[torch.from_numpy(idx).to(flat.device)].cpu().numpy()
-            spikes[idx] = _exact_spikes_host(rows, g, s_min, threshold)
+            spikes[idx] = _exact_spikes_host(flat.numpy()[idx], g, s_min,
+                                             threshold)
     return spikes
 
 

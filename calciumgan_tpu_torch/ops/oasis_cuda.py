@@ -23,13 +23,21 @@ per block, wherever that fits (``D <= 605``: every rung of the short ladder
 and the long ladder's first rung at 20,000 frames), else in device memory.
 There is no switch; a refused launch raises.
 
+:func:`oasis_exact_f64` replaces no TPU kernel: it is the exact float64
+redo of the traces those kernels flag, on the card (``oasis_exact_f64_kernel``
+in the same source), where the JAX package runs it on the host. It computes
+what the port's C++ ``cg_deconvolve_batch`` (``csrc/oasis_host.cc``)
+computes, bit for bit, with ``g^l`` read from the host's own table
+(:func:`pow_table`); its plain twin is :func:`oasis_exact_f64_torch`.
+
 Each entry takes the plain version only for a tensor on the CPU. A CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches
 by machine, trace length and ring storage, whichever entry made them:
 ``oasis_ar1`` and ``oasis_ar1_precise`` for traces of up to
 ``PALLAS_MAX_T`` frames, ``oasis_ar1_long`` and ``oasis_ar1_long_precise``
 for longer ones, each with ``/shared`` or ``/device`` (e.g.
-``oasis_ar1_long_precise/shared``).
+``oasis_ar1_long_precise/shared``), and ``oasis_exact_f64/device`` for the
+float64 redo (one a chunk of rows).
 """
 
 from __future__ import annotations
@@ -88,18 +96,31 @@ def ring_scratch(plan: LaunchPlan, D: int, B: int, device) -> torch.Tensor:
     return torch.empty((3, D, B), dtype=torch.float32, device=device)
 
 
+# the float64 redo: bytes of one ring slot (v and w as double, the length
+# as int32), and the most its scratch takes at once; the rows go in chunks
+# under it (a long evaluation chunk with nearly every row flagged would
+# otherwise take 5.3 GB)
+_EXACT_SLOT_BYTES = 20
+_EXACT_SCRATCH_BYTES = 1 << 30
+# g^l tables by (g, T, device): filled on the host by cg_pow_table
+_pow_tables: dict = {}
+
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
              + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_float])
 _PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _CLASSIC_ARGTYPES = _ARGTYPES + _PLAN_ARGTYPES
 _PRECISE_ARGTYPES = _ARGTYPES + [ctypes.c_float] * 3 + _PLAN_ARGTYPES
+_EXACT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_double] * 3 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
 
 
 def library() -> build.Built:
     """The built kernel library (compiled by ``nvcc`` at first use)."""
     built = build.load("oasis_ar1")
     for name, argtypes in (("oasis_ar1_launch", _CLASSIC_ARGTYPES),
-                           ("oasis_ar1_precise_launch", _PRECISE_ARGTYPES)):
+                           ("oasis_ar1_precise_launch", _PRECISE_ARGTYPES),
+                           ("oasis_exact_f64_launch", _EXACT_ARGTYPES)):
         fn = getattr(built.lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -198,3 +219,157 @@ def oasis_ar1_cuda(signals: torch.Tensor, g: float = 0.95, lam: float = 0.0,
         launches[name] += 1
     return (c.t().reshape(signals.shape), s.t().reshape(signals.shape),
             redo.reshape(batch_shape))
+
+
+def pow_table(g: float, T: int, device) -> torch.Tensor:
+    """``g^l`` for ``l = 0..T`` as float64 on ``device``, filled on the host
+    by ``cg_pow_table`` (``csrc/oasis_host.cc``) with the very ``std::pow``
+    call of the C++ redo, so the float64 redo on the card and its twin take
+    the host's powers and no pow of their own; kept per ``(g, T,
+    device)``."""
+    key = (float(g), int(T), str(torch.device(device)))
+    table = _pow_tables.get(key)
+    if table is None:
+        lib = build.load_host("oasis_host", build.CSRC / "oasis_host.cc").lib
+        fn = lib.cg_pow_table
+        fn.argtypes = [ctypes.c_double, ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = None
+        host = np.empty(T + 1, np.float64)
+        fn(float(g), T, host.ctypes.data)
+        table = _pow_tables[key] = torch.from_numpy(host).to(device)
+    return table
+
+
+def oasis_exact_f64(signals: torch.Tensor, rows: torch.Tensor,
+                    spikes: torch.Tensor, g: float, s_min: float,
+                    threshold: float) -> None:
+    """Redo the traces ``signals[rows]`` of ``(N, T)`` float32 ``signals``
+    exactly in float64 and write their int8 spikes into the same rows of
+    ``spikes`` (``(N, T)`` int8, any strides), on ``signals``' device: the
+    CUDA kernel for a CUDA tensor, :func:`oasis_exact_f64_torch` for a CPU
+    one. The spikes are those of the C++ ``cg_deconvolve_batch``."""
+    if signals.device.type == "cpu":
+        s = oasis_exact_f64_torch(signals[rows], g, s_min)[1]
+        spikes[rows] = (s > threshold).to(torch.int8)
+        return
+    if signals.device.type == "cuda":
+        oasis_exact_f64_cuda(signals, rows, spikes, g, s_min, threshold)
+        return
+    raise ValueError(f"no OASIS kernel for device {signals.device}")
+
+
+def oasis_exact_f64_cuda(signals: torch.Tensor, rows: torch.Tensor,
+                         spikes: torch.Tensor, g: float, s_min: float,
+                         threshold: float) -> None:
+    """Launch the float64 redo on the rows ``rows`` (int64, each a row of
+    ``signals``) of ``(N, T)`` contiguous float32 CUDA traces, writing
+    int8 spikes into ``spikes`` on the same device; one launch a chunk of
+    rows, each chunk gathered time-major with a scratch of
+    ``_EXACT_SLOT_BYTES`` a frame and row."""
+    if not signals.is_cuda:
+        raise ValueError(f"signals must be a CUDA tensor, got "
+                         f"{signals.device}")
+    if signals.dtype != torch.float32 or spikes.dtype != torch.int8:
+        raise TypeError(f"signals must be float32 and spikes int8, got "
+                        f"{signals.dtype} and {spikes.dtype}")
+    if signals.ndim != 2 or signals.shape[-1] < 1:
+        raise ValueError(f"signals must be (N, T) with T >= 1, got shape "
+                         f"{tuple(signals.shape)}")
+    if not signals.is_contiguous():
+        raise ValueError("signals must be contiguous")
+    if spikes.shape != signals.shape or spikes.device != signals.device:
+        raise ValueError(f"spikes must be {tuple(signals.shape)} on "
+                         f"{signals.device}, got {tuple(spikes.shape)} on "
+                         f"{spikes.device}")
+    if (rows.dtype != torch.int64 or rows.ndim != 1
+            or rows.device != signals.device):
+        raise ValueError("rows must be a 1-D int64 tensor on signals' "
+                         "device")
+    rows = rows.contiguous()
+    T = signals.shape[1]
+    dev = signals.device
+    chunk = max(1, _EXACT_SCRATCH_BYTES // (_EXACT_SLOT_BYTES * T))
+    gpow = pow_table(g, T, dev)
+    fn = library().lib.oasis_exact_f64_launch
+    with torch.cuda.device(dev):  # launches go to the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo in range(0, rows.numel(), chunk):
+            part = rows[lo:lo + chunk]
+            y = signals.t().index_select(1, part).contiguous()  # (T, m)
+            scratch = torch.empty(_EXACT_SLOT_BYTES * T * part.numel(),
+                                  dtype=torch.uint8, device=dev)
+            err = fn(y.data_ptr(), part.data_ptr(), gpow.data_ptr(),
+                     scratch.data_ptr(), spikes.data_ptr(), T, part.numel(),
+                     float(g), float(s_min), float(threshold),
+                     spikes.stride(0), spikes.stride(1), WARP, stream)
+            if err != 0:
+                raise RuntimeError(f"oasis_exact_f64 kernel launch failed "
+                                   f"with CUDA error {err}")
+            launches["oasis_exact_f64/device"] += 1
+
+
+def oasis_exact_f64_torch(traces: torch.Tensor, g: float, s_min: float):
+    """The float64 redo in plain PyTorch, where the traces lie: the kernel's
+    twin. ``(c, s)`` float64 of ``(n, T)`` float32 traces, ``cg_oasis_ar1``'s
+    with ``lam`` 0 bit for bit; the spikes are ``s > threshold``.
+
+    The pool machine of ``cg_oasis_ar1`` with no depth limit, batched over
+    lanes as :func:`~calciumgan_tpu_torch.ops.oasis.oasis_ar1_while` is: an
+    iteration merges a lane's top pool into the one below where
+    ``v0/w0 >= g^l1 * (v1/w1) + s_min`` fails, and pushes the lane's next
+    frame otherwise, each operation a float64 one in the host's order and
+    ``g^l`` from :func:`pow_table`. The reconstruction runs frame by frame:
+    ``h = max(v/w, 0)`` opens a pool (``-0.0`` stays, as ``std::max``
+    keeps it), then ``c[t] = c[t-1] * g``; ``s[t] = c[t] - g*c[t-1]``,
+    ``s[0] = 0``."""
+    y = torch.as_tensor(traces, dtype=torch.float32).to(torch.float64)
+    if y.ndim != 2 or y.shape[1] < 1:
+        raise ValueError(f"traces must be (n, T) with T >= 1, got shape "
+                         f"{tuple(y.shape)}")
+    B, T = y.shape
+    dev = y.device
+    gpow = pow_table(g, T, dev)
+    v = torch.zeros((B, T), dtype=torch.float64, device=dev)
+    w = torch.ones_like(v)
+    ln = torch.zeros((B, T), dtype=torch.long, device=dev)
+    v[:, 0], ln[:, 0] = y[:, 0], 1
+    lanes = torch.arange(B, device=dev)
+    t = torch.ones(B, dtype=torch.long, device=dev)  # next frame to push
+    p = torch.zeros(B, dtype=torch.long, device=dev)  # top pool
+    while True:
+        q = (p - 1).clamp_min(0)
+        vp, wp, lp = v[lanes, p], w[lanes, p], ln[lanes, p]
+        vq, wq, lq = v[lanes, q], w[lanes, q], ln[lanes, q]
+        gl = gpow[lq]
+        viol = (p > 0) & ~(vp / wp >= gl * (vq / wq) + s_min)
+        push = ~viol & (t < T)
+        if not bool((viol | push).any()):
+            break
+        m = torch.nonzero(viol).squeeze(1)
+        v[m, q[m]] = (vq + gl * vp)[m]
+        w[m, q[m]] = (wq + gl * gl * wp)[m]
+        ln[m, q[m]] = (lq + lp)[m]
+        u = torch.nonzero(push).squeeze(1)
+        v[u, p[u] + 1] = y[u, t[u]]
+        w[u, p[u] + 1] = 1.0
+        ln[u, p[u] + 1] = 1
+        p = p - viol.long() + push.long()
+        t = t + push.long()
+
+    idx = torch.arange(T, device=dev)
+    valid = idx < (p + 1)[:, None]
+    l_masked = torch.where(valid, ln, 0)
+    starts = torch.cumsum(l_masked, 1) - l_masked
+    starts = torch.where(valid, starts, T)  # empty pools start after T
+    pool_id = torch.searchsorted(starts, idx.expand(B, T).contiguous(),
+                                 right=True) - 1
+    q = v / w
+    h = torch.where(q < 0.0, torch.zeros_like(q), q).gather(1, pool_id)
+    opens = starts.gather(1, pool_id) == idx
+    c = torch.empty_like(v)
+    c[:, 0] = h[:, 0]
+    for k in range(1, T):
+        c[:, k] = torch.where(opens[:, k], h[:, k], c[:, k - 1] * g)
+    s = torch.zeros_like(c)
+    s[:, 1:] = c[:, 1:] - g * c[:, :-1]
+    return c, s

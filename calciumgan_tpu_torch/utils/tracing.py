@@ -17,8 +17,9 @@ The spans, by layer:
   index) over ``generate/forward``, ``generate/signals_to_host``,
   ``generate/layout`` and the OASIS dispatch's ``oasis/kernel`` (one a
   rung, args: the depth), ``oasis/spikes_to_host`` and ``oasis/redo``
-  (args: the rows), with the counts ``oasis/traces``, ``oasis/flagged`` and
-  ``oasis/bit0``-``bit2``;
+  (args: the rows; on the card it ends when the redo has), with the counts
+  ``oasis/traces``, ``oasis/flagged``, ``oasis/bit0``-``bit2`` and
+  ``oasis/redo_device`` (rows redone on the card);
 - the train step (``WGAN_GP.train_step``): ``step`` (args: the generator's
   update count) over ``step/critic`` (one a critic iteration, the
   update left out), ``step/penalty`` inside it, ``step/generator``,
