@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from calciumgan_tpu_torch.parallel import mesh as mesh_lib
+from calciumgan_tpu_torch.utils import tracing
 
 LAYER_NORM_EPS = 1e-3
 BATCH_NORM_EPS = 1e-3
@@ -227,7 +228,14 @@ class ConvTranspose(nn.Module):
     ``pads`` holds each axis's ``(pad_a, pad_b)``
     (:func:`same_transpose_padding`). One spatial axis runs
     ``F.conv_transpose1d`` (:func:`_conv_transpose1d`), two run XLA's own
-    form of the transposed convolution (:func:`_dilated_conv2d`)."""
+    form of the transposed convolution (:func:`_dilated_conv2d`).
+
+    Each 2-D call counts, under ``conv_transpose2d``
+    (:func:`tracing.count`), the ``products`` its route multiplies and the
+    ``work_products`` of the transposed convolution itself: each input
+    element by each tap, once for each output channel. The dilated route
+    multiplies the zeros between frames too, ``sh*sw`` times the work
+    (batch x output positions x Cin x Cout x kh x kw)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride, dtype: torch.dtype, rng: torch.Generator,
@@ -245,9 +253,15 @@ class ConvTranspose(nn.Module):
                           for k, s in zip(kernel, self.stride))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        run = _conv_transpose1d if len(self.stride) == 1 else _dilated_conv2d
-        y = run(x.to(self.dtype), self.weight.to(self.dtype), self.stride,
-                self.pads)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if len(self.stride) == 1:
+            y = _conv_transpose1d(x, w, self.stride, self.pads)
+        else:
+            work = math.prod(x.shape) * math.prod(w.shape[1:])
+            tracing.count("conv_transpose2d",
+                          products=work * math.prod(self.stride),
+                          work_products=work)
+            y = _dilated_conv2d(x, w, self.stride, self.pads)
         # bias added after the convolution, as Flax does
         return y + _per_channel(self.bias.to(self.dtype), y.ndim)
 
