@@ -11,7 +11,7 @@ sort and matplotlib.
 Deconvolution goes through
 :func:`calciumgan_tpu_torch.ops.oasis.deconvolve_signals_host`: the OASIS
 CUDA kernel where the traces lie on a GPU, its plain PyTorch version on the
-CPU, flagged traces recomputed in float64 on the host. Epoch files are read
+CPU, flagged traces recomputed in float64 where they lie. Epoch files are read
 and written through :mod:`calciumgan_tpu_torch.utils.h5`, whose container
 follows the file's name.
 """
@@ -42,9 +42,12 @@ def deconvolve_traces(traces, stats=None) -> np.ndarray:
     """Binary spikes (host ``np.int8``) of ``(..., T)`` traces, a tensor on
     the CPU or the GPU or a numpy array. The OASIS kernel runs where the
     traces lie: the CUDA kernel on the GPU, its plain PyTorch version on the
-    CPU; flagged traces are recomputed in float64 on the host
+    CPU; flagged traces are recomputed in float64 where the traces lie
     (:func:`calciumgan_tpu_torch.ops.oasis.deconvolve_signals_host`, which
-    says what it adds to a ``stats`` counter)."""
+    says what it adds to a ``stats`` counter). For traces on the GPU the
+    spikes' memory follows the traces' strides (a permuted view gives
+    spikes laid out as the tensor it views), and they cross to the host by
+    DMA into page-locked memory."""
     return deconvolve_signals_host(traces, stats=stats)
 
 

@@ -39,7 +39,7 @@ from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
 from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
 from calciumgan_tpu_torch.models import get_models
 from calciumgan_tpu_torch.parallel import mesh as mesh_lib
-from calciumgan_tpu_torch.utils import tracing
+from calciumgan_tpu_torch.utils import crossing, tracing
 from calciumgan_tpu_torch.utils.checkpoint import restore_generator_params
 
 
@@ -58,7 +58,11 @@ def generate(config, variables, num_samples: int, batch_size: int = 1024,
              device="cuda") -> Iterator[dict]:
     """Yield one payload per batch until ``num_samples`` rows: ``signals``
     ``(n, T, C)`` float32 in recording units and, ``with_spikes``, int8
-    ``spikes`` of the same shape, both host numpy arrays.
+    ``spikes`` of the same shape, both C-contiguous host numpy arrays that
+    the caller owns: no later batch writes to them. On a CUDA device they
+    lie in page-locked host memory (:mod:`~calciumgan_tpu_torch.utils.
+    crossing`), which torch's caching host allocator takes back for a later
+    batch once the caller drops them.
 
     Noise is drawn ``batch_size`` rows at a time from a ``torch.Generator``
     on ``device`` seeded with ``seed``. On a CUDA device float32 layers
@@ -69,11 +73,14 @@ def generate(config, variables, num_samples: int, batch_size: int = 1024,
 
     Each batch runs as the span ``generate/batch``, closed before its
     payload is yielded, over ``generate/forward``, ``generate/
-    signals_to_host``, ``generate/layout`` and the OASIS dispatch's spans
+    signals_to_host`` (twice: the copy issued, and waited for),
+    ``generate/layout`` and the OASIS dispatch's spans
     (:mod:`~calciumgan_tpu_torch.utils.tracing`)."""
     device = torch.device(device)
     generator = build_generator(config, variables, device)
     rng = torch.Generator(device=device).manual_seed(seed)
+    # the signals cross to the host on a stream of their own
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
     rank, world = mesh_lib.process_index(), mesh_lib.process_count()
     batch_size = -(-batch_size // world) * world
     local = batch_size // world
@@ -92,16 +99,24 @@ def generate(config, variables, num_samples: int, batch_size: int = 1024,
                                     mesh_lib.rows_of(noise, rank, world))
                 signals = reverse_preprocessing(config, fake)[:hi - lo].float()
             with tracing.span("generate/signals_to_host"):
-                payload = {"signals": signals.cpu().numpy()}
+                pending = crossing.start(signals, side)  # runs under OASIS
+            spikes = None
             if with_spikes:
+                # (n, C, T) traces; on the card the spikes come back laid
+                # out as the signals, (n, T, C), so this transpose is a view
+                spikes = deconvolve_traces(signals.transpose(1, 2))
                 with tracing.span("generate/layout"):
-                    traces = signals.transpose(1, 2).contiguous()  # (n,C,T)
-                spikes = deconvolve_traces(traces)
-                with tracing.span("generate/layout"):
-                    payload["spikes"] = np.ascontiguousarray(
+                    spikes = np.ascontiguousarray(
                         np.transpose(spikes, (0, 2, 1)))
+            with tracing.span("generate/signals_to_host"):
+                payload = {"signals": pending.wait()}
+            if with_spikes:
+                payload["spikes"] = spikes
         index += 1
         yield payload
+        # the caller holds what it keeps: the host blocks of the rest go
+        # back to the caching allocator for the next batch
+        del payload, pending, spikes
 
 
 def main(config, num_samples: int, out: str, batch_size: int = 1024,

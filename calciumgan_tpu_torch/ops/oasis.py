@@ -45,7 +45,7 @@ import torch
 from calciumgan_tpu_torch.kernels import build
 from calciumgan_tpu_torch.ops import oasis_cuda
 from calciumgan_tpu_torch.ops.spike_metrics import first_order_recurrence
-from calciumgan_tpu_torch.utils import tracing
+from calciumgan_tpu_torch.utils import crossing, tracing
 
 __all__ = ["ar1_filter", "deconvolve_signals", "deconvolve_signals_host",
            "oasis_ar1_while"]
@@ -252,8 +252,16 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     as the JAX package's do off the TPU (JAX ``ops/oasis.py:322-327``).
 
     Flagged traces are redone in float64 where the traces lie: on the card
-    for a CUDA tensor (the spikes then cross to the host once), with the C++
-    kernel on the host for a CPU one.
+    for a CUDA tensor, with the C++ kernel on the host for a CPU one.
+
+    For a CUDA tensor the result's memory follows ``signals``' strides where
+    its elements fill one dense block (a permuted view, such as generate's
+    ``(n, C, T)`` view of ``(n, T, C)`` signals, gives spikes laid out
+    ``(n, T, C)``; a contiguous tensor contiguous spikes): the spikes are
+    laid out so on the card and cross to the host once, by DMA into
+    page-locked memory (:mod:`~calciumgan_tpu_torch.utils.crossing`), an
+    array the caller owns. A CPU tensor's spikes are computed on its
+    contiguous copy and reshaped.
 
     The kernel route runs as the spans ``oasis/kernel`` (launch until the
     flags are on the host, one a rung), ``oasis/redo`` and ``oasis/
@@ -267,6 +275,7 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     and ``kernel_device``, the kernels' seconds by CUDA events."""
     if isinstance(signals, np.ndarray):
         signals = torch.from_numpy(np.ascontiguousarray(signals, np.float32))
+    like = signals  # a CUDA tensor's spikes land in its strides
     signals = signals.float().contiguous()
     T = signals.shape[-1]
     flat = signals.reshape(-1, T)
@@ -283,24 +292,29 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     # long traces: the long kernel with the precise machine and its band
     # (JAX ops/oasis.py:369-398)
     entry = oasis_cuda.oasis_ar1_long if long else oasis_cuda.oasis_ar1
-    spikes = _ladder_spikes(flat, ladder, entry, long, g, s_min, threshold,
-                            stats)
-    return spikes.reshape(signals.shape)
+    return _ladder_spikes(flat, ladder, entry, long, g, s_min, threshold,
+                          stats, like)
 
 
 def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
                    g: float, s_min: float, threshold: float,
-                   stats: collections.Counter | None = None) -> np.ndarray:
-    """Host ``np.int8`` spikes of ``(N, T)`` traces: the kernel ``entry``
-    (``oasis_cuda.oasis_ar1`` or ``oasis_ar1_long``) with the production
-    merge budget and the band of the ``precise`` or classic machine, on
-    each rung of ``ladder`` while more than ``_ESCALATE_FRAC`` of the
-    traces overflow, then every flagged trace recomputed in float64 (JAX
+                   stats: collections.Counter | None = None,
+                   like: torch.Tensor | None = None) -> np.ndarray:
+    """Host ``np.int8`` spikes of ``(N, T)`` traces, of the shape of
+    ``like`` (default ``flat``; its elements are those traces): the kernel
+    ``entry`` (``oasis_cuda.oasis_ar1`` or ``oasis_ar1_long``) with the
+    production merge budget and the band of the ``precise`` or classic
+    machine, on each rung of ``ladder`` while more than ``_ESCALATE_FRAC``
+    of the traces overflow, then every flagged trace recomputed in float64 (JAX
     ``ops/oasis.py:343-366``): for CUDA traces on the card by
     :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_exact_f64`, before the
     spikes cross to the host; for CPU traces on the host, by
-    :func:`_exact_spikes_host`. ``stats`` takes the seconds and counts that
-    :func:`deconvolve_signals_host` documents."""
+    :func:`_exact_spikes_host`. CUDA spikes are laid out on the card in
+    ``like``'s strides, from the kernel's time-major ``(T, N)`` output, and
+    cross to the host by one DMA into page-locked memory. ``stats`` takes
+    the seconds and counts that :func:`deconvolve_signals_host`
+    documents."""
+    like = flat if like is None else like
     for i, d in enumerate(ladder):
         with tracing.span("oasis/kernel", stats, depth=d):
             timed = flat.is_cuda and stats is not None
@@ -340,14 +354,16 @@ def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
                 done.synchronize()
             tracing.count("oasis", stats, redo_device=idx.size)
         with tracing.span("oasis/spikes_to_host", stats):
-            return spikes.cpu().numpy()
+            laid = torch.empty_like(like, dtype=torch.int8)
+            laid.copy_(spikes.reshape(like.shape))
+            return crossing.to_host(laid)
     with tracing.span("oasis/spikes_to_host", stats):
-        spikes = (s > threshold).to(torch.int8).cpu().numpy()
+        spikes = crossing.to_host((s > threshold).to(torch.int8))
     if idx.size:
         with tracing.span("oasis/redo", stats, rows=idx.size):
             spikes[idx] = _exact_spikes_host(flat.numpy()[idx], g, s_min,
                                              threshold)
-    return spikes
+    return spikes.reshape(like.shape)
 
 
 def host_library() -> build.Built:

@@ -19,7 +19,10 @@ The spans, by layer:
   rung, args: the depth), ``oasis/spikes_to_host`` and ``oasis/redo``
   (args: the rows; on the card it ends when the redo has), with the counts
   ``oasis/traces``, ``oasis/flagged``, ``oasis/bit0``-``bit2`` and
-  ``oasis/redo_device`` (rows redone on the card);
+  ``oasis/redo_device`` (rows redone on the card); the crossings to the
+  host (:mod:`~calciumgan_tpu_torch.utils.crossing`) count ``to_host/
+  bytes`` and ``to_host/pinned_bytes`` (those by DMA into page-locked
+  memory) wherever they run;
 - the train step (``WGAN_GP.train_step``): ``step`` (args: the generator's
   update count) over ``step/critic`` (one a critic iteration, the
   update left out), ``step/penalty`` inside it, ``step/generator``,
