@@ -27,7 +27,7 @@ import torch
 
 from calciumgan_tpu_torch.ops import spike_metrics as sm
 from calciumgan_tpu_torch.ops.oasis import deconvolve_signals_host
-from calciumgan_tpu_torch.utils import arrays, h5
+from calciumgan_tpu_torch.utils import arrays, h5, tracing
 
 # traces per dispatch of the OASIS kernel on a GPU, and per call of its
 # plain version on the CPU (the JAX package's chunk sizes)
@@ -38,17 +38,18 @@ _CHUNK_TRACES_CUDA, _CHUNK_TRACES_CPU = 16384, 512
 # deconvolution
 # ---------------------------------------------------------------------------
 
-def deconvolve_traces(traces, stats=None) -> np.ndarray:
+def deconvolve_traces(traces) -> np.ndarray:
     """Binary spikes (host ``np.int8``) of ``(..., T)`` traces, a tensor on
     the CPU or the GPU or a numpy array. The OASIS kernel runs where the
     traces lie: the CUDA kernel on the GPU, its plain PyTorch version on the
     CPU; flagged traces are recomputed in float64 where the traces lie
     (:func:`calciumgan_tpu_torch.ops.oasis.deconvolve_signals_host`, which
-    says what it adds to a ``stats`` counter). For traces on the GPU the
-    spikes' memory follows the traces' strides (a permuted view gives
-    spikes laid out as the tensor it views), and they cross to the host by
-    DMA into page-locked memory."""
-    return deconvolve_signals_host(traces, stats=stats)
+    names the spans and counts it adds to
+    :mod:`~calciumgan_tpu_torch.utils.tracing`). The spikes take the traces'
+    shape and strides (a permuted view gives spikes laid out as the tensor
+    it views) on either device; from the GPU they cross to the host by DMA
+    into page-locked memory."""
+    return deconvolve_signals_host(traces)
 
 
 def deconvolve_file(config, filename: str, chunk: int = 0,
@@ -67,15 +68,23 @@ def deconvolve_file(config, filename: str, chunk: int = 0,
 
     Each chunk is read, uploaded, deconvolved and written in turn (the
     upload is synchronous: a chunk is 134 MB at 160 x 2048 x 102, which
-    the host stages around it outweigh). Returns the file's host-clock
-    seconds by stage (``read``, ``upload``, ``deconvolve``, ``write``,
-    ``total``) with what the dispatch adds (``kernel``, ``kernel_device``,
-    ``spikes_to_host``, ``redo`` seconds inside ``deconvolve``, and the
-    counts ``traces``, ``flagged``, ``bit0``, ``bit1``, ``bit2``); with
-    ``config.verbose`` they are printed."""
+    the host stages around it outweigh); the dispatch takes the chunk's
+    ``(N, C, W)`` view of its NWC signals, so its spikes come back NWC.
+    Returns the file's host-clock seconds by stage (``read``, ``upload``,
+    ``deconvolve``, ``write``, ``total``) and, under ``<key>``, the change
+    over the call of each ``oasis/<key>`` of
+    :data:`~calciumgan_tpu_torch.utils.tracing.totals` that the dispatch
+    added to (``kernel``, ``spikes_to_host``, ``redo`` seconds inside
+    ``deconvolve``; the counts ``traces``, ``flagged``, ``bit0``-``bit2``);
+    with ``config.verbose`` they are printed. The totals are process-wide,
+    so the change is this file's alone: ``compute_metrics`` and
+    ``compute_dg_metrics`` run no other dispatch meanwhile (their figures
+    render in spawned processes)."""
     device = torch.device(device)
     start_all = perf_counter()
     seconds: collections.Counter = collections.Counter()
+    calls = collections.Counter(tracing.calls)
+    totals = collections.Counter(tracing.totals)
     if config.verbose:
         print(f"\tDeconvolve {filename}")
     n = h5.get_dataset_length(filename, "signals")
@@ -118,16 +127,18 @@ def deconvolve_file(config, filename: str, chunk: int = 0,
         clock = lap("read", clock)
         # NWC -> (N, C, W), so time is the trailing axis, where they lie
         traces = torch.from_numpy(np.ascontiguousarray(signals, np.float32))
-        traces = traces.to(device).permute(0, 2, 1).contiguous()
+        traces = traces.to(device).permute(0, 2, 1)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         clock = lap("upload", clock)
-        spikes = deconvolve_traces(traces, stats=seconds)
+        spikes = deconvolve_traces(traces)
         clock = lap("deconvolve", clock)
-        h5.write(filename, {
-            staging: np.ascontiguousarray(np.transpose(spikes, (0, 2, 1)))})
+        h5.write(filename, {staging: np.transpose(spikes, (0, 2, 1))})
         lap("write", clock)
     h5.rename(filename, staging, "spikes")
+    for name in tracing.calls - calls:
+        if name.startswith("oasis/"):
+            seconds[name[len("oasis/"):]] = tracing.totals[name] - totals[name]
     seconds["total"] = perf_counter() - start_all
     if config.verbose:
         print("\t\t" + ", ".join(

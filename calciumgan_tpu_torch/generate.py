@@ -73,9 +73,8 @@ def generate(config, variables, num_samples: int, batch_size: int = 1024,
 
     Each batch runs as the span ``generate/batch``, closed before its
     payload is yielded, over ``generate/forward``, ``generate/
-    signals_to_host`` (twice: the copy issued, and waited for),
-    ``generate/layout`` and the OASIS dispatch's spans
-    (:mod:`~calciumgan_tpu_torch.utils.tracing`)."""
+    signals_to_host`` (twice: the copy issued, and waited for) and the
+    OASIS dispatch's spans (:mod:`~calciumgan_tpu_torch.utils.tracing`)."""
     device = torch.device(device)
     generator = build_generator(config, variables, device)
     rng = torch.Generator(device=device).manual_seed(seed)
@@ -102,12 +101,10 @@ def generate(config, variables, num_samples: int, batch_size: int = 1024,
                 pending = crossing.start(signals, side)  # runs under OASIS
             spikes = None
             if with_spikes:
-                # (n, C, T) traces; on the card the spikes come back laid
-                # out as the signals, (n, T, C), so this transpose is a view
-                spikes = deconvolve_traces(signals.transpose(1, 2))
-                with tracing.span("generate/layout"):
-                    spikes = np.ascontiguousarray(
-                        np.transpose(spikes, (0, 2, 1)))
+                # (n, C, T) traces; the spikes come back laid out as the
+                # signals, (n, T, C), so this transpose is a view
+                spikes = np.transpose(
+                    deconvolve_traces(signals.transpose(1, 2)), (0, 2, 1))
             with tracing.span("generate/signals_to_host"):
                 payload = {"signals": pending.wait()}
             if with_spikes:

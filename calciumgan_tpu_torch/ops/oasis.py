@@ -8,15 +8,15 @@ traces overflow, and recomputes every flagged trace exactly in float64: on
 the card for CUDA traces (:func:`~calciumgan_tpu_torch.ops.oasis_cuda.
 oasis_exact_f64`), on the host for CPU ones (the port's copy of the JAX
 package's C++ OASIS, compiled at first use: :func:`host_library`); the two
-give the same spikes bit for bit. Traces of up to ``_PALLAS_MAX_T`` frames
-take :func:`calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1` with the classic
-machine and ``_DEPTH_LADDER``; longer ones (whole recordings) take
-:func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1_long` with the precise
-machine and the T-scaled ``_long_ladder``. Either runs the CUDA kernel for a
-CUDA tensor and its plain PyTorch twin for a CPU tensor. The constants are
-the JAX package's, with the reasons given there: they were measured for the
-algorithm and its float32 arithmetic, which the port keeps. Throughput
-figures in the JAX comments were taken on a TPU and say nothing of the GPU.
+give the same spikes bit for bit. Every rung runs
+:func:`calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1`, the CUDA kernel for a
+CUDA tensor and its plain PyTorch twin for a CPU tensor: traces of up to
+``_PALLAS_MAX_T`` frames with the classic machine and ``_DEPTH_LADDER``,
+longer ones (whole recordings) with the precise machine and the T-scaled
+``_long_ladder``. The constants are the JAX package's, with the reasons
+given there: they were measured for the algorithm and its float32
+arithmetic, which the port keeps. Throughput figures in the JAX comments
+were taken on a TPU and say nothing of the GPU.
 
 :func:`ar1_filter` is the forward model, spikes -> calcium, of the DG data
 generators (counterpart of ``calciumgan_tpu/ops/oasis.py:451-491``): plain
@@ -34,7 +34,6 @@ flags, which gives each row the same result.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -238,9 +237,7 @@ def _long_ladder(T: int) -> tuple:
 
 def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
                             threshold: float = 0.5,
-                            depth: int | None = None,
-                            stats: collections.Counter | None = None
-                            ) -> np.ndarray:
+                            depth: int | None = None) -> np.ndarray:
     """Binary spikes of ``(..., T)`` traces as a host ``np.int8`` array of
     the same shape, equal to the float64 golden model's.
 
@@ -254,116 +251,96 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     Flagged traces are redone in float64 where the traces lie: on the card
     for a CUDA tensor, with the C++ kernel on the host for a CPU one.
 
-    For a CUDA tensor the result's memory follows ``signals``' strides where
-    its elements fill one dense block (a permuted view, such as generate's
-    ``(n, C, T)`` view of ``(n, T, C)`` signals, gives spikes laid out
-    ``(n, T, C)``; a contiguous tensor contiguous spikes): the spikes are
-    laid out so on the card and cross to the host once, by DMA into
-    page-locked memory (:mod:`~calciumgan_tpu_torch.utils.crossing`), an
-    array the caller owns. A CPU tensor's spikes are computed on its
-    contiguous copy and reshaped.
+    The spikes take the shape and the strides of ``signals`` wherever its
+    elements fill one dense block, on either device and on either route: a
+    contiguous tensor gives contiguous spikes, a permuted view (such as
+    generate's ``(n, C, T)`` view of ``(n, T, C)`` signals) spikes laid out
+    as the tensor it views. They are laid out so where the traces lie and
+    handed to the host once (:mod:`~calciumgan_tpu_torch.utils.crossing`:
+    from the card by DMA into page-locked memory), an array the caller
+    owns.
 
     The kernel route runs as the spans ``oasis/kernel`` (launch until the
-    flags are on the host, one a rung), ``oasis/redo`` and ``oasis/
-    spikes_to_host`` (the host redo comes after the copy) and counts
-    ``oasis/traces`` dispatched, ``oasis/flagged``, flagged by ``oasis/
-    bit0`` (depth), ``bit1`` (merge budget) and ``bit2`` (borderline), and
-    ``oasis/redo_device``, the rows redone on the card (:mod:`~
-    calciumgan_tpu_torch.utils.tracing`). A caller that reports where the
-    time went passes a ``stats`` counter: it takes those host-clock seconds
-    and counts under the names' last parts (``kernel``, ``traces``, ...),
-    and ``kernel_device``, the kernels' seconds by CUDA events."""
+    flags are on the host, one a rung, args: the depth), ``oasis/redo``
+    (args: the rows; on the card it ends when the redo has) and then
+    ``oasis/spikes_to_host``, and counts ``oasis/traces`` dispatched,
+    ``oasis/flagged``, and flagged by ``oasis/bit0`` (depth), ``bit1``
+    (merge budget) and ``bit2`` (borderline)
+    (:mod:`~calciumgan_tpu_torch.utils.tracing`)."""
     if isinstance(signals, np.ndarray):
         signals = torch.from_numpy(np.ascontiguousarray(signals, np.float32))
-    like = signals  # a CUDA tensor's spikes land in its strides
-    signals = signals.float().contiguous()
+    like = signals  # the spikes land in its strides
     T = signals.shape[-1]
-    flat = signals.reshape(-1, T)
+    flat = signals.float().contiguous().reshape(-1, T)
     long = T > _PALLAS_MAX_T
-    if long and not signals.is_cuda:
+    if long and not flat.is_cuda:
         exact = _exact_spikes_host(flat.numpy(), g, s_min, threshold)
-        return exact.reshape(signals.shape)
+        return _laid_out(torch.from_numpy(exact), like).numpy()
     if depth is not None:
         ladder = (depth,)
     elif long:
         ladder = _long_ladder(T)
     else:  # clamp to T and dedupe so short traces run one rung
         ladder = tuple(dict.fromkeys(min(T, d) for d in _DEPTH_LADDER))
-    # long traces: the long kernel with the precise machine and its band
-    # (JAX ops/oasis.py:369-398)
-    entry = oasis_cuda.oasis_ar1_long if long else oasis_cuda.oasis_ar1
-    return _ladder_spikes(flat, ladder, entry, long, g, s_min, threshold,
-                          stats, like)
+    # long traces: the precise machine and its band (JAX ops/oasis.py:
+    # 369-398)
+    return _ladder_spikes(flat, ladder, long, g, s_min, threshold, like)
 
 
-def _ladder_spikes(flat: torch.Tensor, ladder, entry, precise: bool,
+def _laid_out(spikes: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``spikes`` (int8, ``like``'s elements in any layout) copied into
+    ``like``'s shape and strides, where ``spikes`` lies."""
+    laid = torch.empty_like(like, dtype=torch.int8)
+    laid.copy_(spikes.reshape(like.shape))
+    return laid
+
+
+def _ladder_spikes(flat: torch.Tensor, ladder, precise: bool,
                    g: float, s_min: float, threshold: float,
-                   stats: collections.Counter | None = None,
                    like: torch.Tensor | None = None) -> np.ndarray:
-    """Host ``np.int8`` spikes of ``(N, T)`` traces, of the shape of
-    ``like`` (default ``flat``; its elements are those traces): the kernel
-    ``entry`` (``oasis_cuda.oasis_ar1`` or ``oasis_ar1_long``) with the
+    """Host ``np.int8`` spikes of ``(N, T)`` traces, of the shape and the
+    strides of ``like`` (default ``flat``; its elements are those traces):
+    :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_ar1` with the
     production merge budget and the band of the ``precise`` or classic
     machine, on each rung of ``ladder`` while more than ``_ESCALATE_FRAC``
-    of the traces overflow, then every flagged trace recomputed in float64 (JAX
-    ``ops/oasis.py:343-366``): for CUDA traces on the card by
-    :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_exact_f64`, before the
-    spikes cross to the host; for CPU traces on the host, by
-    :func:`_exact_spikes_host`. CUDA spikes are laid out on the card in
-    ``like``'s strides, from the kernel's time-major ``(T, N)`` output, and
-    cross to the host by one DMA into page-locked memory. ``stats`` takes
-    the seconds and counts that :func:`deconvolve_signals_host`
-    documents."""
+    of the traces overflow; then, where the traces lie, every flagged trace
+    recomputed in float64 (JAX ``ops/oasis.py:343-366``; on the card by
+    :func:`~calciumgan_tpu_torch.ops.oasis_cuda.oasis_exact_f64`, on the
+    host by :func:`_exact_spikes_host`) and the spikes laid out in
+    ``like``'s strides; last, one crossing to the host."""
     like = flat if like is None else like
     for i, d in enumerate(ladder):
-        with tracing.span("oasis/kernel", stats, depth=d):
-            timed = flat.is_cuda and stats is not None
-            if timed:
-                begin, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                begin.record()
-            _, s, redo = entry(flat, g=g, lam=0.0, s_min=s_min, depth=d,
-                               merge_attempts=_MERGE_BUDGET, precise=precise,
-                               flag_tol=_flag_tol(s_min, threshold, precise))
-            if timed:
-                end.record()
+        with tracing.span("oasis/kernel", depth=d):
+            _, s, redo = oasis_cuda.oasis_ar1(
+                flat, g=g, lam=0.0, s_min=s_min, depth=d,
+                merge_attempts=_MERGE_BUDGET, precise=precise,
+                flag_tol=_flag_tol(s_min, threshold, precise))
             flags = redo.reshape(-1).cpu().numpy()  # waits for the kernel
-        if timed:
-            stats["kernel_device"] += begin.elapsed_time(end) * 1e-3
         # escalate only on DEPTH flags (bit 0): a deeper stack cannot help
         # an exhausted merge budget (bit 1) or a borderline decision (bit 2)
         depth_frac = float(((flags & 1) != 0).mean()) if flags.size else 0.0
         if depth_frac <= _ESCALATE_FRAC or i == len(ladder) - 1:
             break
-    tracing.count("oasis", stats, traces=flags.size,
+    tracing.count("oasis", traces=flags.size,
                   flagged=int((flags != 0).sum()),
                   **{f"bit{b}": int(((flags >> b) & 1).sum())
                      for b in range(3)})
+    spikes = (s > threshold).to(torch.int8)
     idx = np.nonzero(flags)[0]
-    if flat.is_cuda:
-        # the flagged rows are redone on the card, into its int8 spikes,
-        # which then cross to the host once
-        spikes = (s > threshold).to(torch.int8)
-        if idx.size:
-            with tracing.span("oasis/redo", stats, rows=idx.size):
-                oasis_cuda.oasis_exact_f64(
-                    flat, torch.from_numpy(idx).to(flat.device), spikes, g,
-                    s_min, threshold)
+    if idx.size:
+        with tracing.span("oasis/redo", rows=idx.size):
+            rows = torch.from_numpy(idx)
+            if flat.is_cuda:
+                oasis_cuda.oasis_exact_f64(flat, rows.to(flat.device),
+                                           spikes, g, s_min, threshold)
                 done = torch.cuda.Event()
                 done.record()
                 done.synchronize()
-            tracing.count("oasis", stats, redo_device=idx.size)
-        with tracing.span("oasis/spikes_to_host", stats):
-            laid = torch.empty_like(like, dtype=torch.int8)
-            laid.copy_(spikes.reshape(like.shape))
-            return crossing.to_host(laid)
-    with tracing.span("oasis/spikes_to_host", stats):
-        spikes = crossing.to_host((s > threshold).to(torch.int8))
-    if idx.size:
-        with tracing.span("oasis/redo", stats, rows=idx.size):
-            spikes[idx] = _exact_spikes_host(flat.numpy()[idx], g, s_min,
-                                             threshold)
-    return spikes.reshape(like.shape)
+            else:
+                spikes[rows] = torch.from_numpy(_exact_spikes_host(
+                    flat.numpy()[idx], g, s_min, threshold))
+    with tracing.span("oasis/spikes_to_host"):
+        return crossing.to_host(_laid_out(spikes, like))
 
 
 def host_library() -> build.Built:

@@ -5,21 +5,20 @@
 host seconds to :data:`totals` under its name and one to :data:`calls`;
 while ``torch.profiler`` runs it also opens a ``record_function`` named
 ``calciumgan/<name>``, which puts it on the profiler's clock, the one the
-device's timeline shares. A caller's ``stats`` counter takes the seconds too,
-under the last part of the name. :func:`count` adds counts the same way.
-The process-wide counters follow ``oasis_cuda.launches`` and
+device's timeline shares. :func:`count` adds counts to :data:`totals`, and
+one a call to :data:`calls`. These process-wide counters are the port's one
+record of where its time went; they follow ``oasis_cuda.launches`` and
 ``mesh.collective_bytes``: a reader takes their change over the stretch it
 wants.
 
 The spans, by layer:
 
 - serving (``generate.generate``): ``generate/batch`` (args: the batch
-  index) over ``generate/forward``, ``generate/signals_to_host``,
-  ``generate/layout`` and the OASIS dispatch's ``oasis/kernel`` (one a
-  rung, args: the depth), ``oasis/spikes_to_host`` and ``oasis/redo``
-  (args: the rows; on the card it ends when the redo has), with the counts
-  ``oasis/traces``, ``oasis/flagged``, ``oasis/bit0``-``bit2`` and
-  ``oasis/redo_device`` (rows redone on the card); the crossings to the
+  index) over ``generate/forward``, ``generate/signals_to_host`` and the
+  OASIS dispatch's ``oasis/kernel`` (one a rung, args: the depth),
+  ``oasis/redo`` (args: the rows; on the card it ends when the redo has)
+  and then ``oasis/spikes_to_host``, with the counts ``oasis/traces``,
+  ``oasis/flagged`` and ``oasis/bit0``-``bit2``; the crossings to the
   host (:mod:`~calciumgan_tpu_torch.utils.crossing`) count ``to_host/
   bytes`` and ``to_host/pinned_bytes`` (those by DMA into page-locked
   memory) wherever they run;
@@ -43,7 +42,6 @@ import bisect
 import collections
 import contextlib
 from time import perf_counter
-from typing import Optional
 
 import torch
 
@@ -51,17 +49,16 @@ PREFIX = "calciumgan/"  # of every span's name in a profiler's trace
 
 # host seconds of each span by name, and the counts of :func:`count`
 totals: collections.Counter = collections.Counter()
-# spans closed, by name
+# spans closed and calls of :func:`count`, by name
 calls: collections.Counter = collections.Counter()
 
 
 @contextlib.contextmanager
-def span(name: str, stats: Optional[collections.Counter] = None, **args):
+def span(name: str, **args):
     """Time the block as the span ``name``: its host seconds go to
-    :data:`totals` (and, under the name's last part, to ``stats``), and one
-    to :data:`calls`. While a profiler runs, the block is also the
-    ``record_function`` ``calciumgan/<name>`` with ``args`` (the batch or
-    step it serves) as its argument string."""
+    :data:`totals`, and one to :data:`calls`. While a profiler runs, the
+    block is also the ``record_function`` ``calciumgan/<name>`` with
+    ``args`` (the batch or step it serves) as its argument string."""
     record = None
     if torch.autograd._profiler_enabled():
         record = torch.profiler.record_function(
@@ -77,18 +74,14 @@ def span(name: str, stats: Optional[collections.Counter] = None, **args):
             record.__exit__(None, None, None)
         totals[name] += seconds
         calls[name] += 1
-        if stats is not None:
-            stats[name.rsplit("/", 1)[-1]] += seconds
 
 
-def count(prefix: str, stats: Optional[collections.Counter] = None,
-          **counts: int) -> None:
-    """Add ``counts`` to :data:`totals` as ``<prefix>/<key>`` and to
-    ``stats`` under their keys."""
+def count(prefix: str, **counts: int) -> None:
+    """Add ``counts`` to :data:`totals` as ``<prefix>/<key>``, and one to
+    :data:`calls` under each of those names."""
     for key, n in counts.items():
         totals[f"{prefix}/{key}"] += n
-        if stats is not None:
-            stats[key] += n
+        calls[f"{prefix}/{key}"] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -43,8 +43,9 @@ run (``flush_twins``):
    golden; the kernel launch counter of that run;
 4. timings on the card, each beside the card's name and power limit:
    generator, kernel and plain version (held against each other again at
-   the main path's shape, one batch of generated traces), host redo, end
-   to end, and the host-clock stages of one batch;
+   the main path's shape, one batch of generated traces), and the share
+   of those traces flagged by each redo bit (serving's throughput is the
+   benchmark's, ``python3 -m h100bench.run``);
 5. recordings: 2048 seeded synthetic recordings of 20,000 frames on the
    card. The long kernel (precise machine, production arguments, depth 512:
    shared-memory rings) and the short kernel's precise mode against their
@@ -846,44 +847,12 @@ def _slice_checks(config, payloads, launches, calls, seconds, ref_errs):
            cxx_float64_mismatches=cxx)
 
 
-def e2e_stages(config, variables, dev):
-    """Host-clock seconds of each stage of one ``generate --spikes`` batch,
-    as ``generate`` runs it, with a synchronize after each stage."""
-    import numpy as np
-    import torch
-    from calciumgan_tpu_torch.algorithms import gan
-    from calciumgan_tpu_torch.data.pipeline import reverse_preprocessing
-    from calciumgan_tpu_torch.eval.spike_eval import deconvolve_traces
-    from calciumgan_tpu_torch.generate import build_generator
-    generator = build_generator(config, variables, dev)
-    noise = gan.get_noise(torch.Generator(device=dev).manual_seed(SEED),
-                          BATCH, config.noise_dim, dev)
-    stages, last = {}, time.perf_counter()
-
-    def mark(name):
-        nonlocal last
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name], last = now - last, now
-
-    signals = reverse_preprocessing(config, gan.generate(generator, noise))
-    mark("generator")
-    signals.cpu().numpy()
-    mark("signals_to_host")
-    spikes = deconvolve_traces(signals.transpose(1, 2).contiguous())
-    mark("deconvolve")
-    np.ascontiguousarray(np.transpose(spikes, (0, 2, 1)))
-    mark("spikes_transpose")
-    return stages
-
-
 def phase_timings(config, variables, smi):
-    import numpy as np
     import torch
     from calciumgan_tpu_torch.algorithms import gan
-    from calciumgan_tpu_torch.generate import build_generator, generate
+    from calciumgan_tpu_torch.generate import build_generator
     from calciumgan_tpu_torch.ops import oasis as dispatch
-    from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
+    from calciumgan_tpu_torch.ops import oasis_cuda
     dev = torch.device("cuda")
     generator = build_generator(config, variables, dev)
     noise = gan.get_noise(torch.Generator(device=dev).manual_seed(SEED),
@@ -903,19 +872,6 @@ def phase_timings(config, variables, smi):
     _, _, redo = oasis_cuda.oasis_ar1_cuda(traces, **kw)
     flags = redo.cpu().numpy()
     bit_frac = {f"bit{b}": float(((flags >> b) & 1).mean()) for b in range(3)}
-    rows = traces[torch.from_numpy(np.nonzero(flags)[0]).to(dev)].cpu()
-    dispatch._exact_spikes_host(rows[:1].numpy(), G, S_MIN, THRESHOLD)
-    start = time.perf_counter()  # the C++ redo is built by now
-    dispatch._exact_spikes_host(rows.numpy(), G, S_MIN, THRESHOLD)
-    redo_s = time.perf_counter() - start
-
-    for _ in generate(config, variables, BATCH, BATCH, True, SEED, dev):
-        pass  # warm-up of the whole path
-    start = time.perf_counter()
-    n = sum(len(p["signals"]) for p in generate(
-        config, variables, BATCH * BATCHES, BATCH, True, SEED, dev))
-    e2e_s = time.perf_counter() - start
-    stages = e2e_stages(config, variables, dev)
     B = traces.shape[0]
     report("phase 4 timings", card=smi, kernel_vs_plain=strip(generated),
            generator_ms_per_batch=gen_ms,
@@ -923,10 +879,7 @@ def phase_timings(config, variables, smi):
            kernel_traces=B, kernel_ms=kernel_ms,
            kernel_traces_per_s=B / kernel_ms * 1e3, plain_ms=plain_ms,
            plain_traces_per_s=B / plain_ms * 1e3, redo_fraction=bit_frac,
-           flagged=int((flags != 0).sum()), host_redo_s=redo_s,
-           host_redo_threads=len(os.sched_getaffinity(0)),
-           e2e_samples=n, e2e_s=e2e_s, e2e_samples_per_s=n / e2e_s,
-           batch_stages_s=stages)
+           flagged=int((flags != 0).sum()))
     torch.cuda.synchronize()
     return dict(ms=kernel_ms, plain_ms=plain_ms, shape=[B, T],
                 max_abs_err=generated["max_abs_err"], **bound(B, T, False))

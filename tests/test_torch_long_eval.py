@@ -11,9 +11,9 @@ numpy seed:
   ``best_epoch``, in either container (``.h5``, ``.npys``); every
   per-pair statistic of the epoch file's spikes within 1e-4 of JAX's too;
 - the dispatch's long route, ``_ladder_spikes`` with ``_long_ladder(T)``
-  and the plain version ``oasis_ar1_long_torch`` (what the CUDA route
-  runs, on a CPU tensor): the rungs it climbs are those the depth flags
-  ask for, and its spikes equal the C++ float64 kernel's;
+  and the precise machine of the plain version ``oasis_ar1_torch`` (what
+  the CUDA route runs, on a CPU tensor): the rungs it climbs are those the
+  depth flags ask for, and its spikes equal the C++ float64 kernel's;
 - ``deconvolve_file`` at T > 4096: any chunking gives the JAX package's
   spikes, and a resume keeps the complete chunks and redoes the last.
 
@@ -40,7 +40,7 @@ from calciumgan_tpu_torch.eval import spike_eval
 from calciumgan_tpu_torch.ops import golden
 from calciumgan_tpu_torch.ops import oasis as dispatch
 from calciumgan_tpu_torch.ops import oasis_cuda, oasis_torch
-from calciumgan_tpu_torch.utils import h5
+from calciumgan_tpu_torch.utils import h5, tracing
 
 torch.set_num_threads(1)
 
@@ -187,22 +187,23 @@ def test_long_ladder_climbs_as_the_depth_flags_ask(monkeypatch, case, rungs):
     seen = []
 
     def spy(signals, **kw):
-        out = oasis_torch.oasis_ar1_long_torch(signals, **kw)
+        assert kw["precise"]
+        out = oasis_torch.oasis_ar1_torch(signals, **kw)
         seen.append((kw["depth"], out[2].numpy()))
         return out
 
-    monkeypatch.setattr(oasis_cuda, "oasis_ar1_long", spy)
-    stats = collections.Counter()
-    spikes = dispatch._ladder_spikes(torch.from_numpy(y), ladder,
-                                     oasis_cuda.oasis_ar1_long, True, 0.95,
-                                     0.55, 0.5, stats)
+    monkeypatch.setattr(oasis_cuda, "oasis_ar1", spy)
+    before = collections.Counter(tracing.totals)
+    spikes = dispatch._ladder_spikes(torch.from_numpy(y), ladder, True,
+                                     0.95, 0.55, 0.5)
+    counted = tracing.totals - before
     assert [d for d, _ in seen] == list(ladder[:rungs])
     shares = [float(((redo & 1) != 0).mean()) for _, redo in seen]
     # every rung but the last was asked for by its depth flags
     assert all(s > dispatch._ESCALATE_FRAC for s in shares[:-1])
     assert shares[-1] <= dispatch._ESCALATE_FRAC or rungs == len(ladder)
-    assert stats["traces"] == 6
-    assert stats["flagged"] == int((seen[-1][1] != 0).sum())
+    assert counted["oasis/traces"] == 6
+    assert counted["oasis/flagged"] == int((seen[-1][1] != 0).sum())
     np.testing.assert_array_equal(
         spikes, dispatch._exact_spikes_host(y, 0.95, 0.55, 0.5))
     if case == "deepest":

@@ -146,13 +146,13 @@ def test_long_route_walks_the_long_ladder(rng, monkeypatch):
     T: the precise machine with the 1.5e-6 band, one rung deeper while more
     than 10% of the traces overflow, flagged traces redone in f64."""
     calls = []
-    real = oasis_cuda.oasis_ar1_long
+    real = oasis_cuda.oasis_ar1
 
     def spy(signals, **kw):
         calls.append(kw)
         return real(signals, **kw)
 
-    monkeypatch.setattr(oasis_cuda, "oasis_ar1_long", spy)
+    monkeypatch.setattr(oasis_cuda, "oasis_ar1", spy)
     T = 300
     ladder = oasis_dispatch._long_ladder(T)
     assert ladder == (256, 300)
@@ -164,8 +164,7 @@ def test_long_route_walks_the_long_ladder(rng, monkeypatch):
                       (np.concatenate([ramp, spiky]), [256])):  # 1/10
         calls.clear()
         spikes = oasis_dispatch._ladder_spikes(
-            torch.from_numpy(y), ladder, oasis_cuda.oasis_ar1_long, True,
-            0.95, 0.55, 0.5)
+            torch.from_numpy(y), ladder, True, 0.95, 0.55, 0.5)
         assert [kw["depth"] for kw in calls] == depths
         assert all(kw["precise"] and kw["flag_tol"] == 1.5e-6
                    and kw["merge_attempts"] == 2 for kw in calls)

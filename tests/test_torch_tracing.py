@@ -88,8 +88,7 @@ def test_a_served_batch_nests_its_spans(flag_every_trace):
     assert sum(e.name == batch for e in found) == 2
     assert {e.name for e in found} == names(
         "generate/batch", "generate/forward", "generate/signals_to_host",
-        "generate/layout", "oasis/kernel", "oasis/spikes_to_host",
-        "oasis/redo")
+        "oasis/kernel", "oasis/redo", "oasis/spikes_to_host")
     for e in found:
         if e.name != batch:
             assert batch in parents(e), e.name
@@ -153,8 +152,8 @@ def test_serving_counts_its_traces_and_flags(flag_every_trace):
     assert (tracing.calls - calls)["generate/batch"] == 3
     assert totals["oasis/redo"] > 0
     children = sum(totals[n] for n in (
-        "generate/forward", "generate/signals_to_host", "generate/layout",
-        "oasis/kernel", "oasis/spikes_to_host", "oasis/redo"))
+        "generate/forward", "generate/signals_to_host", "oasis/kernel",
+        "oasis/redo", "oasis/spikes_to_host"))
     assert children <= totals["generate/batch"]
     assert all(p["spikes"].shape == (BATCH, T, C) for p in payloads)
 
@@ -190,15 +189,26 @@ def test_deconvolve_file_reports_its_keys(tmp_path, flag_every_trace):
     assert report["kernel"] + report["redo"] <= report["deconvolve"]
 
 
-def test_the_stats_counter_takes_the_last_part_of_a_name():
-    stats = collections.Counter()
+def test_deconvolve_file_reports_the_change_of_the_totals(tmp_path):
+    path = str(tmp_path / f"epoch{h5.default_suffix()}")
+    trials = 3
+    signals = np.random.default_rng(6).random((trials, T, C)).astype(
+        np.float32)
+    h5.write(path, {"signals": signals})
+    # a dispatch before the call
+    oasis.deconvolve_signals_host(signals[:1].transpose(0, 2, 1))
+    calls = collections.Counter(tracing.calls)
     before = collections.Counter(tracing.totals)
-    with tracing.span("test/part", stats):
-        pass
-    tracing.count("test", stats, rows=5)
-    assert set(stats) == {"part", "rows"} and stats["rows"] == 5
-    assert (tracing.totals - before)["test/rows"] == 5
-    assert tracing.totals["test/part"] >= stats["part"] > 0
+    report = spike_eval.deconvolve_file(tiny_config(), path, device="cpu")
+    grew = {name[len("oasis/"):]: tracing.totals[name] - before[name]
+            for name in tracing.calls - calls if name.startswith("oasis/")}
+    stages = {"read", "upload", "deconvolve", "write", "total"}
+    assert {k: v for k, v in report.items() if k not in stages} == grew
+    # counts of 0 too (no trace of T frames overflows a depth of T)
+    assert {"kernel", "spikes_to_host", "traces", "flagged", "bit0", "bit1",
+            "bit2"} <= set(grew) and report["bit0"] == 0
+    assert report["traces"] == trials * C < tracing.totals["oasis/traces"]
+    assert report["kernel"] <= report["deconvolve"]
 
 
 def test_the_loop_and_the_collective_spans():
