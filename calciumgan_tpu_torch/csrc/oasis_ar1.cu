@@ -44,12 +44,17 @@
 // frame (4 B of trace in, 8 B of c and s out, time-major so that a warp's
 // access is coalesced): at 3.35 TB/s that is 0.77 ms for 104,448 x 2048
 // traces and 7.3 us for one 102 x 20,000 recording. The float32 work is
-// under 60 operations a frame, far under 67 TFLOP/s, so bandwidth is the
-// bound. What held the first design far above it (34 ms, 28 ms) was where
-// the pools lived: a (3, D, B) scratch in device memory, 80 MB at serving
-// size (more than the 50 MB L2), with 5-8 dependent scattered loads per
-// merge attempt (each lane its own top, one 32-byte sector per lane), and
-// a serial chain per frame that few warps hide.
+// under 60 operations a frame, far under 67 TFLOP/s. Neither binds: what
+// does is the latency of each trace's dependent chain, a few hundred cycles
+// a frame, and so how many traces run at once. What held the first design
+// far above the bytes (34 ms, 28 ms) was where the pools lived: a (3, D, B)
+// scratch in device memory, 80 MB at serving size (more than the 50 MB L2),
+// with 5-8 dependent scattered loads per merge attempt (each lane its own
+// top, one 32-byte sector per lane). Keeping the whole ring in shared memory
+// instead costs 12 B x D a lane: at D 384 one warp's ring is 147,456 B, so
+// one one-warp block fits on an SM's 232,448 B, and the 16,320 traces of a
+// served batch at 16,384 frames (510 warps) ran in 4 waves of one warp an
+// SM, each as long as one trace's chain.
 //
 // What this design does about it (state only moves; the arithmetic is the
 // same float32 operations in the same order):
@@ -59,21 +64,48 @@
 //   (the twin leaves the top pool's values there, and an overflowed lane
 //   can read that slot again once it wraps), shifts up and loads slot
 //   top-3, whose load does not depend on any decision and is first needed
-//   at the next merge. So every slot outside the registers holds exactly
-//   the twin's values, and a push on overflow overwrites the same slot as
-//   the twin's (D >= 8, so it is never a cached one). Values that depend
-//   only on the pool below the top (g^l1 and the decision's right-hand
-//   side, w(l1) in the precise machine) and on the top (v0/w0, w(l0)) are
-//   computed when that pool changes, from the same function of the same
-//   values, so the bits are the same.
-// - The ring lives in shared memory wherever a block of one warp of traces
-//   fits (3 float32 fields x D slots x 32 lanes <= 232,448 B: D <= 605),
-//   laid out [field][slot][lane] so that the bank is the lane whatever
-//   each lane's top is: no bank conflicts. The bf16-rounded compensation
-//   term is kept widened to float32 (the same value). Deeper rings keep the
-//   (3, D, B) device-memory ring, with the same register tops. Which of the
-//   two a launch takes is a pure function of (D, precise) computed by the
-//   wrapper (ops/oasis_cuda.py: launch_plan); there is no switch.
+//   at the next merge. So every
+//   slot outside the registers holds exactly the twin's values, and a push
+//   on overflow overwrites the same slot as the twin's (D >= 8, so it is
+//   never a cached one). Values that depend only on the pool below the top
+//   (g^l1 and the decision's right-hand side, w(l1) in the precise machine)
+//   and on the top (v0/w0, w(l0)) are computed when that pool changes, from
+//   the same function of the same values, so the bits are the same.
+// - A ring that fits, in a launch whose blocks are all resident at once,
+//   lives whole in shared memory, one warp of traces per block, laid out
+//   [field][slot][lane] so that the bank is the lane whatever each lane's
+//   top is: no bank conflicts. The bf16-rounded compensation term is kept
+//   widened to float32 (the same value).
+// - Any other ring lives in a (3, D, B) device-memory scratch, and shared
+//   memory holds a window of W consecutive stack positions of it, the same
+//   [field][slot][lane] layout for one warp per block, so a block needs
+//   12 B x W a lane whatever D is: 24,576 B, nine blocks an SM, and the
+//   16,320 traces take one wave (four warps an SM). Positions are
+//   absolute (the top pool's is n - 1; ring slot = position mod D, window
+//   slot = position mod W); the window holds positions lo .. lo + W - 1 and
+//   always the three register tops. It slides only when the stack leaves
+//   it: a push past its top writes its oldest slot back to the device ring;
+//   a merge whose top-3 lies below it writes its top slot back and fills
+//   top-3 straight into the registers (a register slot is always written
+//   before it leaves them). The slot just below the window is held in
+//   registers (kept when it leaves the window, loaded from the ring after
+//   each fill), so a fill waits on no load unless fills follow each other
+//   faster than a load returns. W < D, so the window
+//   never holds two positions of one ring slot, and it is a write-back
+//   cache of the ring: every slot the twin reads holds the twin's values,
+//   overflowed lanes included. It starts at lo = -3, positions that hold
+//   the twin's initial pools, so a fill never reads a slot that was not
+//   written back. The forward pass ends by writing the window back, and
+//   the reconstruction reads the device ring. Each lane counts the slots
+//   it moved (write-backs plus fills) into `moves`.
+// - Which of the two a launch takes is a pure function of D, the machine,
+//   B and the card's SM count, computed by the wrapper (ops/oasis_cuda.py:
+//   launch_plan): the whole ring wherever it is no larger than a window
+//   (up to WINDOW, 64, slots), or fits and the launch takes one wave of it
+//   (102 or 2048 traces at D 512); the window everywhere else (16,320
+//   traces at D 384, since a whole ring leaves one block an SM). Where both take one wave, a
+//   whole ring's frame is faster: it never waits on the device ring.
+//   There is no switch.
 // - Trace samples are loaded four frames ahead in registers, so the load
 //   latency sits off the per-frame chain.
 // Splitting one trace's chain across threads would change the merge order
@@ -87,6 +119,7 @@ namespace {
 
 struct Params {
   int T, B, D;
+  int W;  // ring slots a lane keeps in shared memory: D, or a window
   float g, log_g, s_min;
   int K;
   float flag_tol;
@@ -159,7 +192,7 @@ struct Pool {
   float v, x, l;
 };
 
-// One trace's ring of D slots: field f of slot i at base[f*plane +
+// Slots of one float32 field per lane: field f of slot i at base[f*plane +
 // i*stride]. Shared memory: int offsets, stride = lanes per block; device
 // memory: size_t offsets, stride = B.
 template <typename Index>
@@ -179,17 +212,118 @@ struct Ring {
   }
 };
 
+__device__ __forceinline__ int ring_dec(int i, int D) {
+  return i == 0 ? D - 1 : i - 1;
+}
+__device__ __forceinline__ int ring_inc(int i, int D) {
+  return i + 1 == D ? 0 : i + 1;
+}
+
+// The whole ring of D slots in shared memory, top at slot `top`.
+struct WholeRing {
+  Ring<int> ring;
+  int D;
+  int top = D - 1;  // the first push lands in slot 0
+  int moves = 0;    // nothing leaves shared memory
+
+  // slot top-2 leaves the registers; the top moves up
+  __device__ __forceinline__ void push(const Pool& p2) {
+    ring.store(ring_dec(ring_dec(top, D), D), p2);
+    top = ring_inc(top, D);
+  }
+  // a merge: the abandoned top keeps its values and the top moves down,
+  // stored as soon as the merge is decided (measured faster here than at
+  // the fill: PERF.md §6); then the new slot top-2 comes into the
+  // registers
+  __device__ __forceinline__ void pop(const Pool& p0) {
+    ring.store(top, p0);
+    top = ring_dec(top, D);
+  }
+  __device__ __forceinline__ Pool fill() {
+    return ring.load(ring_dec(ring_dec(top, D), D));
+  }
+  __device__ __forceinline__ void finish(const Pool& p0, const Pool& p1,
+                                         const Pool& p2) {
+    ring.store(top, p0);
+    ring.store(ring_dec(top, D), p1);
+    ring.store(ring_dec(ring_dec(top, D), D), p2);
+  }
+  __device__ __forceinline__ const Ring<int>& pools() const { return ring; }
+  __device__ __forceinline__ int top_slot() const { return top; }
+};
+
+// The ring of D slots in device memory behind a window of W (a power of
+// two, 4 <= W < D) consecutive stack positions in shared memory: see "What
+// this design does about it" above.
+struct WindowRing {
+  Ring<int> win;      // window slot = position & mask
+  Ring<size_t> ring;  // ring slot = position mod D
+  int D, mask;
+  int a = -1;         // position of the top pool, n - 1
+  int lo = -3;        // the window holds positions lo .. lo + mask
+  int lo_r = D - 3, hi_r = mask - 3;  // their ring slots
+  Pool below{};       // position lo - 1, held for the next fill
+  Pool popped{};      // the abandoned top, stored at the fill
+  int moves = 0;      // write-backs plus fills
+
+  __device__ __forceinline__ void push(const Pool& p2) {
+    win.store((a - 2) & mask, p2);
+    ++a;
+    if (a > lo + mask) {  // past the window: its oldest slot goes back
+      below = win.load(lo & mask);
+      ring.store(lo_r, below);
+      ++lo;
+      lo_r = ring_inc(lo_r, D);
+      hi_r = ring_inc(hi_r, D);
+      ++moves;
+    }
+  }
+  // a merge: the abandoned top keeps its values and the top moves down,
+  // both at the fill (measured faster here than storing first: PERF.md §6)
+  __device__ __forceinline__ void pop(const Pool& p0) { popped = p0; }
+  __device__ __forceinline__ Pool fill() {
+    win.store(a & mask, popped);
+    --a;
+    if (a - 2 >= lo) return win.load((a - 2) & mask);
+    // top-2 lies below the window: its top slot goes back, and the slot
+    // below it, held since it left the window or since the last fill,
+    // comes into the registers; the next one below is loaded for later
+    ring.store(hi_r, win.load((lo + mask) & mask));
+    --lo;
+    lo_r = ring_dec(lo_r, D);
+    hi_r = ring_dec(hi_r, D);
+    moves += 2;
+    const Pool filled = below;
+    below = ring.load(ring_dec(lo_r, D));
+    return filled;
+  }
+  // the registers into the window, the window back to the ring
+  __device__ __forceinline__ void finish(const Pool& p0, const Pool& p1,
+                                         const Pool& p2) {
+    win.store(a & mask, p0);
+    win.store((a - 1) & mask, p1);
+    win.store((a - 2) & mask, p2);
+    int r = lo_r;
+    for (int i = 0; i <= mask; ++i) {
+      ring.store(r, win.load((lo + i) & mask));
+      r = ring_inc(r, D);
+    }
+  }
+  __device__ __forceinline__ const Ring<size_t>& pools() const {
+    return ring;
+  }
+  __device__ __forceinline__ int top_slot() const { return a % D; }
+};
+
 // The stack machine and the reconstruction of one trace.
-template <bool Precise, typename Index>
+template <bool Precise, typename Stack>
 __device__ __forceinline__ void run_trace(const float* __restrict__ yy,
                                           float* __restrict__ c,
                                           float* __restrict__ s, int* redo,
-                                          const Ring<Index>& ring, int b,
+                                          int* moves, Stack& st, int b,
                                           const Params& p) {
   const int T = p.T, D = p.D, K = p.K;
   const size_t stride = (size_t)p.B;
-  auto dec = [D](int i) { return i == 0 ? D - 1 : i - 1; };
-  auto inc = [D](int i) { return i + 1 == D ? 0 : i + 1; };
 
   // the twin's initial ring: v 0, w 1 (classic) or compensation 0, l 1
   const Pool empty{0.0f, Precise ? 0.0f : 1.0f, 1.0f};
@@ -217,17 +351,15 @@ __device__ __forceinline__ void run_trace(const float* __restrict__ yy,
     }
   };
 
-  int top = D - 1;  // the first push lands in slot 0
-  int n = 0;        // pools on the stack (may exceed D: bit 0)
+  int n = 0;  // pools on the stack (may exceed D: bit 0)
   int bits = 0;
 
   auto frame = [&](float y) {
     // push: slot top-2 leaves the registers
-    ring.store(dec(dec(top)), p2);
+    st.push(p2);
     p2 = p1;
     p1 = p0;
     below_from(p1, d0);
-    top = inc(top);
     p0 = {y, Precise ? 0.0f : 1.0f, 1.0f};
     d0 = top_derived(p0);
     ++n;
@@ -252,7 +384,7 @@ __device__ __forceinline__ void run_trace(const float* __restrict__ yy,
         break;
       }
       // merge the top pool into the one below; its slot keeps its values
-      ring.store(top, p0);
+      st.pop(p0);
       Pool m;
       if constexpr (Precise) {
         // compensated mv = v1 + gl*v0
@@ -265,13 +397,12 @@ __device__ __forceinline__ void run_trace(const float* __restrict__ yy,
       } else {
         m = {p1.v + gl * p0.v, p1.x + gl * gl * p0.x, p1.l + p0.l};
       }
-      top = dec(top);
       --n;
       p0 = m;
       d0 = top_derived(p0);
       p1 = p2;
       below_from(p1, top_derived(p1));
-      p2 = ring.load(dec(dec(top)));
+      p2 = st.fill();
     }
   };
 
@@ -287,9 +418,7 @@ __device__ __forceinline__ void run_trace(const float* __restrict__ yy,
       frame(j == 0 ? ya : j == 1 ? yb : j == 2 ? yc : yd);
     }
   }
-  ring.store(top, p0);
-  ring.store(dec(top), p1);
-  ring.store(dec(dec(top)), p2);
+  st.finish(p0, p1, p2);
 
   // pool heights h = max(v/w, 0)
   auto height = [&](const Pool& q) -> float {
@@ -299,20 +428,22 @@ __device__ __forceinline__ void run_trace(const float* __restrict__ yy,
       return fmaxf(q.v / q.x, 0.0f);
     }
   };
+  const auto& ring = st.pools();
+  const int top = st.top_slot();
   const int pools = n < D ? n : D;
   int pos = top - (pools - 1);
   if (pos < 0) pos += D;
   Pool cur = ring.load(pos);
-  Pool next = ring.load(inc(pos));
+  Pool next = ring.load(ring_inc(pos, D));
   float h = height(cur);
   float len = cur.l;
   float k = 0.0f;
   float c_prev = 0.0f;
   for (int t = 0; t < T; ++t) {
     if (k >= len) {
-      pos = inc(pos);
+      pos = ring_inc(pos, D);
       cur = next;
-      next = ring.load(inc(pos));
+      next = ring.load(ring_inc(pos, D));
       h = height(cur);
       len = cur.l;
       k = 0.0f;
@@ -324,75 +455,78 @@ __device__ __forceinline__ void run_trace(const float* __restrict__ yy,
     k += 1.0f;
   }
   redo[b] = bits;
+  if (moves != nullptr) moves[b] = st.moves;
 }
 
-// yy, c, s: (T, B) time-major. Shared: the ring in dynamic shared memory,
-// [field][slot][lane] for the block's blockDim.x lanes; device: `stacks`,
-// a (3, D, B) float32 scratch.
-template <bool Precise, bool Shared>
+// yy, c, s: (T, B) time-major. Each lane's p.W slots in dynamic shared
+// memory, [field][slot][lane] for the block's blockDim.x lanes: the whole
+// ring (p.W == p.D) or, Windowed, the window over the lane's ring in
+// `stacks`, a (3, D, B) float32 scratch.
+template <bool Precise, bool Windowed>
 __global__ void oasis_ar1_kernel(const float* __restrict__ yy,
                                  float* __restrict__ c,
                                  float* __restrict__ s,
                                  int* __restrict__ redo,
+                                 int* __restrict__ moves,
                                  float* __restrict__ stacks, Params p) {
   extern __shared__ float ring_smem[];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.B) return;  // lanes are independent: no block barrier
-  if constexpr (Shared) {
-    const int lanes = blockDim.x;
-    const Ring<int> ring{ring_smem + threadIdx.x, lanes, p.D * lanes};
-    run_trace<Precise>(yy, c, s, redo, ring, b, p);
-  } else {
+  const int lanes = blockDim.x;
+  const Ring<int> shared{ring_smem + threadIdx.x, lanes, p.W * lanes};
+  if constexpr (Windowed) {
     const Ring<size_t> ring{stacks + b, (size_t)p.B,
                             (size_t)p.D * (size_t)p.B};
-    run_trace<Precise>(yy, c, s, redo, ring, b, p);
+    WindowRing st{shared, ring, p.D, p.W - 1};
+    run_trace<Precise>(yy, c, s, redo, moves, st, b, p);
+  } else {
+    WholeRing st{shared, p.D};
+    run_trace<Precise>(yy, c, s, redo, moves, st, b, p);
   }
 }
 
-template <bool Precise, bool Shared>
-int launch(const float* yy, float* c, float* s, int* redo, float* stacks,
-           const Params& p, int lanes, int shared_bytes, void* stream) {
-  if constexpr (Shared) {
-    // above 48 KB only by opt-in; the whole carveout to shared memory so
-    // that as many one-warp blocks fit on an SM as the ring allows
-    cudaError_t err = cudaFuncSetAttribute(
-        oasis_ar1_kernel<Precise, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(
-          oasis_ar1_kernel<Precise, true>,
-          cudaFuncAttributePreferredSharedMemoryCarveout,
-          (int)cudaSharedmemCarveoutMaxShared);
-    }
-    if (err != cudaSuccess) return (int)err;
+template <bool Precise, bool Windowed>
+int launch(const float* yy, float* c, float* s, int* redo, int* moves,
+           float* stacks, const Params& p, int lanes, int shared_bytes,
+           void* stream) {
+  // above 48 KB only by opt-in; the whole carveout to shared memory so
+  // that as many blocks fit on an SM as their slots allow
+  cudaError_t err = cudaFuncSetAttribute(
+      oasis_ar1_kernel<Precise, Windowed>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(oasis_ar1_kernel<Precise, Windowed>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   }
+  if (err != cudaSuccess) return (int)err;
   const int blocks = (p.B + lanes - 1) / lanes;
-  oasis_ar1_kernel<Precise, Shared>
+  oasis_ar1_kernel<Precise, Windowed>
       <<<blocks, lanes, shared_bytes, (cudaStream_t)stream>>>(
-          yy, c, s, redo, stacks, p);
+          yy, c, s, redo, moves, stacks, p);
   return (int)cudaGetLastError();
 }
 
 template <bool Precise>
-int dispatch(const float* yy, float* c, float* s, int* redo, float* stacks,
-             const Params& p, int shared, int lanes, int shared_bytes,
+int dispatch(const float* yy, float* c, float* s, int* redo, int* moves,
+             float* stacks, const Params& p, int lanes, int shared_bytes,
              void* stream) {
-  // the plan of ops/oasis_cuda.py:launch_plan, checked: whole warps; the
-  // shared ring is 3 float32 fields x D slots x lanes; the device ring is
-  // the caller's scratch
-  const long long ring_bytes = 12LL * p.D * lanes;
-  if (lanes <= 0 || lanes % 32 != 0 || lanes > 1024) {
+  // the plan of ops/oasis_cuda.py:launch_plan, checked: whole warps; 3
+  // float32 fields x W slots x lanes of shared memory; W is the whole ring,
+  // or a window (a power of two, 4 <= W < D) over the caller's scratch
+  if (lanes <= 0 || lanes % 32 != 0 || lanes > 1024 ||
+      (long long)shared_bytes != 12LL * p.W * lanes) {
     return (int)cudaErrorInvalidValue;
   }
-  if (shared) {
-    if (shared_bytes != ring_bytes) return (int)cudaErrorInvalidValue;
-    return launch<Precise, true>(yy, c, s, redo, nullptr, p, lanes,
-                                 shared_bytes, stream);
+  if (p.W == p.D) {
+    return launch<Precise, false>(yy, c, s, redo, moves, nullptr, p, lanes,
+                                  shared_bytes, stream);
   }
-  if (stacks == nullptr || shared_bytes != 0) {
+  if (p.W < 4 || p.W >= p.D || (p.W & (p.W - 1)) != 0 || stacks == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch<Precise, false>(yy, c, s, redo, stacks, p, lanes, 0, stream);
+  return launch<Precise, true>(yy, c, s, redo, moves, stacks, p, lanes,
+                               shared_bytes, stream);
 }
 
 // ---- the exact float64 redo of flagged traces ----
@@ -585,34 +719,40 @@ extern "C" int oasis_exact_f64_launch(const float* y, const long long* rows,
   return (int)cudaGetLastError();
 }
 
-// yy, c, s: (T, B) float32, time-major; redo: (B,) int32; stacks: (3, D, B)
-// float32 scratch for the device-memory ring (shared == 0), unused (may be
-// null) for the shared-memory ring (shared == 1, shared_bytes = 12*D*lanes);
-// lanes: traces per block, a multiple of 32. Launch on `stream` and return
-// the CUDA error (0 on success); neither synchronises.
+// yy, c, s: (T, B) float32, time-major; redo: (B,) int32; moves: (B,)
+// int32, each lane's slots moved between its window and its ring (0 for a
+// whole ring), or null; window: the ring slots a lane keeps in shared
+// memory, D for the whole ring (stacks unused, may be null) or a power of
+// two 4 <= window < D over stacks, a (3, D, B) float32 scratch; lanes:
+// traces per block, a multiple of 32; shared_bytes = 12 * window * lanes.
+// Launch on `stream` and return the CUDA error (0 on success); neither
+// synchronises.
 
 // The classic machine.
 extern "C" int oasis_ar1_launch(const float* yy, float* c, float* s,
-                                int* redo, float* stacks, int T, int B,
-                                int D, float g, float log_g, float s_min,
-                                int K, float flag_tol, int shared, int lanes,
-                                int shared_bytes, void* stream) {
-  const Params p{T, B, D, g, log_g, s_min, K, flag_tol, 0.0f, 0.0f, 0.0f};
-  return dispatch<false>(yy, c, s, redo, stacks, p, shared, lanes,
+                                int* redo, int* moves, float* stacks, int T,
+                                int B, int D, float g, float log_g,
+                                float s_min, int K, float flag_tol,
+                                int window, int lanes, int shared_bytes,
+                                void* stream) {
+  const Params p{T, B, D, window, g, log_g, s_min, K, flag_tol,
+                 0.0f, 0.0f, 0.0f};
+  return dispatch<false>(yy, c, s, redo, moves, stacks, p, lanes,
                          shared_bytes, stream);
 }
 
 // The precise machine; lng_hi, lng_lo: 12-bit split of log(g); inv_1mg2:
 // float32(1 / (1 - g^2)).
 extern "C" int oasis_ar1_precise_launch(const float* yy, float* c, float* s,
-                                        int* redo, float* stacks, int T,
-                                        int B, int D, float g, float log_g,
-                                        float s_min, int K, float flag_tol,
-                                        float lng_hi, float lng_lo,
-                                        float inv_1mg2, int shared, int lanes,
+                                        int* redo, int* moves, float* stacks,
+                                        int T, int B, int D, float g,
+                                        float log_g, float s_min, int K,
+                                        float flag_tol, float lng_hi,
+                                        float lng_lo, float inv_1mg2,
+                                        int window, int lanes,
                                         int shared_bytes, void* stream) {
-  const Params p{T, B, D, g, log_g, s_min, K, flag_tol, lng_hi, lng_lo,
-                 inv_1mg2};
-  return dispatch<true>(yy, c, s, redo, stacks, p, shared, lanes,
+  const Params p{T, B, D, window, g, log_g, s_min, K, flag_tol,
+                 lng_hi, lng_lo, inv_1mg2};
+  return dispatch<true>(yy, c, s, redo, moves, stacks, p, lanes,
                         shared_bytes, stream);
 }

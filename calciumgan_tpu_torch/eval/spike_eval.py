@@ -75,7 +75,8 @@ def deconvolve_file(config, filename: str, chunk: int = 0,
     over the call of each ``oasis/<key>`` of
     :data:`~calciumgan_tpu_torch.utils.tracing.totals` that the dispatch
     added to (``kernel``, ``spikes_to_host``, ``redo`` seconds inside
-    ``deconvolve``; the counts ``traces``, ``flagged``, ``bit0``-``bit2``);
+    ``deconvolve``; the counts ``traces``, ``flagged``, ``bit0``-``bit2``,
+    ``window_moves``);
     with ``config.verbose`` they are printed. The totals are process-wide,
     so the change is this file's alone: ``compute_metrics`` and
     ``compute_dg_metrics`` run no other dispatch meanwhile (their figures

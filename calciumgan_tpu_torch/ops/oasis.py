@@ -265,7 +265,9 @@ def deconvolve_signals_host(signals, g: float = 0.95, s_min: float = 0.55,
     (args: the rows; on the card it ends when the redo has) and then
     ``oasis/spikes_to_host``, and counts ``oasis/traces`` dispatched,
     ``oasis/flagged``, and flagged by ``oasis/bit0`` (depth), ``bit1``
-    (merge budget) and ``bit2`` (borderline)
+    (merge budget) and ``bit2`` (borderline), and ``oasis/window_moves``,
+    the ring slots the kernel moved between its windows and its rings over
+    every rung (read with each rung's flags; 0 on the CPU)
     (:mod:`~calciumgan_tpu_torch.utils.tracing`)."""
     if isinstance(signals, np.ndarray):
         signals = torch.from_numpy(np.ascontiguousarray(signals, np.float32))
@@ -309,13 +311,21 @@ def _ladder_spikes(flat: torch.Tensor, ladder, precise: bool,
     host by :func:`_exact_spikes_host`) and the spikes laid out in
     ``like``'s strides; last, one crossing to the host."""
     like = flat if like is None else like
+    moves = torch.empty(flat.shape[0], dtype=torch.int32, device=flat.device)
+    window_moves = 0
     for i, d in enumerate(ladder):
         with tracing.span("oasis/kernel", depth=d):
             _, s, redo = oasis_cuda.oasis_ar1(
                 flat, g=g, lam=0.0, s_min=s_min, depth=d,
                 merge_attempts=_MERGE_BUDGET, precise=precise,
-                flag_tol=_flag_tol(s_min, threshold, precise))
-            flags = redo.reshape(-1).cpu().numpy()  # waits for the kernel
+                flag_tol=_flag_tol(s_min, threshold, precise), moves=moves)
+            # the flags and the moves' int64 sum (as two int32 words) in
+            # one readout, which waits for the kernel
+            total = moves.sum(dtype=torch.int64).reshape(1)
+            readout = torch.cat((redo.reshape(-1), total.view(torch.int32)))
+            readout = readout.cpu().numpy()
+        flags = readout[:-2]
+        window_moves += int(readout[-2:].view(np.int64)[0])
         # escalate only on DEPTH flags (bit 0): a deeper stack cannot help
         # an exhausted merge budget (bit 1) or a borderline decision (bit 2)
         depth_frac = float(((flags & 1) != 0).mean()) if flags.size else 0.0
@@ -324,7 +334,7 @@ def _ladder_spikes(flat: torch.Tensor, ladder, precise: bool,
     tracing.count("oasis", traces=flags.size,
                   flagged=int((flags != 0).sum()),
                   **{f"bit{b}": int(((flags >> b) & 1).sum())
-                     for b in range(3)})
+                     for b in range(3)}, window_moves=window_moves)
     spikes = (s > threshold).to(torch.int8)
     idx = np.nonzero(flags)[0]
     if idx.size:

@@ -14,13 +14,24 @@ merge_attempts, flag_tol, precise) -> (c, s, redo)`` and redo bitmask (see
 :mod:`.oasis_torch`, their plain PyTorch twin, for the contract). The
 wrapper keeps the TPU kernel's time-major ``(T, B)`` layout so that each
 timestep's load across a warp is coalesced, applies the ``lam`` shift, and
-allocates the outputs and, for the device-memory ring, the ``(3, D, B)``
-stack scratch; the kernel allocates nothing and does not synchronise.
+allocates the outputs and, for a windowed ring, the ``(3, D, B)`` stack
+scratch; the kernel allocates nothing and does not synchronise.
 
 Where each trace's ring of ``D`` pool slots lives is a pure function of
-``(D, precise)``, :func:`launch_plan`: in shared memory, one warp of traces
-per block, wherever that fits (``D <= 605``: every rung of the short ladder
-and the long ladder's first rung at 20,000 frames), else in device memory.
+the launch's ring depth, machine and traces and of the card's SM count,
+:func:`launch_plan`, one warp of traces per block either way: the whole
+ring in shared memory wherever it is no deeper than ``WINDOW`` slots (the
+short ladder's first rung, D 64), or fits and every block of the launch is
+resident at once (a whole 102 x 20,000 recording at D 512); else
+a ``(3, D, B)`` device-memory scratch behind a window of its top
+``WINDOW`` stack positions in shared memory (the served batches' deeper
+rungs, every rung past 605 slots). A whole ring of D 384 takes 147,456 B
+a warp, so one warp an SM: 16,320 traces of 16,384 frames ran in four
+waves; the window takes the same bytes whatever D is, so they run in one,
+at a slower frame (a fill or write-back from the device ring) than a
+whole ring's where both take one wave. The window slides only when a
+stack leaves it, and the kernel counts, for each trace, the slots it
+moved between the window and the ring (``moves``).
 There is no switch; a refused launch raises.
 
 :func:`oasis_exact_f64` replaces no TPU kernel: it is the exact float64
@@ -35,8 +46,8 @@ tensor launches the kernel or raises. ``launches`` counts kernel launches
 by machine, trace length and ring storage, whichever entry made them:
 ``oasis_ar1`` and ``oasis_ar1_precise`` for traces of up to
 ``PALLAS_MAX_T`` frames, ``oasis_ar1_long`` and ``oasis_ar1_long_precise``
-for longer ones, each with ``/shared`` or ``/device`` (e.g.
-``oasis_ar1_long_precise/shared``), and ``oasis_exact_f64/device`` for the
+for longer ones, each with ``/shared`` or ``/window`` (e.g.
+``oasis_ar1_long_precise/window``), and ``oasis_exact_f64/device`` for the
 float64 redo (one a chunk of rows).
 """
 
@@ -59,11 +70,21 @@ launches: collections.Counter = collections.Counter()
 # beyond it the JAX package runs the long kernel
 PALLAS_MAX_T = 4096
 
-# dynamic shared memory one block may opt into on Hopper (sm_90)
+# dynamic shared memory one block may opt into on Hopper (sm_90), an SM's
+# shared memory, and what the runtime reserves of it for each block
 SHARED_BYTES_MAX = 232_448
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1_024
 WARP = 32
-# traces per block of the device-memory ring
-_DEVICE_LANES = 128
+# ring slots a trace keeps in shared memory behind a window over a deeper
+# ring (a power of two), and the deepest ring taken whole whatever the
+# launch's size. Measured on an H100 on the benchmark's served models
+# (PERF.md §6): 32, 64 and 128 slots and 32, 64 and 128 lanes a block run
+# 16,320 traces of 16,384 frames in the same time; 64 slots move 1.0% of
+# the frames' slots (32: 1.1%) and leave 9 one-warp blocks an SM, so
+# 104,448 traces of 2048 frames at D 160 or 256 take 9.1 ms (128 slots:
+# 15.7; 128 lanes: 10.9)
+WINDOW = 64
 # the float32 fields of a ring slot, by machine (precise: the bfloat16-
 # rounded compensation of v is kept widened to float32)
 _RING_FIELDS = {False: ("v", "w", "l"), True: ("v", "ve", "l")}
@@ -71,26 +92,44 @@ _RING_FIELDS = {False: ("v", "w", "l"), True: ("v", "ve", "l")}
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    storage: str       # "shared" or "device": where the rings live
+    storage: str       # "shared" (the whole ring) or "window"
     lanes: int         # traces (threads) per block, a multiple of 32
+    window: int        # ring slots a trace keeps in shared memory
     shared_bytes: int  # dynamic shared memory per block
 
 
-def launch_plan(D: int, precise: bool) -> LaunchPlan:
-    """Where a launch with ``D``-slot rings keeps them: in shared memory,
-    laid out ``[field][slot][lane]`` for one warp of traces per block,
-    wherever that fits in ``SHARED_BYTES_MAX``; else in a ``(3, D, B)``
-    device-memory scratch, ``_DEVICE_LANES`` traces per block."""
-    ring_bytes = 4 * len(_RING_FIELDS[precise]) * D * WARP
-    if ring_bytes <= SHARED_BYTES_MAX:
-        return LaunchPlan("shared", WARP, ring_bytes)
-    return LaunchPlan("device", _DEVICE_LANES, 0)
+def launch_plan(D: int, precise: bool, B: int, sms: int) -> LaunchPlan:
+    """Where a launch of ``B`` traces with ``D``-slot rings on a card of
+    ``sms`` SMs keeps them, laid out ``[field][slot][lane]`` in shared
+    memory for one warp of traces per block.
+
+    The whole ring, wherever it fits in a block and the launch's
+    ``ceil(B / 32)`` blocks are all resident at once (every ring of up to
+    ``WINDOW`` slots, whatever ``B``): a frame then reads shared memory
+    alone. Else a ``(3, D, B)`` device-memory scratch
+    (:func:`ring_scratch`) behind a window of ``WINDOW`` stack positions:
+    24,576 B a block whatever D is, nine blocks an SM. A whole ring of D
+    384 takes 147,456 B a block, so one block an SM: 16,320 traces take
+    four waves of it and one of windows, while 102 traces take one wave
+    either way, at a whole ring's faster frame."""
+    slot_bytes = 4 * len(_RING_FIELDS[precise])
+    whole = slot_bytes * D * WARP
+    resident = sms * (SM_SHARED_BYTES // (whole + BLOCK_RESERVED_BYTES))
+    if D <= WINDOW or (whole <= SHARED_BYTES_MAX
+                       and -(-B // WARP) <= resident):
+        return LaunchPlan("shared", WARP, D, whole)
+    return LaunchPlan("window", WARP, WINDOW, slot_bytes * WINDOW * WARP)
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device``'s card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ring_scratch(plan: LaunchPlan, D: int, B: int, device) -> torch.Tensor:
-    """The device-memory rings of ``plan``: ``(3, D, B)`` float32 for the
-    device storage, an empty tensor for the shared one (the kernel keeps
-    its rings in shared memory and takes no scratch)."""
+    """The device-memory rings of ``plan``: ``(3, D, B)`` float32 behind a
+    window, an empty tensor for a whole ring (the kernel keeps it in shared
+    memory and takes no scratch)."""
     if plan.storage == "shared":
         return torch.empty((0,), dtype=torch.float32, device=device)
     return torch.empty((3, D, B), dtype=torch.float32, device=device)
@@ -105,7 +144,7 @@ _EXACT_SCRATCH_BYTES = 1 << 30
 # g^l tables by (g, T, device): filled on the host by cg_pow_table
 _pow_tables: dict = {}
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
              + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_float])
 _PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _CLASSIC_ARGTYPES = _ARGTYPES + _PLAN_ARGTYPES
@@ -130,15 +169,20 @@ def library() -> build.Built:
 def oasis_ar1(signals: torch.Tensor, g: float = 0.95, lam: float = 0.0,
               s_min: float = 0.0, depth: int | None = None,
               merge_attempts: int = 4, flag_tol: float = 0.0,
-              precise: bool = False):
+              precise: bool = False, moves: torch.Tensor | None = None):
     """OASIS AR(1) with the redo bitmask, on ``signals``' device: the CUDA
     kernel for a CUDA tensor, the plain PyTorch version for a CPU one.
-    ``depth=None`` is ``min(T, 128)`` rows, as ``oasis_ar1_pallas``'s."""
+    ``depth=None`` is ``min(T, 128)`` rows, as ``oasis_ar1_pallas``'s.
+    ``moves``, an int32 tensor of the batch's shape on the same device,
+    takes each trace's ring slots moved between its window and its ring:
+    0 for a whole ring, and on the CPU, whose plain version has none."""
     args = (g, lam, s_min, depth, merge_attempts, flag_tol, precise)
     if signals.device.type == "cpu":
+        if moves is not None:
+            moves.zero_()
         return oasis_torch.oasis_ar1_torch(signals, *args)
     if signals.device.type == "cuda":
-        return oasis_ar1_cuda(signals, *args)
+        return oasis_ar1_cuda(signals, *args, moves=moves)
     raise ValueError(f"no OASIS kernel for device {signals.device}")
 
 
@@ -167,9 +211,10 @@ def oasis_ar1_long(signals: torch.Tensor, g: float = 0.95, lam: float = 0.0,
 def oasis_ar1_cuda(signals: torch.Tensor, g: float = 0.95, lam: float = 0.0,
                    s_min: float = 0.0, depth: int | None = None,
                    merge_attempts: int = 4, flag_tol: float = 0.0,
-                   precise: bool = False):
+                   precise: bool = False, moves: torch.Tensor | None = None):
     """Launch the kernel on ``(..., T)`` contiguous float32 CUDA traces,
-    with the classic or the ``precise`` machine."""
+    with the classic or the ``precise`` machine; ``moves`` as
+    :func:`oasis_ar1` takes it."""
     if not signals.is_cuda:
         raise ValueError(f"signals must be a CUDA tensor, got "
                          f"{signals.device}")
@@ -184,6 +229,11 @@ def oasis_ar1_cuda(signals: torch.Tensor, g: float = 0.95, lam: float = 0.0,
         raise ValueError(f"merge_attempts must be >= 0, got "
                          f"{merge_attempts}")
     batch_shape, T = signals.shape[:-1], signals.shape[-1]
+    if moves is not None and (
+            moves.dtype != torch.int32 or moves.shape != batch_shape
+            or moves.device != signals.device or not moves.is_contiguous()):
+        raise ValueError(f"moves must be contiguous int32 of shape "
+                         f"{tuple(batch_shape)} on {signals.device}")
     y = signals.reshape(-1, T)
     B = y.shape[0]
     D = oasis_torch.stack_depth(T, depth)
@@ -196,10 +246,11 @@ def oasis_ar1_cuda(signals: torch.Tensor, g: float = 0.95, lam: float = 0.0,
     redo = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         yy = oasis_torch.shifted_input(y, g, lam).t().contiguous()
-        plan = launch_plan(D, precise)
+        plan = launch_plan(D, precise, B, sm_count(dev))
         stacks = ring_scratch(plan, D, B, dev)
         f32 = lambda x: float(np.float32(x))  # noqa: E731
         args = [yy.data_ptr(), c.data_ptr(), s.data_ptr(), redo.data_ptr(),
+                None if moves is None else moves.data_ptr(),
                 stacks.data_ptr(), T, B, D, f32(g), f32(math.log(g)),
                 f32(s_min), merge_attempts, f32(flag_tol)]
         lib = library().lib
@@ -208,7 +259,7 @@ def oasis_ar1_cuda(signals: torch.Tensor, g: float = 0.95, lam: float = 0.0,
             args += oasis_torch.precise_constants(g)
         else:
             fn = lib.oasis_ar1_launch
-        args += [int(plan.storage == "shared"), plan.lanes, plan.shared_bytes]
+        args += [plan.window, plan.lanes, plan.shared_bytes]
         with torch.cuda.device(dev):  # launches go to the current device
             err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         name = (("oasis_ar1_long" if T > PALLAS_MAX_T else "oasis_ar1")

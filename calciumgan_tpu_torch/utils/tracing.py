@@ -18,10 +18,11 @@ The spans, by layer:
   OASIS dispatch's ``oasis/kernel`` (one a rung, args: the depth),
   ``oasis/redo`` (args: the rows; on the card it ends when the redo has)
   and then ``oasis/spikes_to_host``, with the counts ``oasis/traces``,
-  ``oasis/flagged`` and ``oasis/bit0``-``bit2``; the crossings to the
-  host (:mod:`~calciumgan_tpu_torch.utils.crossing`) count ``to_host/
-  bytes`` and ``to_host/pinned_bytes`` (those by DMA into page-locked
-  memory) wherever they run;
+  ``oasis/flagged``, ``oasis/bit0``-``bit2`` and ``oasis/window_moves``
+  (ring slots moved between the kernel's windows and its rings); the
+  crossings to the host (:mod:`~calciumgan_tpu_torch.utils.crossing`)
+  count ``to_host/bytes`` and ``to_host/pinned_bytes`` (those by DMA into
+  page-locked memory) wherever they run;
 - the train step (``WGAN_GP.train_step``): ``step`` (args: the generator's
   update count) over ``step/critic`` (one a critic iteration, the
   update left out), ``step/penalty`` inside it, ``step/generator``,

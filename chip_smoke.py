@@ -16,9 +16,10 @@ Builds the port's CUDA kernel from ``calciumgan_tpu_torch/csrc`` with
 ``nvcc`` and runs sixteen phases, printing one line of findings per phase.
 Every comparison of the kernel with its plain PyTorch version is bit for
 bit: ``c``, ``s`` and the redo bits equal on every lane, flagged and
-overflowed lanes included. Each launch's ring storage (shared or device
-memory, ``oasis_cuda.launch_plan``) is in its launch counter's key, and
-every (machine, storage) pair the plan can choose is compared. The plain
+overflowed lanes included. Each launch's ring storage (the whole ring in
+shared memory, or a window there over a device-memory ring,
+``oasis_cuda.launch_plan``) is in its launch counter's key, and every
+(machine, storage) pair the plan can choose is compared. The plain
 version's time is set by frames and launches, not rows, so the classic
 kernel's launches at the production arguments (phase 2's rungs and every
 path's sampled or evaluated traces) are held to it in one plain call a
@@ -29,8 +30,9 @@ run (``flush_twins``):
    and the build of the float64 C++ redo of flagged traces;
 2. kernel: the OASIS AR(1) CUDA kernel against its plain PyTorch version on
    the card, on seeded spiky traces at sl2048 with the production arguments
-   at every rung of the depth ladder (64, 160, 256: shared-memory rings)
-   and at depth 1024 (device-memory rings) (on the twins line), and on the
+   at every rung of the depth ladder (64, 160, 256: whole rings in shared
+   memory, one wave of 4096 traces) and at depth 1024 (windowed rings; on
+   the twins line), and on the
    redo-bit edge cases, plus the dispatch's spikes against the C++ float64
    kernel (all 4096 traces) and the numpy float64 golden (the first 1024);
    run beside phase 5's spawned comparisons, as are phase 3's checks;
@@ -48,10 +50,10 @@ run (``flush_twins``):
    benchmark's, ``python3 -m h100bench.run``);
 5. recordings: 2048 seeded synthetic recordings of 20,000 frames on the
    card. The long kernel (precise machine, production arguments, depth 512:
-   shared-memory rings) and the short kernel's precise mode against their
-   plain versions, the long kernel at depths 1024 and 2048 (device-memory
-   rings) on 256 traces of 8192 frames, with the redo-bit and precise-band
-   edge cases; the precise mode's public entry
+   whole rings, one wave) and the short kernel's precise mode (whole rings)
+   against their plain versions, the long kernel at depths 1024 and 2048
+   on 256 traces of 8192 frames (windowed rings), with the redo-bit and
+   precise-band edge cases; the precise mode's public entry
    with its own launch count (no production path runs that mode); the
    dispatch's long route against
    the float64 golden (256 rows) and the C++ float64 kernel (all rows)
@@ -72,9 +74,9 @@ run (``flush_twins``):
    resumed to 3: the epochs, ``global_step``, checkpoints, finite losses,
    the dataset on the card, the validation cache and the three epoch files
    (128 rows each) with the seconds saving adds to a validation pass, the
-   sampling epochs' OASIS launches (``oasis_ar1/shared`` only, no plain
-   calls) and their spikes against the float64 golden, the
-   newest checkpoint served through ``generate.generate``; one full-width
+   sampling epochs' OASIS launches (the short ladder's alone, no plain
+   calls) and their spikes against the float64 golden, the newest
+   checkpoint served through ``generate.generate``; one full-width
    WGAN-GP step (batch 8, n_critic 2) on the card against the CPU from one
    state and the same draws, in float32 and bfloat16; the step's time at
    batch 128 by CUDA events (critic and generator steps), its FLOPs by
@@ -102,7 +104,7 @@ run (``flush_twins``):
    calciumgan_tpu_torch.compute_metrics --device cuda`` in-process: finite
    KLs in ``metrics.json``, the epoch file's spikes against the float64
    golden (1024 traces) and the C++ float64 kernel (all 102,000), the OASIS
-   launches of that run (``oasis_ar1/shared`` only, no plain calls), the
+   launches of that run (the short ladder's alone, no plain calls), the
    statistics on the card against the CPU on 32 trials, the seconds per
    epoch file by stage and statistic, Victor-Purpura on 16 trials, and
    ``compute_metrics --all_epochs`` on phase 6's own run. Every KL printed
@@ -127,7 +129,7 @@ run (``flush_twins``):
    raw generator and is what the epoch file holds and ``generate`` serves;
    batches come from the host; the sampling epochs' spikes against the
    float64 golden), ``compute_dg_metrics --device cuda`` (finite MAE, RMSE
-   and MAPE, ``oasis_ar1/shared`` launches only; the epoch file's spikes
+   and MAPE, the short ladder's launches only; the epoch file's spikes
    against the float64 golden on 128 traces and the C++ float64 kernel on
    all 6,400; the statistics on the card against the CPU; the whole CLI
    against ``--device cpu`` on a copy of the run's first 5 trials without
@@ -150,7 +152,7 @@ run (``flush_twins``):
    the run done and trains nothing), ``compute_metrics --device cuda`` on
    the run and ``generate --spikes`` from its newest checkpoint: finite
    losses and KLs, the epoch file's shape (64, 2048, 102),
-   ``oasis_ar1/shared`` launches only, the kernel equal to its plain
+   the short ladder's launches only, the kernel equal to its plain
    version at each (shape, depth) those launches ran, the sampled,
    epoch-file and served spikes against the float64 references; one
    full-width 2-D WGAN-GP step (256 frames, batch 2, n_critic 1) on the
@@ -167,7 +169,8 @@ run (``flush_twins``):
    on the card against the CPU (losses, gradients, running statistics);
 12. the in-graph API: ``ops.oasis.deconvolve_signals`` on phase 4's
    generated traces (104,448 x 2048) on the card, with its launches (one
-   ``oasis_ar1/shared``, no plain call), flagged rows and host-to-host
+   of the classic kernel at depth 128, no plain call), flagged rows and
+   host-to-host
    seconds, its spikes equal to the kernel's where no redo bit rose and to
    ``oasis_ar1_while``'s where one did (and counted against the host
    dispatch, which recomputes borderline rows in float64); the kernel at
@@ -221,7 +224,7 @@ run (``flush_twins``):
    output columns, its input taking gradients), the whole state equal bit
    for bit on both ranks,
    one writer, a checkpoint of whole tensors that ``generate.generate``
-   serves, ``oasis_ar1/shared`` in rank 0's sampling epochs only, held to
+   serves, the short ladder in rank 0's sampling epochs only, held to
    its plain version on the last sampled traces, their spikes against the
    float64 golden; (b) ``main --time_parallelism 2 --save_generated
    last`` on 32 + 16 seeded windows of 102 x 16,384 frames at batch 16:
@@ -229,8 +232,8 @@ run (``flush_twins``):
    (float32 losses and gradients; again with cuDNN's deterministic
    algorithms on both sides), 2 epochs at m 10 whose epoch file holds
    whole 16,384-frame rows, ``oasis_ar1_long_precise`` in rank 0's
-   sampling epochs (depth 384 with shared-memory rings, deeper rungs with
-   device-memory rings where a batch climbs), timed and held to its plain
+   sampling epochs (depth 384 with whole rings, deeper rungs where a
+   batch climbs with windowed ones), timed and held to its plain
    version at every rung the dispatch climbs on the last 102 x 16,384
    sampled traces, their spikes against the golden with its seconds a
    trace (the comparisons in
@@ -254,8 +257,8 @@ run (``flush_twins``):
    ``metrics.json``, the long kernel's launches by rung and ring storage,
    the seconds by stage and statistic,
    the flag share per bit and peak memory; the long kernel on the whole
-   chunk at every rung of the 16,384-frame ladder (384 shared, 768 and
-   1536 device), timed, its flags asking for exactly the rungs climbed,
+   chunk at every rung of the 16,384-frame ladder (384, 768 and 1536,
+   windowed), timed, its flags asking for exactly the rungs climbed,
    256 rows of each launch held to the plain version bit for bit in
    spawned processes (which run beside phases 14 and 15 (a) in the whole
    script); every spike of the file against the C++ float64 kernel, 256
@@ -288,6 +291,7 @@ from __future__ import annotations
 import collections
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -308,8 +312,8 @@ NUMPY_GOLDEN_TRACES = 1024
 REC_TRACES, REC_T = 2048, 20000
 REC_GOLDEN_TRACES = 256     # of them checked against the numpy golden
 REC_GOLDEN_WORKERS = 2      # spawned processes that golden is split over
-DEVICE_RING_TRACES = 256    # traces for the device-memory ring comparisons
-DEVICE_RING_T = 8192        # frames of the long kernel's device-ring cases
+WINDOW_TRACES = 256         # traces for the windowed-ring comparisons
+WINDOW_T = 8192             # frames of the long kernel's windowed cases
 CLI_FILES, CLI_NEURONS = 4, 102
 CLI_GOLDEN_ROWS = 32        # per file, against the numpy golden
 GEN_F32_TOL = 1e-4          # generator on the card vs the CPU, float32
@@ -675,9 +679,52 @@ def kernels_of(counts) -> set:
     return set(counts) - {EXACT_REDO}
 
 
+def storage(D: int, precise: bool, traces: int) -> str:
+    """The ring storage of a launch of ``traces`` traces with ``D``-slot
+    rings on this card: the plan's (``oasis_cuda.launch_plan``)."""
+    from calciumgan_tpu_torch.ops import oasis_cuda
+    return oasis_cuda.launch_plan(D, precise, traces,
+                                  oasis_cuda.sm_count("cuda")).storage
+
+
+def classic_key(depth: int, traces: int, frames: int = 2048) -> str:
+    """The launch counter's key of the classic kernel at ``depth`` on
+    ``traces`` traces of ``frames`` (up to ``PALLAS_MAX_T``)."""
+    from calciumgan_tpu_torch.ops import oasis_torch
+    D = oasis_torch.stack_depth(frames, depth)
+    return f"oasis_ar1/{storage(D, False, traces)}"
+
+
+def long_key(depth: int, traces: int) -> str:
+    """The launch counter's key of the long kernel (precise machine) at
+    ``depth`` on ``traces`` traces."""
+    return f"oasis_ar1_long_precise/{storage(depth, True, traces)}"
+
+
+def ladder_keys(machine: str, frames: int, traces: int) -> list:
+    """The launch counter's key of each rung of the dispatch's ladder on
+    ``traces`` traces of ``frames`` frames, in order: ``machine`` is the
+    classic kernel's (``oasis_ar1``, the short ladder) or the long one's
+    (``oasis_ar1_long_precise``, the long ladder)."""
+    from calciumgan_tpu_torch.ops import oasis as dispatch
+    from calciumgan_tpu_torch.ops import oasis_torch
+    long = machine != "oasis_ar1"
+    ladder = dispatch._long_ladder(frames) if long else dispatch._DEPTH_LADDER
+    return [f"{machine}/" + storage(oasis_torch.stack_depth(frames, d), long,
+                                    traces) for d in ladder]
+
+
+def short_ladder_only(counts) -> bool:
+    """The float32 launches of ``counts`` are the short ladder's alone (on
+    traces of up to ``PALLAS_MAX_T`` frames): its first rung, a whole ring,
+    at least once, and a deeper rung wherever a batch climbed."""
+    keys = {"oasis_ar1/shared", "oasis_ar1/window"}
+    return "oasis_ar1/shared" in counts and kernels_of(counts) <= keys
+
+
 def path_launches(prefix: str, counts) -> dict:
     """A ``kernels`` entry's launches on its path: their count, by ring
-    storage (``{"shared": n, "device": m}``) and the storages taken."""
+    storage (``{"shared": n, "window": m}``) and the storages taken."""
     by_storage = {key.split("/")[1]: n for key, n in counts.items()
                   if key.split("/")[0] == prefix}
     return dict(launches=launched(prefix, counts),
@@ -711,13 +758,14 @@ def phase_kernel():
     host = golden.synth_ar1_traces(rng, KERNEL_TRACES, T)
     y = torch.from_numpy(host).to(dev)
     prod = production(dispatch._DEPTH_LADDER[0])
-    # every rung of the ladder, and a depth whose ring is in device memory,
-    # held to the plain version in the twins line (flush_twins)
-    rungs = {d: defer_to_twin(y, production(d), "oasis_ar1/shared",
+    # every rung of the ladder (whole rings, one wave of these traces), and
+    # a deeper window, held to the plain version in the twins line
+    # (flush_twins)
+    rungs = {d: defer_to_twin(y, production(d), classic_key(d, len(y)),
                               f"phase 2, classic, depth {d}")
              for d in dispatch._DEPTH_LADDER}
-    rungs[1024] = defer_to_twin(y[:DEVICE_RING_TRACES], production(1024),
-                                "oasis_ar1/device",
+    rungs[1024] = defer_to_twin(y[:WINDOW_TRACES], production(1024),
+                                classic_key(1024, WINDOW_TRACES),
                                 "phase 2, classic, depth 1024")
 
     # redo-bit edge cases (tests/test_oasis_pallas.py:53-104)
@@ -823,7 +871,7 @@ def _slice_checks(config, payloads, launches, calls, seconds, ref_errs):
           f"signals outside [{config.signals_min}, {config.signals_max}]")
     check(set(np.unique(spikes).tolist()) <= {0, 1}, "spikes not in {0,1}")
     check(launches.get("oasis_ar1/shared", 0) > 0,
-          f"the shared-memory OASIS kernel was not launched: {launches}")
+          f"the whole-ring OASIS kernel was not launched: {launches}")
     check(calls == 0, f"the plain OASIS version ran {calls} times")
 
     traces = np.ascontiguousarray(np.transpose(signals, (0, 2, 1))).reshape(
@@ -972,7 +1020,7 @@ def phase_recordings(smi, beside=()):
 
     # 1. the long kernel's times, production arguments
     long_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(y, **prod), reps=3)
-    device_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(
+    deep_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_long(
         y, **dict(prod, depth=ladder[1])), reps=1)
 
     # 2. the short kernel's precise mode at sl2048 against its plain
@@ -1033,8 +1081,8 @@ def phase_recordings(smi, beside=()):
         cli_s = time.perf_counter() - start
         cli_launches = dict(oasis_cuda.launches)
         cli_calls = oasis_torch.calls
-        check(cli_launches.get("oasis_ar1_long_precise/shared", 0) > 0,
-              f"the shared-memory long kernel was not launched: "
+        check(cli_launches.get(long_key(ladder[0], CLI_NEURONS), 0) > 0,
+              f"the long kernel's first rung was not launched: "
               f"{cli_launches}")
         check(cli_calls == 0, f"the plain OASIS version ran {cli_calls} times")
         one = torch.from_numpy(recordings[0]).to(dev)  # one recording
@@ -1043,24 +1091,25 @@ def phase_recordings(smi, beside=()):
         torch.cuda.synchronize()
 
         # 5. nothing is timed from here on. Spawned: the long kernel against
-        # its plain version at depth 512 (shared rings) and at the ladder's
-        # deeper rungs (device rings) on 256 x 8192, one process each, and
-        # the numpy golden of the dispatch's and the CLI's rows
+        # its plain version at depth 512 and at the ladder's deeper rungs on
+        # 256 x 8192 (windowed rings, all), one process each, and the numpy
+        # golden of the dispatch's and the CLI's rows
         pick = np.sort(np.random.default_rng(SEED).choice(
             REC_TRACES, REC_GOLDEN_TRACES, replace=False))
         cli_rows = [np.sort(np.random.default_rng(SEED + i).choice(
             CLI_NEURONS, CLI_GOLDEN_ROWS, replace=False))
             for i in range(CLI_FILES)]
         deep = golden.synth_ar1_traces(np.random.default_rng(SEED + 7),
-                                       DEVICE_RING_TRACES, DEVICE_RING_T)
+                                       WINDOW_TRACES, WINDOW_T)
         pool = _spawned_pool(len(ladder) + REC_GOLDEN_WORKERS + 1)
         try:
             held = pool.submit(_long_twins, prod, [(
                 "long kernel, depth 512", host, None,
-                "oasis_ar1_long_precise/shared")])
+                long_key(ladder[0], len(host)))])
             held_rungs = {d: pool.submit(_long_twins, dict(prod, depth=d), [(
                 f"long kernel, depth {d}", deep, None,
-                "oasis_ar1_long_precise/device")]) for d in ladder[1:]}
+                long_key(d, len(deep)))])
+                for d in ladder[1:]}
             golden_parts = [pool.submit(golden_spikes, part) for part in
                             np.array_split(host[pick], REC_GOLDEN_WORKERS)]
             cli_golden_ref = pool.submit(golden_spikes, np.concatenate(
@@ -1142,7 +1191,7 @@ def phase_recordings(smi, beside=()):
             check(cli_golden == 0,
                   f"CLI: {cli_golden} mismatches vs oasis_ref")
             long_main = held.result()[0]
-            device_rungs = {d: f.result()[0] for d, f in held_rungs.items()}
+            window_rungs = {d: f.result()[0] for d, f in held_rungs.items()}
             waited_s = time.perf_counter() - waited
         finally:
             pool.shutdown(cancel_futures=True)
@@ -1154,10 +1203,10 @@ def phase_recordings(smi, beside=()):
            long_kernel_traces_per_s=REC_TRACES / long_ms * 1e3,
            long_plain_ms=long_main["plain_ms"],
            long_plain_traces_per_s=REC_TRACES / long_main["plain_ms"] * 1e3,
-           device_rings={d: dict(strip(f), shape=[DEVICE_RING_TRACES,
-                                                   DEVICE_RING_T])
-                         for d, f in device_rungs.items()},
-           long_kernel_ms_depth_1024_device=device_ms,
+           deep_rings={d: dict(strip(f), shape=[WINDOW_TRACES,
+                                                 WINDOW_T])
+                       for d, f in window_rungs.items()},
+           long_kernel_ms_depth_1024=deep_ms,
            edge_bits={"bit0": bit0["redo"][0], "bit1": bit1["redo"][0],
                       "bit2": band["bit2"]["redo"][0],
                       "resolved": band["resolved"]["redo"][0]},
@@ -1179,7 +1228,7 @@ def phase_recordings(smi, beside=()):
                     mismatches_vs_golden=cli_golden),
            waited_for_the_spawned_s=waited_s)
     err = max(f["max_abs_err"] for f in (
-        long_main, bit0, bit1, band["bit2"], *device_rungs.values()))
+        long_main, bit0, bit1, band["bit2"], *window_rungs.values()))
     precise_err = max(precise_main["max_abs_err"],
                       band["resolved"]["max_abs_err"])
     return dict(
@@ -1199,7 +1248,7 @@ def phase_recordings(smi, beside=()):
                   ms_per_recording=cli_kernel_ms,
                   bound_ms_per_recording=bound(CLI_NEURONS, REC_T,
                                                True)["bound_ms"],
-                  device_ring_ms=device_ms))
+                  deep_ring_ms=deep_ms))
 
 
 class FixedDraws:
@@ -1669,7 +1718,7 @@ def phase_training(smi, work):
     check(all(isinstance(s, DeviceStore) and s.signals.is_cuda
               for pair in sources for s in pair),
           f"dataset not on the card: {sources}")
-    check(kernels_of(launches) == {"oasis_ar1/shared"}
+    check(short_ladder_only(launches)
           and launches["oasis_ar1/shared"] >= 3 and calls == 0,
           f"sampling epochs launched {launches}, plain calls {calls}")
     samples = spy.calls["sample_and_plot"]
@@ -2099,14 +2148,13 @@ def phase_evaluation(smi, work, train_run):
         check(saved["best_epoch"][key] == epoch, f"best_epoch {saved}")
     check(main_run["config"].num_samples == N,
           f"num_samples {main_run['config'].num_samples}")
-    # every rung of the short ladder keeps its ring in shared memory, so
-    # no launch of this path takes the device ring
-    check(kernels_of(launches) == {"oasis_ar1/shared"}
+    # the short ladder's rungs alone
+    check(short_ladder_only(launches)
           and main_run["plain_calls"] == 0,
           f"compute_metrics launched {launches}, plain calls "
           f"{main_run['plain_calls']}")
     chunks = -(-N // (spike_eval._CHUNK_TRACES_CUDA // C))
-    per_file = launches.get("oasis_ar1/shared", 0)
+    per_file = launched("oasis_ar1", launches)
     check(chunks <= per_file <= 3 * chunks,  # one to three rungs a chunk
           f"{launches} launches for {chunks} chunks")
 
@@ -2181,7 +2229,7 @@ def phase_evaluation(smi, work, train_run):
     check(sorted(chain["results"]) == [0, 1, 2]
           and chain["config"].num_samples == VAL_ROWS
           and chain["plain_calls"] == 0
-          and kernels_of(chain["launches"]) == {"oasis_ar1/shared"},
+          and short_ladder_only(chain["launches"]),
           f"chain: epochs {sorted(chain['results'])}, {chain['launches']}")
     for e, r in chain["results"].items():
         check(np.isfinite(r["firing_rate_kl"]),
@@ -2502,7 +2550,9 @@ def hold_to_twin(traces, rungs: int, what: str) -> dict:
     y = torch.from_numpy(np.ascontiguousarray(traces, np.float32)).cuda()
     ladder = tuple(dict.fromkeys(min(y.shape[-1], d)
                                  for d in dispatch._DEPTH_LADDER))
-    found = {depth: defer_to_twin(y, production(depth), "oasis_ar1/shared",
+    found = {depth: defer_to_twin(y, production(depth),
+                                  classic_key(depth, y.shape[0],
+                                              y.shape[-1]),
                                   f"{what}, depth {depth}")
              for depth in ladder[:rungs]}
     check(len(found) == rungs, f"{what}: {rungs} launches on a ladder of "
@@ -2641,7 +2691,7 @@ def phase_dg(smi, work, recording):
     train_s = time.perf_counter() - start
     train_launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
     dg_epoch_s = [c["s"] for c in spy.calls["train_epoch"]]
-    check(kernels_of(train_launches) == {"oasis_ar1/shared"}
+    check(short_ladder_only(train_launches)
           and train_launches["oasis_ar1/shared"] >= 2 and calls == 0,
           f"DG sampling epochs launched {train_launches}, plain calls "
           f"{calls}")
@@ -2711,7 +2761,7 @@ def phase_dg(smi, work, recording):
     results, metrics_cfg, stages, metrics_s = dg_metrics("cuda")
     metrics_launches = dict(oasis_cuda.launches)
     metrics_calls = oasis_torch.calls
-    check(kernels_of(metrics_launches) == {"oasis_ar1/shared"}
+    check(short_ladder_only(metrics_launches)
           and metrics_calls == 0,
           f"compute_dg_metrics launched {metrics_launches}, plain calls "
           f"{metrics_calls}")
@@ -2741,7 +2791,7 @@ def phase_dg(smi, work, recording):
     vs_golden = int((ours[pick] != golden_spikes(traces[pick])).sum())
     check(vs_golden == 0, f"DG epoch file: {vs_golden} spike mismatches vs "
                           f"float64")
-    file_twin = hold_to_twin(traces, metrics_launches["oasis_ar1/shared"],
+    file_twin = hold_to_twin(traces, launched("oasis_ar1", metrics_launches),
                              "DG epoch file")
     # the statistics on the card against the CPU, then the whole CLI with
     # --device cpu on a copy of the trials it reads, without their spikes:
@@ -2814,7 +2864,7 @@ def phase_dg(smi, work, recording):
             "cuda", "--verbose", "0"])
     mlp_s = time.perf_counter() - start
     mlp_launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
-    check(kernels_of(mlp_launches) == {"oasis_ar1/shared"}
+    check(short_ladder_only(mlp_launches)
           and mlp_launches["oasis_ar1/shared"] >= MLP_EPOCHS and calls == 0,
           f"mlp sampling epochs launched {mlp_launches}, plain calls {calls}")
     # 2 traces of 6 frames: fewer frames than a ring is deep, part of a warp
@@ -3171,7 +3221,7 @@ def phase_conv2d(smi, work, recording, versus=None):
         train_main.cli(flags)
     train_s = time.perf_counter() - start
     launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
-    check(kernels_of(launches) == {"oasis_ar1/shared"}
+    check(short_ladder_only(launches)
           and launches["oasis_ar1/shared"] >= CONV2D_EPOCHS and calls == 0,
           f"conv2d sampling epochs launched {launches}, plain calls {calls}")
     logs = [c["out"] for c in spy.calls["train_epoch"]
@@ -3215,7 +3265,7 @@ def phase_conv2d(smi, work, recording, versus=None):
     torch.cuda.synchronize()
     metrics_s = time.perf_counter() - start
     metrics_launches = dict(oasis_cuda.launches)
-    check(kernels_of(metrics_launches) == {"oasis_ar1/shared"}
+    check(short_ladder_only(metrics_launches)
           and oasis_torch.calls == 0,
           f"compute_metrics launched {metrics_launches}, plain calls "
           f"{oasis_torch.calls}")
@@ -3238,7 +3288,7 @@ def phase_conv2d(smi, work, recording, versus=None):
                       "--verbose", "0"])
     serve_s = time.perf_counter() - start
     serve_launches = dict(oasis_cuda.launches)
-    check(kernels_of(serve_launches) == {"oasis_ar1/shared"}
+    check(short_ladder_only(serve_launches)
           and oasis_torch.calls == 0,
           f"generate --spikes launched {serve_launches}, plain calls "
           f"{oasis_torch.calls}")
@@ -3342,7 +3392,7 @@ def phase_batch_norm(smi, work, records, signals):
                                    "--algorithm", "gan", "--ema", "0.999"))
     train_s = time.perf_counter() - start
     launches, calls = dict(oasis_cuda.launches), oasis_torch.calls
-    check(kernels_of(launches) == {"oasis_ar1/shared"}
+    check(short_ladder_only(launches)
           and launches["oasis_ar1/shared"] >= 2 and calls == 0,
           f"BatchNorm sampling epochs launched {launches}, plain calls "
           f"{calls}")
@@ -3460,7 +3510,8 @@ def phase_in_graph(smi, config, variables):
     check(spikes.shape == traces.shape and spikes.dtype == torch.float32
           and spikes.is_cuda and bool(((spikes == 0) | (spikes == 1)).all()),
           f"in-graph spikes {tuple(spikes.shape)} {spikes.dtype}")
-    check(launches == {"oasis_ar1/shared": 1} and calls == 0,
+    rows = math.prod(traces.shape[:-1])
+    check(launches == {classic_key(128, rows): 1} and calls == 0,
           f"in-graph launches {launches}, plain calls {calls}")
 
     # the same composition rebuilt: kernel rows where redo is 0, the while
@@ -3486,7 +3537,7 @@ def phase_in_graph(smi, config, variables):
     # the kernel at the in-graph setting against its plain version
     held = compare_kernel(traces, **dict(api, depth=128))
     check_equal(held, "classic, depth 128, merge budget 4")
-    check_variant(held, "oasis_ar1/shared", "classic, depth 128")
+    check_variant(held, classic_key(128, rows), "classic, depth 128")
     kernel_ms = cuda_ms(lambda: oasis_cuda.oasis_ar1_cuda(traces, **api),
                         reps=5)
 
@@ -3611,7 +3662,7 @@ def phase_sweep(smi, work, records):
                   and "signals_metrics/mean" in line["metrics"]
                   for line in lines), f"sweep results: {lines}")
     check(sorted(per_experiment) == [1, 2] and all(
-        kernels_of(e["launches"]) == {"oasis_ar1/shared"}
+        short_ladder_only(e["launches"])
         for e in per_experiment.values()) and calls == 0,
         f"sweep launches {per_experiment}, plain calls {calls}")
     sampled = sampled_vs_golden(spy.calls["sample_and_plot"], (102, T),
@@ -3892,7 +3943,7 @@ def _dp_launch(records, run, devices, backend, real, sliced=None) -> tuple:
         else [last]
     check(shards == named and sum(rows) == VAL_ROWS,
           f"{world} ranks' epoch files {shards}: {rows}")
-    check(kernels_of(first["launches"]) == {"oasis_ar1/shared"}
+    check(short_ladder_only(first["launches"])
           and first["plain_calls"] == 0
           and all(not r["launches"] and all(o is None for o in r["samples"])
                   for r in ranks[1:]),
@@ -4004,7 +4055,7 @@ def phase_data_parallel(smi, work, records, signals, one_process,
                 "all_gather_object": 1}
     check(backends == ["nccl"] and counted == expected
           and not dist.is_initialized()
-          and kernels_of(nccl_launches) == {"oasis_ar1/shared"},
+          and short_ladder_only(nccl_launches),
           f"--distributed: backend {backends}, collectives {counted} "
           f"(expected {expected}), launches {nccl_launches}")
 
@@ -4242,11 +4293,11 @@ def _par_launch(records, run, layout, backend, real, frames: int, m: int,
     check(shards == named and sum(s[0] for s in shapes) == rows[1]
           and all(tuple(s[1:]) == (frames, 102) for s in shapes),
           f"{what}: epoch files {shards}: {shapes}")
-    # a batch whose flagged share is large climbs the ladder: the deeper
-    # rungs of the long one keep their rings in device memory
-    check(f"{kernel}/shared" in first["launches"]
-          and kernels_of(first["launches"]) <= {f"{kernel}/shared",
-                                         f"{kernel}/device"}
+    # a batch whose flagged share is large climbs the ladder; rank 0
+    # deconvolves one sample's (neuron, time) traces a launch
+    keys = ladder_keys(kernel, frames, len(first["samples"][0][0]))
+    check(keys[0] in first["launches"]
+          and kernels_of(first["launches"]) <= set(keys)
           and first["plain_calls"] == 0
           and all(not r["launches"] and all(o is None for o in r["samples"])
                   for r in ranks[1:]),
@@ -4271,8 +4322,8 @@ def long_rungs(traces) -> dict:
     """Each rung of the long ladder that the dispatch climbs on host
     ``traces`` (N, T > 4096), as on the path that deconvolved them (every
     rung takes every trace): by depth, the dispatch's production
-    arguments, the launch counter's key (rings in shared memory at the
-    first rung, in device memory deeper), the kernel's time by CUDA events
+    arguments, the launch counter's key (its ring storage, the plan's),
+    the kernel's time by CUDA events
     on a card that runs nothing else, and its bound."""
     import numpy as np
     import torch
@@ -4283,9 +4334,8 @@ def long_rungs(traces) -> dict:
     found = {}
     for depth in dispatch._long_ladder(y.shape[-1])[:climbed]:
         prod = production(depth, precise=True)
-        storage = oasis_cuda.launch_plan(depth, True).storage
         found[depth] = dict(
-            prod=prod, variant=f"oasis_ar1_long_precise/{storage}",
+            prod=prod, variant=long_key(depth, len(y)),
             kernel_ms=cuda_ms(lambda: oasis_cuda.oasis_ar1_long(y, **prod),
                               reps=3), **bound(*y.shape, True))
     check(len(found) == climbed, f"long ladder: {climbed} launches on "
@@ -4809,10 +4859,9 @@ def phase_long_evaluation(work, train_run=None) -> dict:
     for key, value in results.items():
         check(np.isfinite(value), f"{key} of the long run: {value}")
     ladder = dispatch._long_ladder(frames)
-    storage = {d: oasis_cuda.launch_plan(d, True).storage for d in ladder}
     climbed = launched("oasis_ar1_long_precise", launches)
-    expected = collections.Counter(f"oasis_ar1_long_precise/{storage[d]}"
-                                   for d in ladder[:climbed])
+    expected = collections.Counter(ladder_keys(
+        "oasis_ar1_long_precise", frames, N * C)[:climbed])
     float32 = {k: n for k, n in launches.items() if k != EXACT_REDO}
     check(1 <= climbed <= len(ladder) and float32 == dict(expected)
           and main_run["plain_calls"] == 0,
@@ -4840,7 +4889,7 @@ def phase_long_evaluation(work, train_run=None) -> dict:
         c, s, redo = oasis_cuda.oasis_ar1_long(y, **prod)
         variant = list(oasis_cuda.launches - before)
         check_variant(dict(variant=variant),
-                      f"oasis_ar1_long_precise/{storage[depth]}",
+                      long_key(depth, len(y)),
                       f"long kernel at the evaluation chunk, depth {depth}")
         launched_rows[depth] = [x[at].cpu().numpy() for x in (c, s, redo)]
         flags = redo.cpu().numpy()
@@ -5129,7 +5178,7 @@ def _sweep_over_slices(records, work) -> dict:
               f"{slices}")
         check(len({r["digest"] for r in ranks}) == 1,
               f"{name}: the ranks' whole states differ")
-        check(kernels_of(first["launches"]) == {"oasis_ar1/shared"}
+        check(short_ladder_only(first["launches"])
               and all(not r["launches"] and not r["plain_calls"]
                       for r in ranks[1:]) and first["plain_calls"] == 0,
               f"{name}: sampling launches by rank "

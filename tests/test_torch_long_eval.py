@@ -185,10 +185,11 @@ def test_long_ladder_climbs_as_the_depth_flags_ask(monkeypatch, case, rungs):
         y[:2] = overflowing(rng, 2, 700)
         y[2] = overflowing(rng, 1, 1100)[0]
     seen = []
+    real = oasis_cuda.oasis_ar1  # the plain version for a CPU tensor
 
     def spy(signals, **kw):
         assert kw["precise"]
-        out = oasis_torch.oasis_ar1_torch(signals, **kw)
+        out = real(signals, **kw)
         seen.append((kw["depth"], out[2].numpy()))
         return out
 

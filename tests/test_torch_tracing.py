@@ -183,8 +183,10 @@ def test_deconvolve_file_reports_its_keys(tmp_path, flag_every_trace):
     report = spike_eval.deconvolve_file(tiny_config(), path, device="cpu")
     assert set(report) == {"read", "upload", "deconvolve", "write", "total",
                            "kernel", "spikes_to_host", "redo", "traces",
-                           "flagged", "bit0", "bit1", "bit2"}
+                           "flagged", "bit0", "bit1", "bit2",
+                           "window_moves"}
     assert report["traces"] == 4 * C
+    assert report["window_moves"] == 0  # the plain version's whole rings
     assert report["flagged"] <= report["traces"]
     assert report["kernel"] + report["redo"] <= report["deconvolve"]
 
