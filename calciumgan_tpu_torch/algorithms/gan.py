@@ -233,6 +233,7 @@ class GAN:
         self.discriminator = discriminator
         self.noise_dim = int(config.noise_dim)
         self.learning_rate = float(config.learning_rate)
+        self.betas = (float(config.adam_beta1), float(config.adam_beta2))
         self.ema = float(getattr(config, "ema", 0.0) or 0.0)
         if not 0.0 <= self.ema < 1.0:
             raise ValueError(f"--ema must be in [0, 1), got {self.ema}")
@@ -241,9 +242,10 @@ class GAN:
         ema = ({n: p.detach().clone()
                 for n, p in self.generator.named_parameters()}
                if self.ema > 0 else None)
-        return GANState(make_net_state(self.generator, self.learning_rate),
-                        make_net_state(self.discriminator,
-                                       self.learning_rate), ema)
+        return GANState(
+            make_net_state(self.generator, self.learning_rate, self.betas),
+            make_net_state(self.discriminator, self.learning_rate,
+                           self.betas), ema)
 
     # ------------------------------------------------------------------
     def update_ema(self, state: GANState) -> None:

@@ -2,8 +2,9 @@
 
 The JAX package keeps the whole state in one immutable pytree; here each
 net is its module, its Adam optimizer (optax's ``adam(lr, eps=1e-7)``:
-``betas=(0.9, 0.999)``, epsilon outside the square root, as Keras has it)
-and its update count, all updated in place. The optional generator EMA is a
+``betas=(0.9, 0.999)`` unless the config's ``adam_beta1``/``adam_beta2``
+say otherwise, epsilon outside the square root, as Keras has it) and its
+update count, all updated in place. The optional generator EMA is a
 copy of the generator's parameters, updated after each generator step and
 never fed back into training (``calciumgan_tpu/algorithms/gan.py:56-64,
 97-103``).
@@ -12,7 +13,7 @@ never fed back into training (``calciumgan_tpu/algorithms/gan.py:56-64,
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,9 +37,10 @@ class GANState:
     ema: Optional[Dict[str, torch.Tensor]] = None
 
 
-def make_net_state(module: nn.Module, learning_rate: float) -> NetState:
+def make_net_state(module: nn.Module, learning_rate: float,
+                   betas: Tuple[float, float] = (0.9, 0.999)) -> NetState:
     return NetState(module, torch.optim.Adam(
-        module.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-7))
+        module.parameters(), lr=learning_rate, betas=betas, eps=1e-7))
 
 
 def apply_updates(net: NetState, grads) -> None:

@@ -3,7 +3,9 @@
 of that package.
 
 The fields, their defaults and the ``hparams.json`` contract are the JAX
-package's, so either package reads the other's run directories:
+package's, so either package reads the other's run directories, plus the
+port's own :data:`PORT_FIELDS` (the JAX package reads them as extras, and
+the port gives a JAX run's file their defaults):
 
 - ``save()`` persists the full superset to ``<output_dir>/hparams.json``
   (atomically); in a data-parallel run rank 0 writes it, after every rank
@@ -22,6 +24,8 @@ from typing import Any, List, Optional, Tuple
 
 # Fields that are tuples on the python side but lists in JSON.
 _TUPLE_FIELDS = ("signal_shape", "spike_shape", "noise_shape")
+# Fields of the port alone, after the JAX package's.
+PORT_FIELDS = ("adam_beta1", "adam_beta2")
 
 
 @dataclass
@@ -69,6 +73,11 @@ class Config:
     checkpoint_every: int = 10
     device_store: str = "auto"
     device_store_mb: int = 4096
+
+    # --- additions of the port (PORT_FIELDS) ---
+    # Adam's betas: optax's defaults; WaveGAN's recipe trains at 0.5, 0.9
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
 
     # --- runtime state ---
     global_step: int = 0

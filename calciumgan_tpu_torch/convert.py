@@ -8,8 +8,9 @@ Flax names its submodules by class and order. The generator's (``Dense_0``,
 :class:`~calciumgan_tpu_torch.models.calciumgan.Generator` and
 :class:`~calciumgan_tpu_torch.models.calciumgan2d.Generator2D`; the
 discriminators' (``Conv_0..4``, ``Dense_0``) are ``conv.i`` and ``dense``.
-The ``calciumgan`` and ``calciumgan2d`` rules are one set, read off each
-kernel's rank. Layouts:
+The ``calciumgan``, ``calciumgan2d`` and ``wavegan_paper`` rules are one
+set, read off each kernel's rank (WaveGAN's generator has no ``Dense_1``
+and no ``Norm_i``). Layouts:
 
 - Dense kernel ``(in, out)`` -> Linear weight ``(out, in)``; each
   discriminator's ``Dense_0`` reads a channels-last flatten in both
@@ -49,7 +50,7 @@ _CONV_T = re.compile(r"ConvTranspose_(\d+)$")
 _NORM = re.compile(r"Norm_(\d+)$")
 _CONV = re.compile(r"Conv_(\d+)$")
 _DENSE_MODULE = re.compile(r"dense_(\d+)$")
-_CONV_MODELS = ("calciumgan", "calciumgan2d", "wavegan")
+_CONV_MODELS = ("calciumgan", "calciumgan2d", "wavegan", "wavegan_paper")
 _PARAM_FIELDS = ("weight", "bias")
 _NORM_FIELDS = ("scale", "bias")
 _STAT_FIELDS = ("mean", "var")

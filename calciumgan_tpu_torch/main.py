@@ -1,5 +1,6 @@
 """Train CalciumGAN with the PyTorch port (counterpart of ``main.py`` at the
-repo root; same flags and defaults, plus ``--device``).
+repo root; same flags and defaults, plus ``--device`` and Adam's
+``--adam_beta1``/``--adam_beta2``).
 
     python -m calciumgan_tpu_torch.main --input_dir dataset/tfrecords \\
         --output_dir runs/001 --batch_size 128 --num_units 64 --m 10 \\
@@ -92,6 +93,9 @@ def _parse(argv=None):
                              "gather batches there (auto: a GPU and the "
                              "signals fit --device_store_mb)")
     parser.add_argument("--device_store_mb", default=4096, type=int)
+    parser.add_argument("--adam_beta1", default=0.9, type=float)
+    parser.add_argument("--adam_beta2", default=0.999, type=float,
+                        help="Adam's betas (WaveGAN's recipe: 0.5, 0.9)")
     parser.add_argument("--distributed", action="store_true",
                         help="join the ranks torchrun started (RANK, "
                              "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "

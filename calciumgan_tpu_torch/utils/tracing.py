@@ -29,7 +29,13 @@ The spans, by layer:
   ``step/update`` (each Adam step), ``step/ema`` and ``step/metrics``;
   ``collective/all_reduce`` where ``mesh.gradient_mean`` runs one;
 - the train loop: ``data/gather`` (``DeviceStore.batch``) and
-  ``data/wait`` (``DevicePrefetcher``'s queue).
+  ``data/wait`` (``DevicePrefetcher``'s queue);
+- the layers (``models/base.py``): the counts ``conv/``,
+  ``conv_transpose1d/`` and ``conv_transpose2d/products`` and
+  ``work_products`` (what a layer's route multiplies, and the layer's own
+  work: without a convolution's zero taps, a 1-D transposed convolution's
+  cropped frames or the zeros of a dilated input) and ``conv/pad_bytes``
+  (what a convolution that pads asymmetrically copies to pad).
 
 :func:`device_work`, :func:`busy_seconds` and :func:`span_device_seconds`
 read a finished profile's events: the device's work without the

@@ -201,8 +201,23 @@ def _field_table(cls):
             for f in dataclasses.fields(cls)]
 
 
+def _jax_fields(table):
+    """The rows of the JAX package's fields: the port's own fields
+    (``PORT_FIELDS``) left out."""
+    return [row for row in table if row[0] not in port_config.PORT_FIELDS]
+
+
+def _port_defaults(cls=port_config.Config):
+    return {f.name: f.default for f in dataclasses.fields(cls)
+            if f.name in port_config.PORT_FIELDS}
+
+
 def test_config_fields_and_defaults_equal_jax():
-    assert _field_table(port_config.Config) == _field_table(jax_config.Config)
+    port = _field_table(port_config.Config)
+    assert _jax_fields(port) == _field_table(jax_config.Config)
+    assert [row[0] for row in port if row[0] in port_config.PORT_FIELDS] \
+        == list(port_config.PORT_FIELDS)
+    assert _port_defaults() == {"adam_beta1": 0.9, "adam_beta2": 0.999}
     assert port_config._TUPLE_FIELDS == jax_config._TUPLE_FIELDS
 
 
@@ -223,9 +238,16 @@ def test_config_hparams_round_trip(tmp_path, writer):
     run = str(tmp_path / "run")
     saved.save(os.path.join(run, "hparams.json"))
     loaded = reader(output_dir=run).load()
-    assert loaded.to_dict() == saved.to_dict() | {"output_dir": run}
+    # the port's own fields: JAX keeps a port file's as extras, the port
+    # gives a JAX file's their defaults
+    own = _port_defaults()
+    expected = saved.to_dict() | {"output_dir": run}
+    if writer == "jax":
+        expected |= own
+    assert loaded.to_dict() == expected
     assert loaded.signal_shape == (2048, 102)
-    assert loaded.extras == {"legacy_flag": 3}
+    assert loaded.extras == {"legacy_flag": 3} | (
+        own if writer == "port" else {})
     with open(os.path.join(run, "hparams.json")) as f:
         assert json.load(f)["ema"] == 0.99
 
@@ -236,7 +258,7 @@ def test_config_load_keeps_cli_flags_as_jax_does(tmp_path):
                               num_samples=10)
     ours = port_config.Config.from_args(args).load()
     theirs = jax_config.Config.from_args(args).load()
-    assert ours.to_dict() == theirs.to_dict()
+    assert ours.to_dict() == theirs.to_dict() | _port_defaults()
     assert ours.seed == 1234 and ours.ema == 0.99
 
 
